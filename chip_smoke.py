@@ -1,0 +1,563 @@
+#!/usr/bin/env python3
+"""Chip check of the PyTorch/CUDA port on one NVIDIA H100.
+
+Run from the root of a checkout, on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
+against its plain PyTorch version at llama3-8b's shapes (every weight codec
+at densities 1.0 and 0.5, every KV pool kind with window and softcap
+variants), times each beside its plain version, a PyTorch library call of
+the same function and the least time the card could take, then stands up
+full-width llama3-8b with bf8_50-compressed weights on the card and serves
+8 greedy requests through `GenerationEngine`, checking that every kernel
+carried the run, that the kernel path's logits agree with the plain path's
+and that an lm_head GeMV never holds a dense weight. It imports nothing of
+JAX. Details of every case go to chiprun_out/chip_smoke.json. The last line
+is a JSON object with "ok" and the device; the line before it lists the
+kernels. Without a card, or without the port beside it, it exits non-zero
+and prints no result.
+"""
+from __future__ import annotations
+
+import contextlib
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out"
+
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+# llama3-8b FC shapes (K, N) and their role
+FC_SHAPES = [(4096, 4096, "q/o"), (4096, 1024, "k/v"), (4096, 14336, "gate/up"),
+             (14336, 4096, "down"), (4096, 128256, "lm_head")]
+SERVED_SPEC = "bf8_50"
+SERVED_KV = "int8"
+CODECS = ("bf16", "bf8", "mxfp4", "int8", "int4", "nf4")
+KV_KINDS = ("none", "bf8", "int8", "int4", "mxfp4", "nf4")
+# kernel vs plain version on the same inputs, relative to max|plain|: the
+# same exact bf16 products summed in f32 in another order (GeMV / GeMM,
+# K <= 14336), and an f32 online softmax in another order (attention)
+KERNEL_TOL = 1e-4
+# kernel path vs plain path through 32 bf16 layers, relative to max|plain|
+LOGIT_TOL = 5e-2
+
+
+_LOG = []
+
+
+def log(*parts):
+    """Print a line and keep it for chiprun_out/chip_smoke.log."""
+    line = " ".join(str(p) for p in parts)
+    print(line, flush=True)
+    _LOG.append(line)
+    if OUT.is_dir():
+        (OUT / "chip_smoke.log").write_text("\n".join(_LOG) + "\n")
+
+
+def bound_ms(nbytes: float, flops: float):
+    t_mem, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
+    return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
+
+
+class Timer:
+    """Median device time of `fn` with CUDA events, each run after a 256 MB
+    write that evicts the 50 MB L2, as the serving path streams a weight
+    or KV page cold. The write also keeps the card busy while the host
+    enqueues `fn`, so the start event does not time the launch overhead."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, reps: int = 10, warm: int = 2) -> float:
+        torch = self.torch
+        for _ in range(warm):
+            fn()
+        times = []
+        for _ in range(reps):
+            self.flush.fill_(1)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return sorted(times)[len(times) // 2]
+
+
+def rel_err(got, want) -> tuple:
+    d = (got.float() - want.float()).abs().max().item()
+    return d, d / max(want.float().abs().max().item(), 1e-30)
+
+
+def check_matmuls(torch, timer, report):
+    """GeMV (M in 1, 4, 32) and GeMM (M in 64, 2048) against their plain
+    versions for every FC shape, codec and density; timed at the served
+    codec."""
+    from repro_torch.core.compression import compress
+    from repro_torch.core.formats import CompressionSpec
+    from repro_torch.kernels import deca_gemm, ref
+
+    cases, worst = [], {"gemv": 0.0, "gemm": 0.0}
+    g = torch.Generator(device="cuda").manual_seed(1)
+    for k, n, role in FC_SHAPES:
+        w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
+        xs = {m: torch.randn(m, k, generator=g, device="cuda").bfloat16().float()
+              for m in (1, 4, 32, 64, 2048)}
+        for quant in CODECS:
+            for dens in (1.0, 0.5):
+                spec = CompressionSpec(quant, dens)
+                ct = compress(w, spec)
+                errs = {"gemv": [], "gemm": []}
+                for m, x in xs.items():
+                    kind = "gemv" if m <= 32 else "gemm"
+                    kern = deca_gemm.decompress_gemv if kind == "gemv" else deca_gemm.decompress_gemm
+                    plain = ref.decompress_gemv if kind == "gemv" else ref.decompress_gemm
+                    got, want = kern(x, ct), plain(x, ct)
+                    torch.cuda.synchronize()
+                    err, rel = rel_err(got, want)
+                    worst[kind] = max(worst[kind], rel)
+                    case = {"kernel": kind, "role": role, "K": k, "N": n, "M": m,
+                            "spec": spec.name, "max_abs_err": err, "rel_err": rel}
+                    if spec.name == SERVED_SPEC:
+                        xb = x.bfloat16()
+                        dense = ref.decompress(ct, torch.bfloat16)
+                        case["ms"] = timer(lambda: kern(xb, ct, out_dtype=torch.bfloat16))
+                        case["plain_ms"] = timer(lambda: plain(xb, ct, out_dtype=torch.bfloat16), reps=3)
+                        case["library_ms"] = timer(lambda: torch.matmul(xb, dense))
+                        case["bound_ms"], case["bound_by"] = bound_ms(
+                            ct.nbytes + 2 * m * k + 2 * m * n, 2.0 * m * k * n)
+                        del dense
+                        log(f"{kind} {role:8s} M={m:5d} {spec.name}: rel_err {rel:.2e} "
+                            f"kernel {case['ms']:.4f} ms plain {case['plain_ms']:.4f} ms "
+                            f"library {case['library_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
+                            f"({case['bound_by']})")
+                    if rel > KERNEL_TOL:
+                        raise AssertionError(f"{kind} disagrees with its plain version: {case}")
+                    cases.append(case)
+                    errs[kind].append(f"M={m} {rel:.2e}")
+                for kind, row in errs.items():
+                    log(f"  {kind} {role:8s} {spec.name:9s} rel err: {', '.join(row)}")
+                del ct
+        del w, xs
+        torch.cuda.empty_cache()
+    log(f"gemv: {sum(c['kernel'] == 'gemv' for c in cases)} cases, max rel err "
+        f"{worst['gemv']:.2e}; gemm: {sum(c['kernel'] == 'gemm' for c in cases)} cases, "
+        f"max rel err {worst['gemm']:.2e} (tolerance {KERNEL_TOL})")
+    report["matmul_cases"] = cases
+    return cases
+
+
+def _attention_inputs(torch, kind, g):
+    """llama3-8b decode attention: 4 slots with ragged lengths up to 2048
+    over a 32-token-page pool quantized with `kind`, pages shuffled."""
+    from repro_torch.kernels.ref import CACHE_EMPTY_POS
+    from repro_torch.models import layers
+
+    b, hq, hkv, dh, bs, mb = 4, 32, 8, 128, 32, 64
+    kv_lens = torch.tensor([2048, 1500, 777, 64], dtype=torch.int32, device="cuda")
+    pools = layers.init_paged_kv_cache(b * mb + 1, bs, hkv, dh, device="cuda", quant=kind)
+    perm = torch.randperm(b * mb, generator=g, device="cuda").reshape(b, mb) + 1
+    used = torch.arange(mb, device="cuda")[None] < (kv_lens[:, None] + bs - 1) // bs
+    tables = torch.where(used, perm, torch.zeros_like(perm)).to(torch.int32)
+    s = mb * bs
+    pos = torch.arange(s, device="cuda")[None].expand(b, s)
+    live = pos < kv_lens[:, None].long()
+    slots = torch.where(live, tables.long().gather(1, pos // bs) * bs + pos % bs, pos % bs)
+    wpos = torch.where(live, pos, torch.full_like(pos, CACHE_EMPTY_POS))
+    k = torch.randn(b, s, hkv, dh, generator=g, device="cuda").bfloat16()
+    v = torch.randn(b, s, hkv, dh, generator=g, device="cuda").bfloat16()
+    layers.paged_update_cache(pools, k, v, wpos, slots, quant=kind)
+    q = torch.randn(b, hq, dh, generator=g, device="cuda").bfloat16().float()
+    return q, pools, tables, kv_lens, (kv_lens - 1)
+
+
+def check_attention(torch, timer, report):
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.kernels import paged_attention, ref
+    from repro_torch.models import layers
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    cases, worst = [], 0.0
+    for kind in KV_KINDS:
+        q, pools, tables, kv_lens, q_pos = _attention_inputs(torch, kind, g)
+        errs = []
+        for variant, kw in (("plain", {}), ("window", {"window": 512}),
+                            ("softcap", {"softcap": 50.0})):
+            args = (q, pools, tables, kv_lens, q_pos)
+            got = paged_attention.paged_attention(*args, quant=kind, **kw)
+            want = ref.paged_decode_attention(*args, quant=kind, **kw)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            worst = max(worst, rel)
+            errs.append(f"{variant} {rel:.2e}")
+            case = {"kind": kind, "variant": variant, "max_abs_err": err, "rel_err": rel}
+            if variant == "plain":
+                qb = q.bfloat16()
+                bargs = (qb,) + args[1:]
+                case["ms"] = timer(lambda: paged_attention.paged_attention(*bargs, quant=kind))
+                case["plain_ms"] = timer(lambda: ref.paged_decode_attention(*bargs, quant=kind), reps=3)
+                kg, vg, kpos = layers.paged_gather_kv(pools, tables, kind)
+                # (B, Hq, T, Dh): each KV head serves its 4 query heads
+                kt = kg.transpose(1, 2).repeat_interleave(4, dim=1)
+                vt = vg.transpose(1, 2).repeat_interleave(4, dim=1)
+                mask = (kpos <= q_pos[:, None]) & (kpos != ref.CACHE_EMPTY_POS)
+                sdpa = torch.nn.functional.scaled_dot_product_attention
+                case["library_ms"] = timer(lambda: sdpa(
+                    qb[:, :, None], kt, vt, attn_mask=mask[:, None, None]))
+                codec = get_codec(kind) if kind != "none" else None
+                w = codec.kv_code_width(128) if codec else 256  # bytes per head vector
+                per_tok = 8 * (2 * w + (4 if codec and codec.has_scale else 0)) + 4
+                pages = ((kv_lens + 31) // 32).sum().item()
+                toks = kv_lens.sum().item()
+                case["bound_ms"], case["bound_by"] = bound_ms(
+                    pages * 32 * per_tok + 2 * qb.numel() * 2 + 4 * 4 * 64,
+                    4.0 * 32 * 128 * toks)
+                log(f"attention {kind:5s}: rel_err {rel:.2e} kernel {case['ms']:.4f} ms "
+                    f"plain {case['plain_ms']:.4f} ms sdpa {case['library_ms']:.4f} ms "
+                    f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+                del kg, vg, kt, vt
+                if kind == SERVED_KV:
+                    no_gathered_kv(torch, paged_attention.paged_attention, bargs, kind, report)
+            if rel > KERNEL_TOL:
+                raise AssertionError(f"paged attention disagrees with its plain version: {case}")
+            cases.append(case)
+        log(f"  attention {kind:5s} rel err: {', '.join(errs)}")
+        del pools
+    log(f"attention: {len(cases)} cases, max rel err {worst:.2e} (tolerance {KERNEL_TOL})")
+    report["attention_cases"] = cases
+    return cases
+
+
+def check_compressed_leaf(torch, cfg, leaf, spec):
+    """The served model's layer-0 wq, compressed on the card while the model
+    was built, is bitwise what `compress` gives on a CPU copy of the same
+    dense weight. The weight is drawn again by replaying `Model.init`'s
+    draws from the same seed: embed, lm_head, then layer 0's wq."""
+    from repro_torch.core.compression import compress
+    from repro_torch.models.layers import dense_init
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    torch.randn((cfg.vocab_size, cfg.d_model), generator=g, device="cuda")
+    torch.randn((cfg.d_model, cfg.vocab_size), generator=g, device="cuda")
+    w = dense_init(g, (cfg.d_model, cfg.n_heads * cfg.d_head), "cuda", torch.bfloat16)
+    torch.cuda.empty_cache()
+    on_card, on_cpu = compress(w, spec), compress(w.cpu(), spec)
+    for plane in ("codes", "mask", "scales"):
+        a, b, c = (getattr(t, plane) for t in (leaf, on_card, on_cpu))
+        if (a is None) != (c is None) or (b is None) != (c is None):
+            raise AssertionError(f"{plane}: planes present differ")
+        if a is not None and not (torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c)):
+            raise AssertionError(f"layer-0 wq {plane}: card and CPU compression differ")
+    log(f"the served layer-0 wq ({tuple(w.shape)}, {spec.name}) == compress of its dense "
+        f"weight on the card == compress on the CPU, bitwise, every plane")
+
+
+def no_gathered_kv(torch, attend, args, kind, report):
+    """One decode attention call over 4 slots of up to 2048 tokens never
+    holds the gathered dense (bf16) K and V of its pages."""
+    q, _, tables = args[:3]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    attend(*args, quant=kind)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    hkv, bs = 8, 32
+    gathered = 2 * tables.numel() * bs * hkv * q.shape[-1] * 2
+    log(f"paged attention ({kind}) peak extra allocation {extra / 1e6:.3f} MB < gathered "
+        f"bf16 K+V {gathered / 1e6:.1f} MB: {extra < gathered}")
+    report["attention_peak_extra_bytes"] = extra
+    if extra >= gathered:
+        raise AssertionError("paged attention allocated a gathered KV's worth of memory")
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's kernel calls to their plain versions (the
+    comparison path of this check only)."""
+    from repro_torch.kernels import deca_gemm, paged_attention, ref
+
+    saved = (deca_gemm.decompress_gemv, deca_gemm.decompress_gemm,
+             paged_attention.paged_attention)
+    deca_gemm.decompress_gemv = ref.decompress_gemv
+    deca_gemm.decompress_gemm = ref.decompress_gemm
+    paged_attention.paged_attention = ref.paged_decode_attention
+    try:
+        yield
+    finally:
+        (deca_gemm.decompress_gemv, deca_gemm.decompress_gemm,
+         paged_attention.paged_attention) = saved
+
+
+def compare_paths(torch, model, params, report):
+    """Prefill and decode-step logits of the kernel path against the plain
+    path on the card, on the same tokens and the same fresh pools."""
+    from repro_torch.serve.engine import make_paged_prefill_step
+
+    bs, n = 32, 224
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, model.cfg.vocab_size, (1, n), generator=g, device="cuda")
+    pos = torch.arange(n, device="cuda", dtype=torch.int32)[None]
+    tables = torch.zeros(1, 64, dtype=torch.int32, device="cuda")
+    tables[0, :16] = torch.arange(1, 17)
+    slots = (tables[0, pos[0].long() // bs] * bs + pos[0] % bs)[None]
+    fresh = tables[0, :8].clone()
+    last = torch.tensor([n - 1], device="cuda")
+    results, fed, steps = {}, [], 4
+    zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    for path in ("kernel", "plain"):
+        ctx = plain_kernels() if path == "plain" else contextlib.nullcontext()
+        with ctx:
+            pools = model.init_paged_cache(16, bs, device="cuda")
+            logits, pools = make_paged_prefill_step(model)(
+                params, tokens, pos, pools, tables, slots, pos, fresh, last)
+            outs = [logits.float()]
+            for j in range(steps):
+                if path == "kernel":  # both paths are fed the kernel path's tokens
+                    fed.append(outs[-1].argmax(-1).to(torch.int32)[:, None])
+                p = n + j
+                step_pos = torch.tensor([[p]], dtype=torch.int32, device="cuda")
+                step_slot = (tables[0, p // bs] * bs + p % bs).reshape(1, 1)
+                lg, pools = model.decode_step_paged(
+                    params, fed[j], step_pos, pools, tables, step_slot, step_pos,
+                    zero, torch.tensor([p + 1], dtype=torch.int32, device="cuda"))
+                outs.append(lg.float())
+            torch.cuda.synchronize()
+            results[path] = outs
+            del pools
+    rows = []
+    for j, (a, b) in enumerate(zip(results["kernel"], results["plain"])):
+        err, rel = rel_err(a, b)
+        rows.append({"step": "prefill" if j == 0 else f"decode{j}", "max_abs_err": err,
+                     "rel_err": rel, "argmax_equal": bool((a.argmax(-1) == b.argmax(-1)).all())})
+    agree = sum(r["argmax_equal"] for r in rows)
+    worst = max(r["rel_err"] for r in rows)
+    log(f"kernel path vs plain path logits: max rel err {worst:.3e} over prefill + "
+        f"{steps} decode steps (tolerance {LOGIT_TOL}); greedy-token agreement "
+        f"{agree}/{len(rows)}")
+    report["path_comparison"] = rows
+    if worst > LOGIT_TOL:
+        raise AssertionError(f"kernel path logits disagree with the plain path: {rows}")
+
+
+def profile_serving(torch, eng, prompts, report):
+    """Device time by kernel over a short second serving pass (4 requests,
+    16 new tokens), traced with torch.profiler. The profiler slows the host,
+    so the idle share it gives is an upper bound."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for p in prompts:
+        eng.submit(p, max_new_tokens=16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = [  # kernels only: an operator's annotation row repeats its kernels' time
+        {"name": evt.key, "device_ms": evt.self_device_time_total / 1e3, "count": evt.count}
+        for evt in prof.key_averages()
+        if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+        and not getattr(evt, "is_user_annotation", False) and not evt.key.startswith("aten::")
+    ]
+    rows.sort(key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    report["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy, "rows": rows[:40]}
+    if not rows:
+        log("profiler: no device time recorded")
+        return
+    log(f"profiled pass: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+        f"{1 - busy / wall_ms:.3f} (upper bound: the profiler slows the host)")
+    ours = ("::gemv_kernel", "::splitk_reduce", "::gemm_kernel", "::paged_attention_kernel")
+    deca = sum(r["device_ms"] for r in rows if any(k in r["name"] for k in ours))
+    log(f"  port kernels and split-K reduce {deca:.1f} ms, other kernels {busy - deca:.1f} ms")
+    for r in rows[:8]:
+        log(f"  {r['device_ms']:9.2f} ms {r['count']:6d}x  {r['name'][:90]}")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: run it from the root of a checkout (src/repro_torch "
+              "not found)", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.decompress import compressed_bytes
+    from repro_torch.core.formats import get_spec
+    from repro_torch.kernels import cuda, deca_gemm, ops, paged_attention
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import GenerationEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    report = {}
+    t_start = time.perf_counter()
+
+    # 1. the card
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(smi)
+    kind = torch.cuda.get_device_name(0)
+    log(f"device {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"python {sys.version.split()[0]}")
+    report["card"] = {"nvidia_smi": smi, "name": kind}
+
+    # 2. build every kernel of the path, one nvcc per source, all at once
+    t0 = time.perf_counter()
+    ptxas = cuda.build()
+    (OUT / "ptxas.txt").write_text("\n\n".join(f"== {k}\n{v}" for k, v in ptxas.items()))
+    log(f"built {sorted(ptxas) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s "
+        f"(ptxas report: chiprun_out/ptxas.txt)")
+
+    # 3. each kernel against its plain version at the path's shapes
+    timer = Timer(torch)
+    mm_cases = check_matmuls(torch, timer, report)
+    att_cases = check_attention(torch, timer, report)
+    del timer
+    torch.cuda.empty_cache()
+
+    # 4. full-width llama3-8b, each layer compressed on the card as drawn
+    cfg = get_config("llama3-8b")
+    spec = get_spec(SERVED_SPEC)
+    model = Model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda", spec=spec)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    nbytes = compressed_bytes(params)
+    log(f"llama3-8b full width ({cfg.n_layers} layers, d_model {cfg.d_model}, vocab "
+        f"{cfg.vocab_size}) built and compressed to {SERVED_SPEC} on the card in "
+        f"{t_build:.1f} s: {nbytes / 1e9:.3f} GB of params, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    report["model"] = {"build_s": t_build, "param_bytes": nbytes}
+    check_compressed_leaf(torch, cfg, params["layers"][0]["attn"]["wq"], spec)
+
+    # 5. serve 8 greedy requests through the engine; counters read the run
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8)
+    rng = torch.Generator().manual_seed(4)
+    lens = torch.randint(64, 1025, (8,), generator=rng).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy() for n in lens]
+    sched = eng.scheduler
+    walls = {"prefill": 0.0, "decode": 0.0}
+
+    def timed(name, fn):
+        def run(*a):
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            walls[name] += time.perf_counter() - t
+            return out
+        return run
+
+    sched._prefill = timed("prefill", sched._prefill)
+    sched._decode_chunk = timed("decode", sched._decode_chunk)
+    rids = [eng.submit(p, max_new_tokens=64) for p in prompts]
+    torch.cuda.reset_peak_memory_stats()
+    deca_gemm.decompress_gemv.launches = 0
+    deca_gemm.decompress_gemm.launches = 0
+    paged_attention.paged_attention.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"deca_gemv": deca_gemm.decompress_gemv.launches,
+                "deca_gemm": deca_gemm.decompress_gemm.launches,
+                "deca_paged_attention": paged_attention.paged_attention.launches}
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = sum(len(done[r]) for r in rids)
+    st = sched.stats()
+    log(f"served {len(rids)} requests (prompt lengths {lens}) x 64 new tokens, "
+        f"kv {SERVED_KV}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; "
+        f"prefill {walls['prefill']:.2f} s over {st['prefill_calls']} calls, decode "
+        f"{walls['decode']:.2f} s over {st['decode_chunks']} chunks / {st['decode_steps']} "
+        f"steps = {st['active_slot_steps'] / max(walls['decode'], 1e-9):.1f} tok/s; "
+        f"peak device memory {peak / 1e9:.2f} GB")
+    steps_run = launches["deca_paged_attention"] / cfg.n_layers  # one per layer a step
+    log(f"launches on the served run: {launches}; per decode step: deca_gemv "
+        f"{launches['deca_gemv'] / max(steps_run, 1):.1f}, deca_paged_attention "
+        f"{cfg.n_layers}; per prefill call: deca_gemm "
+        f"{launches['deca_gemm'] / max(st['prefill_calls'], 1):.1f}")
+    report["serve"] = {"prompt_lens": lens, "tokens": n_tok, "wall_s": wall,
+                       "prefill_s": walls["prefill"], "decode_s": walls["decode"],
+                       "peak_bytes": peak, "launches": launches, "stats": st}
+    if any(len(done[r]) != 64 for r in rids):
+        raise AssertionError("a request did not emit its 64 tokens")
+    if not all(0 <= int(t) < cfg.vocab_size for r in rids for t in done[r]):
+        raise AssertionError("a token lies outside the vocabulary")
+    idle = [k for k, v in launches.items() if v == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the main path: {idle}")
+
+    profile_serving(torch, eng, [p[:512] for p in prompts[:4]], report)
+    compare_paths(torch, eng.model, params, report)
+
+    # the lm_head GeMV never holds the dense (4096, 128256) weight
+    x = torch.randn(4, cfg.d_model, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.decompress_gemm(x, params["lm_head"], out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    dense = cfg.d_model * cfg.vocab_size * 2
+    log(f"lm_head GeMV peak extra allocation {extra / 1e6:.2f} MB < dense bf16 weight "
+        f"{dense / 1e6:.1f} MB: {extra < dense}")
+    report["lm_head_peak_extra_bytes"] = extra
+    if extra >= dense:
+        raise AssertionError("the lm_head GeMV allocated a dense weight's worth of memory")
+
+    (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
+    log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
+
+    def pick(cases, **want):
+        return next(c for c in cases if all(c.get(k) == v for k, v in want.items()))
+
+    gv = pick(mm_cases, kernel="gemv", role="gate/up", M=4, spec=SERVED_SPEC)
+    gm = pick(mm_cases, kernel="gemm", role="gate/up", M=2048, spec=SERVED_SPEC)
+    at = pick(att_cases, kind=SERVED_KV, variant="plain")
+    csrc = "src/repro_torch/csrc/"
+    rows = [
+        ("deca_gemv", csrc + "deca_gemm.cu", "src/repro/kernels/deca_gemm.py:176", gv),
+        ("deca_gemm", csrc + "deca_gemm.cu", "src/repro/kernels/deca_gemm.py:104", gm),
+        ("deca_paged_attention", csrc + "paged_attention.cu",
+         "src/repro/kernels/paged_attention.py:118", at),
+    ]
+    worst_abs = {  # over every case each kernel was held on
+        "deca_gemv": max(c["max_abs_err"] for c in mm_cases if c["kernel"] == "gemv"),
+        "deca_gemm": max(c["max_abs_err"] for c in mm_cases if c["kernel"] == "gemm"),
+        "deca_paged_attention": max(c["max_abs_err"] for c in att_cases),
+    }
+    kernels = [{
+        "name": name, "route": "cuda", "source": src, "replaces": rep,
+        "launches": launches[name], "max_abs_err": worst_abs[name], "ms": c["ms"],
+        "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
+        "library_ms": c["library_ms"],
+    } for name, src, rep, c in rows]
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

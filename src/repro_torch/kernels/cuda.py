@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
+library with a plain C interface, loaded with `ctypes`. A library is built
+at its first use into `build/` beside the sources (listed in .gitignore),
+named by a hash of the sources, so an edited kernel is never served from a
+stale build. `build(names)` starts one `nvcc` per source at once.
+Nothing here runs at import: the CPU tests import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, Iterable
+
+_PKG = Path(__file__).resolve().parents[1]
+CSRC = _PKG / "csrc"
+BUILD = _PKG / "build"
+LIBRARIES = ("deca_gemm", "paged_attention")
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _target(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _command(name: str, out: Path):
+    return [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+        "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu"),
+    ]
+
+
+def build(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
+    """Compile the named libraries that are not built yet, all at once.
+    Returns each compiled library's `ptxas -v` report; raises with the
+    compiler's output if any build fails."""
+    BUILD.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = _target(name)
+        if not out.exists():
+            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+            procs[name] = (out, tmp, subprocess.Popen(
+                _command(name, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True,
+            ))
+    reports, failed = {}, []
+    for name, (out, tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        reports[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        else:
+            tmp.replace(out)
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
+    """The loaded library `name`, built first if needed. `signatures` maps
+    each C function to its ctypes argument types; every function returns
+    the launch's `cudaGetLastError()` as an int."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        for fn, argtypes in signatures.items():
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = ctypes.c_int
+        _loaded[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch reported a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")

@@ -1,0 +1,244 @@
+"""The dense GQA decoder over the block-paged KV pool.
+
+Counterpart of `repro/models/model.py` for the paged serving path of a
+dense attention stack (llama3-8b). Layers are kept per layer in a list
+rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
+as a Python loop with the done flags on the device, so only the sampled
+(C, B) tokens cross to the host, once per chunk. Every FC matmul goes
+through `core.decompress.mm` (the DECA GeMM/GeMV kernels for compressed
+weights) and decode attention through the fused paged-attention kernel.
+
+Params are a dict of tensors: {"embed", "final_norm", "lm_head",
+"layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "pre_mlp_norm",
+"mlp": {w_gate, w_up, w_down}}, ...]}.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.decompress import compress_tree, mm
+from repro_torch.core.formats import CompressionSpec
+from repro_torch.device import resolve
+from repro_torch.models import layers as L
+
+Params = Dict[str, Any]
+Pools = List[Dict[str, torch.Tensor]]
+
+
+def _unsupported(cfg: ModelConfig) -> List[str]:
+    """Config features outside this slice of the port (ROADMAP Queue A
+    item 10: remaining model families)."""
+    checks = {
+        "family": cfg.family != "dense",
+        "n_experts": cfg.n_experts > 0,
+        "attn_pattern": cfg.attn_pattern != "global",
+        "mrope_sections": bool(cfg.mrope_sections),
+        "pos_emb": cfg.pos_emb != "rope",
+        "mlp_act": cfg.mlp_act != "swiglu",
+        "post_norms": cfg.post_norms,
+        "tie_embeddings": cfg.tie_embeddings,
+        "embed_scale": cfg.embed_scale,
+        "final_softcap": cfg.final_softcap > 0,
+    }
+    return [name for name, bad in checks.items() if bad]
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig):
+        bad = _unsupported(cfg)
+        if bad:
+            raise NotImplementedError(
+                f"{cfg.name}: {bad} are not ported yet (ROADMAP Queue A item 10)"
+            )
+        L.kv_codec(cfg.kv_quant)  # fail fast on a non-KV codec
+        self.cfg = cfg
+        self.kinds = cfg.layer_kinds()
+
+    # ------------------------------------------------------------------
+    # init
+    # ------------------------------------------------------------------
+    def init_block(self, generator: torch.Generator, *, device, dtype) -> Params:
+        cfg = self.cfg
+        return {
+            "pre_norm": torch.zeros(cfg.d_model, device=device),
+            "attn": L.init_attention(generator, cfg, device, dtype),
+            "pre_mlp_norm": torch.zeros(cfg.d_model, device=device),
+            "mlp": L.init_mlp(generator, cfg, device, dtype),
+        }
+
+    def init(
+        self,
+        generator: torch.Generator,
+        *,
+        device="cuda",
+        dtype=torch.bfloat16,
+        spec: Optional[CompressionSpec] = None,
+    ) -> Params:
+        """Random weights from `generator` (which must live on `device`).
+        With `spec`, each layer's FC weights are compressed on the device as
+        soon as the layer is drawn, so the dense model never exists whole."""
+        cfg = self.cfg
+        device = resolve(device)
+
+        def shrink(tree):
+            return compress_tree(tree, spec) if spec is not None else tree
+
+        embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
+                            device=device) * 0.02
+        params: Params = {
+            "embed": embed.to(dtype),
+            "final_norm": torch.zeros(cfg.d_model, device=device),
+        }
+        del embed
+        params["lm_head"] = shrink({"lm_head": L.dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), device, dtype
+        )})["lm_head"]
+        params["layers"] = [
+            shrink(self.init_block(generator, device=device, dtype=dtype))
+            for _ in range(cfg.n_layers)
+        ]
+        return params
+
+    # ------------------------------------------------------------------
+    # paged KV pools
+    # ------------------------------------------------------------------
+    def init_paged_cache(
+        self, num_blocks: int, block_size: int, *, device="cuda",
+        dtype=torch.bfloat16,
+    ) -> Pools:
+        """One pool per layer: `num_blocks` allocatable pages plus the null
+        page (device row 0), quantized with `cfg.kv_quant`."""
+        cfg = self.cfg
+        device = resolve(device)
+        return [
+            L.init_paged_kv_cache(
+                num_blocks + 1, block_size, cfg.n_kv_heads, cfg.d_head,
+                device=device, dtype=dtype, quant=cfg.kv_quant,
+            )
+            for _ in self.kinds
+        ]
+
+    def paged_scrub(self, pools: Pools, pages: torch.Tensor) -> Pools:
+        """Scrub the position plane of `pages` (0 = the null page, a no-op)
+        to the empty sentinel in every layer, in place: the out-of-step form
+        of the fresh-page scrub, for rounds that recycle more pages than a
+        step's fixed fresh-page width carries."""
+        idx = pages.long()
+        for cache in pools:
+            cache["ppos"][idx] = L.CACHE_EMPTY_POS
+        return pools
+
+    # ------------------------------------------------------------------
+    # forward
+    # ------------------------------------------------------------------
+    def _block_apply(self, p, x, kind, positions, cache, paged):
+        cfg = self.cfg
+        h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
+        out, cache = L.paged_attention_block(
+            p["attn"], h, cfg, positions=positions,
+            local=(kind == "attn_local"), cache=cache,
+            block_tables=paged["block_tables"],
+            write_slots=paged["write_slots"],
+            write_pos=paged["write_pos"],
+            fresh_pages=paged.get("fresh_pages"),
+            kv_lens=paged.get("kv_lens"),
+            copy_pages=paged.get("copy_pages"),
+        )
+        x = x + out
+        h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
+        return x + L.mlp_block(p["mlp"], h, cfg), cache
+
+    def forward(
+        self,
+        params: Params,
+        *,
+        tokens: torch.Tensor,     # (B, S) int
+        positions: torch.Tensor,  # (B, S) per-request positions
+        cache: Pools,
+        paged: Dict[str, torch.Tensor],
+    ) -> Tuple[torch.Tensor, Pools]:
+        """Returns (logits (B, S, V) f32, pools updated in place).
+
+        `paged` holds {block_tables (B, MB), write_slots (B, S), write_pos
+        (B, S)} and optionally fresh_pages (F,), copy_pages (C, 2) and a
+        kv_lens (B,) vector that routes S == 1 steps through the fused
+        paged-attention kernel."""
+        cfg = self.cfg
+        x = params["embed"][tokens.long()].to(torch.bfloat16)
+        new_cache = []
+        for p, kind, cache_l in zip(params["layers"], self.kinds, cache):
+            x, cache_l = self._block_apply(p, x, kind, positions, cache_l, paged)
+            new_cache.append(cache_l)
+        x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+        logits = mm(x.to(torch.float32), params["lm_head"])
+        return logits, new_cache
+
+    def decode_step_paged(
+        self,
+        params: Params,
+        tokens: torch.Tensor,        # (B, 1)
+        positions: torch.Tensor,     # (B, 1)
+        cache: Pools,
+        block_tables: torch.Tensor,  # (B, MB)
+        write_slots: torch.Tensor,   # (B, 1)
+        write_pos: torch.Tensor,     # (B, 1)
+        fresh_pages: torch.Tensor,   # (F,) pages newly allocated this step
+        kv_lens: Optional[torch.Tensor] = None,  # (B,)
+    ) -> Tuple[torch.Tensor, Pools]:
+        """One next-token step over the continuous-batching slots."""
+        logits, cache = self.forward(
+            params, tokens=tokens, positions=positions, cache=cache,
+            paged={
+                "block_tables": block_tables,
+                "write_slots": write_slots,
+                "write_pos": write_pos,
+                "fresh_pages": fresh_pages,
+                "kv_lens": kv_lens,
+            },
+        )
+        return logits[:, -1, :], cache
+
+    def decode_chunk_paged(
+        self,
+        params: Params,
+        tokens0: torch.Tensor,       # (B, 1) last sampled token per slot
+        cache: Pools,
+        block_tables: torch.Tensor,  # (B, MB), static for the whole chunk
+        positions: torch.Tensor,     # (C, B, 1)
+        write_slots: torch.Tensor,   # (C, B, 1)
+        write_pos: torch.Tensor,     # (C, B, 1)
+        fresh_pages: torch.Tensor,   # (C, F) pages to scrub (row 0 real)
+        kv_lens: torch.Tensor,       # (C, B)
+        *,
+        sample_fn: Callable[[torch.Tensor, int], torch.Tensor],
+        max_steps: torch.Tensor,     # (B,) steps this slot may still take
+        eos_ids: torch.Tensor,       # (B,) eos token, -1 = none
+        active: torch.Tensor,        # (B,) bool, slot holds a live request
+    ) -> Tuple[torch.Tensor, Pools]:
+        """C decode steps with sampling, token feedback and the per-slot
+        done flags (EOS / length cap) all on the device. A finished or
+        inactive slot writes to the null page under the empty sentinel, so
+        the pool ends bitwise as C single steps would leave it. Returns
+        (tokens (C, B), pools); tokens past a slot's done point are junk
+        the host discards."""
+        done = ~active
+        tok = tokens0
+        toks = []
+        for j in range(positions.shape[0]):
+            wslot = torch.where(done[:, None], torch.zeros_like(write_slots[j]),
+                                write_slots[j])
+            wpos = torch.where(done[:, None],
+                               torch.full_like(write_pos[j], L.CACHE_EMPTY_POS),
+                               write_pos[j])
+            logits, cache = self.decode_step_paged(
+                params, tok, positions[j], cache, block_tables, wslot, wpos,
+                fresh_pages[j], kv_lens[j],
+            )
+            t = sample_fn(logits, j).to(torch.int32)
+            done = done | (j + 1 >= max_steps) | (t == eos_ids)
+            tok = t[:, None]
+            toks.append(t)
+        return torch.stack(toks), cache

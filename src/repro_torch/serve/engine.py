@@ -1,0 +1,189 @@
+"""Serving: the paged prefill / decode-chunk steps and the generation engine.
+
+Counterpart of the paged path of `repro/serve/engine.py`: continuous
+batching over a block-paged, quantized KV pool with DECA-compressed
+weights. Requests go in through `submit()` and come out of
+`run_until_drained()`; `generate()` submits one request per prompt row.
+
+Sampling in this slice is greedy: the token with the largest logit (the
+first on ties, as `jnp.argmax`). Temperature sampling, which needs the
+reference's threefry `fold_in` + `categorical` stream, is ROADMAP Queue A
+item 4b.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve
+from repro_torch.models.model import Model
+from repro_torch.serve.paged_cache import PagedKVCache
+from repro_torch.serve.scheduler import Scheduler
+
+
+def make_paged_prefill_step(model: Model) -> Callable:
+    """paged_prefill(params, tokens (B,Sp), positions, pools, block_tables,
+    write_slots, write_pos, fresh_pages, last_idx (B,)) -> (last-token
+    logits (B, V), pools). Each row's last real token is selected on the
+    device, so only the (B, V) rows the sampler needs leave the forward."""
+
+    def paged_prefill(params, tokens, positions, cache, tables, slots, wpos,
+                      fresh, last_idx):
+        logits, cache = model.forward(
+            params, tokens=tokens, positions=positions, cache=cache,
+            paged={
+                "block_tables": tables,
+                "write_slots": slots,
+                "write_pos": wpos,
+                "fresh_pages": fresh,
+            },
+        )
+        rows = torch.arange(logits.shape[0], device=logits.device)
+        return logits[rows, last_idx.long()], cache
+
+    return paged_prefill
+
+
+def greedy(logits: torch.Tensor) -> torch.Tensor:
+    """(N, V) logits -> (N,) int32 argmax in f32 on the logits' device."""
+    return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
+
+
+def make_paged_decode_chunk_step(model: Model) -> Callable:
+    """C steps of `decode_step_paged` with greedy sampling, token feedback
+    and the EOS / length-cap done flags on the device."""
+
+    def chunk_step(params, cache, tokens0, tables, positions, wslots, wpos,
+                   fresh, kv_lens, max_steps, eos, active):
+        return model.decode_chunk_paged(
+            params, tokens0, cache, tables, positions, wslots, wpos, fresh,
+            kv_lens, sample_fn=lambda logits, j: greedy(logits),
+            max_steps=max_steps, eos_ids=eos, active=active,
+        )
+
+    return chunk_step
+
+
+class GenerationEngine:
+    """Continuous-batching greedy generation over a block-paged KV pool.
+
+    Admission into `max_slots` decode slots while free pages suffice,
+    page-granular KV allocation, one bucketed prefill launch per admission
+    round, and up to `decode_chunk` decode steps per device-resident chunk
+    (one host sync per chunk). `kv_quant` names any KV-capable codec of
+    `core.codecs` and quantizes the pool end to end; `prefill_batch=False`
+    prefills each admitted request in its own launch. `params` must lie on
+    `device`, which defaults to the card. `seed` is recorded for the
+    temperature sampler of ROADMAP Queue A item 4b; greedy decoding draws
+    no random numbers.
+    """
+
+    def __init__(
+        self,
+        model: Model,
+        params: Any,
+        *,
+        max_len: int = 2048,
+        temperature: float = 0.0,
+        seed: int = 0,
+        block_size: int = 32,
+        max_slots: int = 4,
+        num_blocks: Optional[int] = None,
+        kv_quant: Optional[str] = None,
+        decode_chunk: int = 8,
+        prefill_batch: bool = True,
+        device="cuda",
+    ):
+        if temperature > 0:
+            raise ValueError(
+                "temperature sampling is not ported yet: this slice serves "
+                "greedy only (ROADMAP Queue A item 4b)"
+            )
+        self.device = resolve(device)
+        embed_dev = params["embed"].device
+        if embed_dev.type != self.device.type:
+            raise ValueError(f"params lie on {embed_dev}, the engine on {self.device}")
+        if kv_quant is not None and kv_quant != model.cfg.kv_quant:
+            model = Model(dataclasses.replace(model.cfg, kv_quant=kv_quant))
+        self.model = model
+        self.cfg = model.cfg
+        self.kv_quant = model.cfg.kv_quant
+        self.params = params
+        self.max_len = max_len
+        self.seed = seed
+        self.block_size = block_size
+        self.max_blocks = math.ceil(max_len / block_size)
+        if num_blocks is None:
+            num_blocks = max_slots * self.max_blocks
+        self.kv = PagedKVCache(
+            model, num_blocks=num_blocks, block_size=block_size,
+            device=self.device,
+        )
+        self._paged_prefill = make_paged_prefill_step(model)
+        self._paged_decode_chunk = make_paged_decode_chunk_step(model)
+        self.scheduler = Scheduler(
+            self.kv,
+            max_slots=max_slots,
+            max_len=max_len,
+            prefill_fn=self._run_paged_prefill,
+            decode_chunk_fn=self._run_paged_decode_chunk,
+            sample_fn=self._sample_rows,
+            scrub_fn=self._run_paged_scrub,
+            chunk=max(1, decode_chunk),
+            prefill_batch=prefill_batch,
+        )
+
+    def _t(self, a, dtype=torch.int32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _sample_rows(self, logits: torch.Tensor) -> np.ndarray:
+        """Greedy tokens on the device; only the (N,) ids cross to host."""
+        return greedy(logits).cpu().numpy()
+
+    def _run_paged_prefill(self, tokens, positions, tables, slots, wpos, fresh,
+                           last_idx):
+        logits, self.kv.pools = self._paged_prefill(
+            self.params, self._t(tokens), self._t(positions), self.kv.pools,
+            self._t(tables), self._t(slots), self._t(wpos), self._t(fresh),
+            self._t(last_idx),
+        )
+        return logits
+
+    def _run_paged_scrub(self, pages):
+        self.kv.pools = self.model.paged_scrub(self.kv.pools, self._t(pages))
+
+    def _run_paged_decode_chunk(self, tokens0, tables, positions, wslots, wpos,
+                                fresh, kv_lens, max_steps, eos, active):
+        """One device-resident chunk; only the (C, M) sampled token ids
+        cross back to the host."""
+        toks, self.kv.pools = self._paged_decode_chunk(
+            self.params, self.kv.pools, self._t(tokens0), self._t(tables),
+            self._t(positions), self._t(wslots), self._t(wpos),
+            self._t(fresh), self._t(kv_lens), self._t(max_steps),
+            self._t(eos), self._t(active, torch.bool),
+        )
+        return toks.cpu().numpy()
+
+    def submit(self, prompt: np.ndarray, *, max_new_tokens: int,
+               eos_id: Optional[int] = None) -> int:
+        """Enqueue one request; returns its id (key into run_until_drained)."""
+        return self.scheduler.submit(
+            prompt, max_new_tokens=max_new_tokens, eos_id=eos_id
+        )
+
+    def run_until_drained(self) -> Dict[int, np.ndarray]:
+        """Step the scheduler until every submitted request completes."""
+        return self.scheduler.run_until_drained()
+
+    def generate(self, prompts: np.ndarray, n_steps: int) -> np.ndarray:
+        """prompts (B, S) int -> generated tokens (B, n_steps)."""
+        rids = [
+            self.submit(np.asarray(p, np.int32), max_new_tokens=n_steps)
+            for p in prompts
+        ]
+        done = self.run_until_drained()
+        return np.stack([done[r] for r in rids], axis=0)

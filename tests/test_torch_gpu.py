@@ -1,0 +1,123 @@
+"""The CUDA kernels against their plain PyTorch versions, on the card.
+
+These tests need a CUDA device and skip without one: the kernels have no
+CPU mode. They import only torch, numpy and the port, so they run on a
+machine with a card and no JAX:
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+Tolerance: the kernels and their plain versions multiply the same bf16
+values exactly and sum in f32 in another order (matmuls: K <= 512 here;
+attention: an online softmax over another grouping), so they agree to
+1e-4 of the output's scale.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.compression import compress
+from repro_torch.core.formats import CompressionSpec
+from repro_torch.kernels import deca_gemm, ops, paged_attention, ref
+from repro_torch.kernels.ref import CACHE_EMPTY_POS
+from repro_torch.models import layers
+
+KV_KINDS = ("none", "bf8", "int8", "int4", "mxfp4", "nf4")
+TOL = 1e-4
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _close(got, want):
+    return float((got.float() - want.float()).abs().max()) <= TOL * float(want.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [1, 3, 32, 33, 200])
+@pytest.mark.parametrize("spec", ["bf16_100", "bf8_50", "mxfp4_100", "int8_50", "int4_100",
+                                  "nf4_50", "int4_5"])
+def test_gemv_and_gemm_kernels_match_plain(card, spec, m):
+    quant, dens = spec.rsplit("_", 1)
+    g = torch.Generator(device=card).manual_seed(m)
+    w = torch.randn(512, 320, generator=g, device=card) * 0.05
+    ct = compress(w, CompressionSpec(quant, int(dens) / 100))
+    x = torch.randn(m, 512, generator=g, device=card)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = ops.decompress_gemm(x, ct, out_dtype=out_dtype)
+        plain = ref.decompress_gemv if m <= ops.GEMV_MAX_M else ref.decompress_gemm
+        want = plain(x, ct, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype
+        if out_dtype == torch.float32:
+            assert _close(got, want)
+        else:  # one more rounding: one bf16 ulp
+            assert torch.all((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-6)
+
+
+@pytest.mark.gpu
+def test_kernels_count_their_launches_and_reject_bad_operands(card):
+    ct = compress(torch.randn(64, 64, device=card), CompressionSpec("int8", 1.0))
+    before = deca_gemm.decompress_gemv.launches
+    ops.decompress_gemm(torch.randn(2, 64, device=card), ct)
+    assert deca_gemm.decompress_gemv.launches == before + 1
+    with pytest.raises(ValueError):
+        deca_gemm.decompress_gemv(torch.randn(2, 64, device=card).half(), ct)
+    with pytest.raises(ValueError):
+        deca_gemm.decompress_gemv(torch.randn(40, 64, device=card), ct)
+
+
+def _pools(kind, device, seed=0):
+    """Ragged slots over a shuffled, quantized pool (block size 16)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    b, hq, hkv, dh, bs, mb = 3, 8, 2, 64, 16, 8
+    kv_lens = torch.tensor([100, 7, 128], dtype=torch.int32, device=device)
+    pools = layers.init_paged_kv_cache(b * mb + 1, bs, hkv, dh, device=device, quant=kind)
+    perm = torch.randperm(b * mb, generator=g, device=device).reshape(b, mb) + 1
+    used = torch.arange(mb, device=device)[None] < (kv_lens[:, None] + bs - 1) // bs
+    tables = torch.where(used, perm, torch.zeros_like(perm)).to(torch.int32)
+    s = mb * bs
+    pos = torch.arange(s, device=device)[None].expand(b, s)
+    live = pos < kv_lens[:, None].long()
+    slots = torch.where(live, tables.long().gather(1, pos // bs) * bs + pos % bs, pos % bs)
+    wpos = torch.where(live, pos, torch.full_like(pos, CACHE_EMPTY_POS))
+    k = torch.randn(b, s, hkv, dh, generator=g, device=device).bfloat16()
+    v = torch.randn(b, s, hkv, dh, generator=g, device=device).bfloat16()
+    layers.paged_update_cache(pools, k, v, wpos, slots, quant=kind)
+    q = torch.randn(b, hq, dh, generator=g, device=device)
+    return q, pools, tables, kv_lens, kv_lens - 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", ["plain", "window", "softcap"])
+@pytest.mark.parametrize("kind", KV_KINDS)
+def test_paged_attention_kernel_matches_plain(card, kind, variant):
+    args = _pools(kind, card)
+    kw = {"window": 40} if variant == "window" else {}
+    if variant == "softcap":
+        kw["softcap"] = 5.0
+    got = paged_attention.paged_attention(*args, quant=kind, **kw)
+    want = ref.paged_decode_attention(*args, quant=kind, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == args[0].dtype and _close(got, want)
+    # bf16 queries come back in bf16
+    got_b = paged_attention.paged_attention(args[0].bfloat16(), *args[1:], quant=kind, **kw)
+    assert got_b.dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_compress_on_the_card_matches_the_cpu_bitwise(card):
+    w = torch.randn(256, 192, generator=torch.Generator().manual_seed(5)) * 0.05
+    w[7, :] = 0.0
+    for name in ("bf16", "bf8", "mxfp4", "int8", "int4", "nf4"):
+        for dens in (1.0, 0.5, 0.05):
+            spec = CompressionSpec(name, dens)
+            a, b = compress(w.to(card), spec), compress(w, spec)
+            for plane in ("codes", "mask", "scales"):
+                x, y = getattr(a, plane), getattr(b, plane)
+                assert (x is None) == (y is None)
+                if x is not None:
+                    assert np.array_equal(x.cpu().numpy(), y.numpy()), (spec.name, plane)
