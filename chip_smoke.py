@@ -17,7 +17,10 @@ and that an lm_head GeMV never holds a dense weight. It imports nothing of
 JAX. Details of every case go to chiprun_out/chip_smoke.json. The last line
 is a JSON object with "ok" and the device; the line before it lists the
 kernels. Without a card, or without the port beside it, it exits non-zero
-and prints no result.
+and prints no result. After the plain serve it builds a self-speculative
+engine on the same weights (an nf4 draft tree re-encoded through the
+decompression kernel, k = 3), serves 4 greedy requests and holds every
+emitted token against teacher-forced logits of the target.
 """
 from __future__ import annotations
 
@@ -39,6 +42,7 @@ FC_SHAPES = [(4096, 4096, "q/o"), (4096, 1024, "k/v"), (4096, 14336, "gate/up"),
              (14336, 4096, "down"), (4096, 128256, "lm_head")]
 SERVED_SPEC = "bf8_50"
 SERVED_KV = "int8"
+DRAFT_CODEC, SPEC_K, SPEC_NEW = "nf4", 3, 32  # self-speculative serve
 CODECS = ("bf16", "bf8", "mxfp4", "int8", "int4", "nf4")
 KV_KINDS = ("none", "bf8", "int8", "int4", "mxfp4", "nf4")
 # kernel vs plain version on the same inputs, relative to max|plain|: the
@@ -98,15 +102,51 @@ def rel_err(got, want) -> tuple:
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
+def bits(torch, t):
+    """Integer view of an f32 / bf16 tensor: equal views are equal bits."""
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def check_decompress(torch, timer, ct, role, cases):
+    """The decompression kernel against its plain version on one weight,
+    bitwise, to f32 and to bf16; timed at the served codec."""
+    from repro_torch.kernels import deca_decompress, ref
+
+    k, n = ct.shape
+    for dt in (torch.float32, torch.bfloat16):
+        got, want = deca_decompress.decompress(ct, out_dtype=dt), ref.decompress(ct, dt)
+        torch.cuda.synchronize()
+        equal = torch.equal(bits(torch, got), bits(torch, want))
+        case = {"kernel": "decompress", "role": role, "K": k, "N": n,
+                "spec": ct.spec.name, "out": str(dt).split(".")[-1], "bitwise": equal,
+                "max_abs_err": (got.float() - want.float()).abs().max().item()}
+        del got, want
+        if ct.spec.name == SERVED_SPEC:
+            case["ms"] = timer(lambda: deca_decompress.decompress(ct, out_dtype=dt))
+            case["plain_ms"] = timer(lambda: ref.decompress(ct, dt), reps=3)
+            case["library_ms"] = None  # no one PyTorch call decodes the triplet
+            # each plane read once, the dense weight written once
+            case["bound_ms"], case["bound_by"] = bound_ms(
+                ct.nbytes + k * n * (4 if dt == torch.float32 else 2), 0.0)
+            log(f"decompress {role:8s} {ct.spec.name} -> {case['out']:8s}: bitwise {equal} "
+                f"kernel {case['ms']:.4f} ms plain {case['plain_ms']:.4f} ms bound "
+                f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+        cases.append(case)
+        if not equal:
+            raise AssertionError(f"decompress disagrees with its plain version: {case}")
+
+
 def check_matmuls(torch, timer, report):
     """GeMV (M in 1, 4, 32) and GeMM (M in 64, 2048) against their plain
-    versions for every FC shape, codec and density; timed at the served
+    versions, and the decompression kernel bitwise against its plain
+    version, for every FC shape, codec and density; timed at the served
     codec."""
     from repro_torch.core.compression import compress
     from repro_torch.core.formats import CompressionSpec
     from repro_torch.kernels import deca_gemm, ref
 
     cases, worst = [], {"gemv": 0.0, "gemm": 0.0}
+    dec_cases = []
     g = torch.Generator(device="cuda").manual_seed(1)
     for k, n, role in FC_SHAPES:
         w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
@@ -146,14 +186,18 @@ def check_matmuls(torch, timer, report):
                     errs[kind].append(f"M={m} {rel:.2e}")
                 for kind, row in errs.items():
                     log(f"  {kind} {role:8s} {spec.name:9s} rel err: {', '.join(row)}")
+                check_decompress(torch, timer, ct, role, dec_cases)
                 del ct
         del w, xs
         torch.cuda.empty_cache()
     log(f"gemv: {sum(c['kernel'] == 'gemv' for c in cases)} cases, max rel err "
         f"{worst['gemv']:.2e}; gemm: {sum(c['kernel'] == 'gemm' for c in cases)} cases, "
         f"max rel err {worst['gemm']:.2e} (tolerance {KERNEL_TOL})")
+    log(f"decompress: {len(dec_cases)} cases (f32 and bf16 out), all bitwise equal to "
+        f"the plain version")
     report["matmul_cases"] = cases
-    return cases
+    report["decompress_cases"] = dec_cases
+    return cases, dec_cases
 
 
 def _attention_inputs(torch, kind, g):
@@ -349,7 +393,7 @@ def compare_paths(torch, model, params, report):
         raise AssertionError(f"kernel path logits disagree with the plain path: {rows}")
 
 
-def profile_serving(torch, eng, prompts, report):
+def profile_serving(torch, eng, prompts, report, key="profile"):
     """Device time by kernel over a short second serving pass (4 requests,
     16 new tokens), traced with torch.profiler. The profiler slows the host,
     so the idle share it gives is an upper bound."""
@@ -372,17 +416,180 @@ def profile_serving(torch, eng, prompts, report):
     ]
     rows.sort(key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
-    report["profile"] = {"wall_ms": wall_ms, "device_busy_ms": busy, "rows": rows[:40]}
+    report[key] = {"wall_ms": wall_ms, "device_busy_ms": busy, "rows": rows[:40]}
     if not rows:
         log("profiler: no device time recorded")
         return
-    log(f"profiled pass: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
+    log(f"{key} pass: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall_ms:.3f} (upper bound: the profiler slows the host)")
     ours = ("::gemv_kernel", "::splitk_reduce", "::gemm_kernel", "::paged_attention_kernel")
     deca = sum(r["device_ms"] for r in rows if any(k in r["name"] for k in ours))
     log(f"  port kernels and split-K reduce {deca:.1f} ms, other kernels {busy - deca:.1f} ms")
     for r in rows[:8]:
         log(f"  {r['device_ms']:9.2f} ms {r['count']:6d}x  {r['name'][:90]}")
+
+
+def counters():
+    """Every kernel wrapper's launch counter, by kernel name."""
+    from repro_torch.kernels import deca_decompress, deca_gemm, paged_attention
+
+    return {"deca_gemv": deca_gemm.decompress_gemv, "deca_gemm": deca_gemm.decompress_gemm,
+            "deca_paged_attention": paged_attention.paged_attention,
+            "deca_decompress": deca_decompress.decompress}
+
+
+def check_draft_leaf(torch, target, served, draft_spec):
+    """The served draft's layer-0 w_up, built on the card through the
+    decompression kernel, is bitwise the port's CPU `make_draft_tree` of
+    the same target leaf."""
+    import dataclasses
+
+    from repro_torch.core.decompress import make_draft_tree
+
+    cpu = dataclasses.replace(target, **{
+        n: None if getattr(target, n) is None else getattr(target, n).cpu()
+        for n in ("codes", "mask", "scales")})
+    t0 = time.perf_counter()
+    want = make_draft_tree({"w_up": cpu}, draft_spec)["w_up"]
+    for plane in ("codes", "mask", "scales"):
+        a, b = getattr(served, plane), getattr(want, plane)
+        if (a is None) != (b is None) or (a is not None and not torch.equal(a.cpu(), b)):
+            raise AssertionError(f"draft layer-0 w_up {plane}: card and CPU builds differ")
+    log(f"the served draft's layer-0 w_up {target.shape} ({draft_spec.name}) == the CPU "
+        f"make_draft_tree of the same target leaf, bitwise, every plane "
+        f"({time.perf_counter() - t0:.1f} s on the CPU)")
+
+
+def teacher_forced(torch, model, params, prompts, outs, report):
+    """Each emitted token's logit in one teacher-forced target forward over
+    prompt + emitted tokens (kernel path) lies within LOGIT_TOL of the
+    position's scale below the position's largest logit. Returns the share
+    of positions where it is the argmax."""
+    worst, exact, total = 0.0, 0, 0
+    for p, out in zip(prompts, outs):
+        seq = torch.as_tensor(list(p) + list(out[:-1]), device="cuda")
+        rows = model.score(params, seq)[len(p) - 1:]
+        em = torch.as_tensor(out, device="cuda").long()
+        picked = rows.gather(1, em[:, None])[:, 0]
+        gap = (rows.max(dim=1).values - picked) / rows.abs().max()
+        worst = max(worst, gap.max().item())
+        exact += int((rows.argmax(dim=1) == em).sum())
+        total += len(out)
+        del rows
+    report["teacher_forced"] = {"worst_gap": worst, "argmax_share": exact / total}
+    log(f"teacher-forced target logits: worst gap of an emitted token below the "
+        f"position's max {worst:.3e} of max|logit| (tolerance {LOGIT_TOL}); emitted "
+        f"token is the argmax at {exact}/{total} positions")
+    if worst > LOGIT_TOL:
+        raise AssertionError("a spec token lies outside the teacher-forced logit tolerance")
+    return exact / total
+
+
+def serve_spec(torch, model, params, prompts, plain_outs, report):
+    """The self-speculative path at full width: build the engine (the
+    draft tree through the decompression kernel), serve the requests all
+    at once, and hold the output against the target model. Counts are
+    zeroed before the build and read after the serve."""
+    from repro_torch.core.compression import CompressedTensor
+    from repro_torch.core.decompress import _leaves, compressed_bytes
+    from repro_torch.core.formats import get_spec
+    from repro_torch.serve.engine import GenerationEngine, SpecConfig
+
+    spec = SpecConfig(k=SPEC_K, draft_codec=DRAFT_CODEC)
+    for fn in counters().values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8, spec_decode=spec)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    peak_extra = torch.cuda.max_memory_allocated() - base
+    built = counters()["deca_decompress"].launches
+    n_ct = sum(isinstance(x, CompressedTensor) for x in _leaves(params))
+    target_b, draft_b = compressed_bytes(params), compressed_bytes(eng.draft_params)
+    fc = lambda tree: sum(x.nbytes for x in _leaves(tree) if isinstance(x, CompressedTensor))
+    log(f"spec engine (k={SPEC_K}, draft {DRAFT_CODEC}, {eng.spec_rounds} rounds per "
+        f"launch): draft tree built in {build_s:.2f} s with {built} decompress launches "
+        f"({n_ct} compressed leaves), peak extra allocation {peak_extra / 1e9:.3f} GB "
+        f"(pool included); compressed_bytes target {target_b / 1e9:.3f} GB, draft "
+        f"{draft_b / 1e9:.3f} GB; FC planes target {fc(params) / 1e9:.3f} GB, draft "
+        f"{fc(eng.draft_params) / 1e9:.3f} GB")
+    if built != n_ct:
+        raise AssertionError(f"{built} decompress launches for {n_ct} compressed leaves")
+    check_draft_leaf(torch, params["layers"][0]["mlp"]["w_up"],
+                     eng.draft_params["layers"][0]["mlp"]["w_up"], get_spec(DRAFT_CODEC))
+
+    rids = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    outs = [done[r] for r in rids]
+    st = eng.scheduler.stats()
+    n_tok = sum(len(o) for o in outs)
+    log(f"spec served {len(rids)} requests (prompt lengths {[len(p) for p in prompts]}) x "
+        f"{SPEC_NEW} new tokens: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; "
+        f"accepted_tokens_per_step {st['accepted_tokens_per_step']:.3f}, draft_tokens "
+        f"{st['draft_tokens']}, verify_calls {st['verify_calls']}, decode rounds "
+        f"{st['decode_steps']} in {st['decode_chunks']} launches")
+    log(f"launches on the spec path (engine build + serve): {launches}")
+    if any(len(o) != SPEC_NEW for o in outs):
+        raise AssertionError(f"a spec request did not emit its {SPEC_NEW} tokens")
+    idle = [k for k in ("deca_decompress", "deca_gemv", "deca_paged_attention")
+            if launches[k] == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the spec path: {idle}")
+    argmax_share = teacher_forced(torch, eng.model, params, prompts, outs, report)
+    same = sum(list(o) == list(p[:SPEC_NEW]) for o, p in zip(outs, plain_outs))
+    log(f"spec requests equal token for token to the non-spec serve of the same "
+        f"prompts: {same}/{len(outs)}")
+    report["spec"] = {"build_s": build_s, "build_peak_extra_bytes": peak_extra,
+                      "target_bytes": target_b, "draft_bytes": draft_b, "tokens": n_tok,
+                      "wall_s": wall, "launches": launches, "stats": st,
+                      "argmax_share": argmax_share, "same_as_plain": same}
+    return eng, launches
+
+
+def spec_round_split(torch, eng, prompts, report):
+    """Where a spec round's time goes: a second pass whose forwards are
+    synchronized and timed by kind (S = 1 draft step, S = k + 1 verify,
+    anything longer prefill). The syncs cost the pass some overlap, so
+    these walls are upper bounds of the unsynchronized run's."""
+    model = eng.model
+    walls, calls = {}, {}
+    inner = model.forward
+
+    def timed(params, **kw):
+        s = kw["tokens"].shape[1]
+        name = "draft" if s == 1 else "verify" if s == SPEC_K + 1 else "prefill"
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(params, **kw)
+        torch.cuda.synchronize()
+        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
+        calls[name] = calls.get(name, 0) + 1
+        return out
+
+    model.forward = timed
+    try:
+        for p in prompts:
+            eng.submit(p, max_new_tokens=SPEC_NEW)
+        t0 = time.perf_counter()
+        eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del model.forward
+    rest = wall - sum(walls.values())
+    log(f"spec pass split (synchronized forwards): wall {wall:.2f} s = " + ", ".join(
+        f"{k} {v:.2f} s over {calls[k]} forwards ({1e3 * v / calls[k]:.1f} ms each)"
+        for k, v in walls.items()) + f", host outside forwards {rest:.2f} s")
+    report["spec_split"] = {"wall_s": wall, "walls_s": walls, "calls": calls}
 
 
 def main() -> int:
@@ -399,7 +606,7 @@ def main() -> int:
     from repro_torch.configs.base import get_config
     from repro_torch.core.decompress import compressed_bytes
     from repro_torch.core.formats import get_spec
-    from repro_torch.kernels import cuda, deca_gemm, ops, paged_attention
+    from repro_torch.kernels import cuda, ops
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import GenerationEngine
 
@@ -429,7 +636,7 @@ def main() -> int:
 
     # 3. each kernel against its plain version at the path's shapes
     timer = Timer(torch)
-    mm_cases = check_matmuls(torch, timer, report)
+    mm_cases, dec_cases = check_matmuls(torch, timer, report)
     att_cases = check_attention(torch, timer, report)
     del timer
     torch.cuda.empty_cache()
@@ -473,16 +680,13 @@ def main() -> int:
     sched._decode_chunk = timed("decode", sched._decode_chunk)
     rids = [eng.submit(p, max_new_tokens=64) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
-    deca_gemm.decompress_gemv.launches = 0
-    deca_gemm.decompress_gemm.launches = 0
-    paged_attention.paged_attention.launches = 0
+    for fn in counters().values():
+        fn.launches = 0
     t0 = time.perf_counter()
     done = eng.run_until_drained()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"deca_gemv": deca_gemm.decompress_gemv.launches,
-                "deca_gemm": deca_gemm.decompress_gemm.launches,
-                "deca_paged_attention": paged_attention.paged_attention.launches}
+    launches = {k: fn.launches for k, fn in counters().items()}
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(done[r]) for r in rids)
     st = sched.stats()
@@ -504,7 +708,7 @@ def main() -> int:
         raise AssertionError("a request did not emit its 64 tokens")
     if not all(0 <= int(t) < cfg.vocab_size for r in rids for t in done[r]):
         raise AssertionError("a token lies outside the vocabulary")
-    idle = [k for k, v in launches.items() if v == 0]
+    idle = [k for k, v in launches.items() if v == 0 and k != "deca_decompress"]
     if idle:
         raise AssertionError(f"kernels never launched on the main path: {idle}")
 
@@ -526,6 +730,14 @@ def main() -> int:
     if extra >= dense:
         raise AssertionError("the lm_head GeMV allocated a dense weight's worth of memory")
 
+    # 6. self-speculative decode on the same weights
+    plain_outs = [done[r] for r in rids[:4]]
+    del eng, sched, done, x
+    torch.cuda.empty_cache()
+    spec_eng, spec_launches = serve_spec(torch, model, params, prompts[:4], plain_outs, report)
+    profile_serving(torch, spec_eng, [p[:512] for p in prompts[:4]], report, "spec_profile")
+    spec_round_split(torch, spec_eng, [p[:512] for p in prompts[:4]], report)
+
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
 
@@ -535,17 +747,24 @@ def main() -> int:
     gv = pick(mm_cases, kernel="gemv", role="gate/up", M=4, spec=SERVED_SPEC)
     gm = pick(mm_cases, kernel="gemm", role="gate/up", M=2048, spec=SERVED_SPEC)
     at = pick(att_cases, kind=SERVED_KV, variant="plain")
+    dc = pick(dec_cases, role="gate/up", spec=SERVED_SPEC, out="float32")
     csrc = "src/repro_torch/csrc/"
+    # each kernel's launches on the path it serves: the matmul and attention
+    # kernels on the non-spec serve, the decompression kernel on the spec path
+    launches["deca_decompress"] = spec_launches["deca_decompress"]
     rows = [
         ("deca_gemv", csrc + "deca_gemm.cu", "src/repro/kernels/deca_gemm.py:176", gv),
         ("deca_gemm", csrc + "deca_gemm.cu", "src/repro/kernels/deca_gemm.py:104", gm),
         ("deca_paged_attention", csrc + "paged_attention.cu",
          "src/repro/kernels/paged_attention.py:118", at),
+        ("deca_decompress", csrc + "deca_decompress.cu",
+         "src/repro/kernels/deca_decompress.py:103", dc),
     ]
     worst_abs = {  # over every case each kernel was held on
         "deca_gemv": max(c["max_abs_err"] for c in mm_cases if c["kernel"] == "gemv"),
         "deca_gemm": max(c["max_abs_err"] for c in mm_cases if c["kernel"] == "gemm"),
         "deca_paged_attention": max(c["max_abs_err"] for c in att_cases),
+        "deca_decompress": max(c["max_abs_err"] for c in dec_cases),
     }
     kernels = [{
         "name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,13 +4,13 @@
 //
 // Replaces repro/kernels/deca_decompress.py::decompress_block, which the
 // Pallas kernels ran on a VMEM block with the VPU. Here one thread decodes
-// one (group, column) of a compressed weight from a code tile that the
-// kernel has staged in shared memory (column-major: neighbouring threads,
-// holding neighbouring columns, read neighbouring bytes). The arithmetic
-// is that of repro_torch/core/codecs.py
+// one (group, column) of a compressed weight, from a code tile that the
+// matmul kernels have staged in shared memory or, in the standalone
+// decompression kernel, straight from device memory (column-major:
+// neighbouring threads, holding neighbouring columns, read neighbouring
+// bytes). The arithmetic is that of repro_torch/core/codecs.py
 // (`decode_values`, `decode_scales`, `kv_decode`) and of the expansion in
-// kernels/ref.py, so the decoded bf16 weight is bitwise the plain
-// version's.
+// kernels/ref.py, so the decoded weight is bitwise the plain version's.
 #pragma once
 
 #include <cstdint>
@@ -93,10 +93,13 @@ __device__ __forceinline__ float scale_value(int codec, bool scaled, uint32_t bi
 }
 
 // Stages 1-3 for one column of one group: the 32 dense weights of the
-// group's rows, scaled in f32 and then rounded to bf16. `col` points at the
-// column's first code byte; consecutive code bytes are `stride` apart.
-// Sparse groups expand with the bitmask: row i takes stored value
-// min(popc(bits & ((1 << i) - 1)), k_cap - 1), and 0 where bit i is clear.
+// group's rows, scaled in f32 and then, with kRoundBf16 (the matmul
+// kernels' operand), rounded to bf16; without it the f32 product is kept,
+// as kernels/ref.py::decompress gives it for an f32 output. `col` points
+// at the column's first code byte; consecutive code bytes are `stride`
+// apart. Sparse groups expand with the bitmask: row i takes stored value
+// min(popc(bits & ((1 << i) - 1)), k_cap - 1), and +0 where bit i is clear.
+template <bool kRoundBf16 = true>
 __device__ __forceinline__ void decode_column(
     int codec, const uint8_t* col, long long stride, int k_cap, bool sparse,
     uint32_t bits, bool scaled, float scale, float (&w)[kGroup]) {
@@ -104,7 +107,8 @@ __device__ __forceinline__ void decode_column(
 #pragma unroll
     for (int i = 0; i < kGroup; ++i) {
       const float v = code_value(codec, col, i, stride);
-      w[i] = round_bf16(scaled ? v * scale : v);
+      const float s = scaled ? v * scale : v;
+      w[i] = kRoundBf16 ? round_bf16(s) : s;
     }
     return;
   }
@@ -116,7 +120,7 @@ __device__ __forceinline__ void decode_column(
       v = code_value(codec, col, below < k_cap ? below : k_cap - 1, stride);
       if (scaled) v *= scale;
     }
-    w[i] = round_bf16(v);
+    w[i] = kRoundBf16 ? round_bf16(v) : v;
   }
 }
 

@@ -1,22 +1,33 @@
-"""The shared DECA tile decode, host side.
+"""DECA decompression on Hopper: the shared tile decode and the
+standalone decompression kernel, host side.
 
-Replaces the tile decode of `repro/kernels/deca_decompress.py`
-(`decompress_block`, shared there by the Pallas kernels). On Hopper the
-decode is a device function, `csrc/deca_tile.cuh`, that both compressed
-matmul kernels inline: for column n of group g it reads the column's
-`ck` code bytes (strided by N, so neighbouring threads read neighbouring
-bytes), decodes them exactly as `Codec.decode_values`, multiplies by the
-decoded group scale in f32, expands the bitmask with
-`min(popc(mask & ((1u << i) - 1)), k_cap - 1)` and rounds to bf16 only
-after the scale. This module checks a `CompressedTensor` against what
-that device function takes and hands over its operands.
+Replaces `repro/kernels/deca_decompress.py`: `decompress_block`, the tile
+decode the Pallas kernels share, and `decompress_pallas`, the standalone
+kernel. On Hopper the decode is a device function, `csrc/deca_tile.cuh`,
+that the compressed matmul kernels and the decompression kernel inline:
+for column n of group g it reads the column's `ck` code bytes (strided by
+N, so neighbouring threads read neighbouring bytes), decodes them exactly
+as `Codec.decode_values`, multiplies by the decoded group scale in f32 and
+expands the bitmask with `min(popc(mask & ((1u << i) - 1)), k_cap - 1)`.
+The matmul operand rounds to bf16 only after the scale; the standalone
+kernel (`csrc/deca_decompress.cu`) keeps the f32 product for an f32
+output and rounds it once for a bf16 one. `tile_operands` checks a
+`CompressedTensor` against what the device function takes and hands over
+its operands.
+
+`decompress` returns the plain version (`kernels/ref.py`) for CPU tensors
+and launches its kernel for CUDA tensors; `decompress.launches` counts
+launches.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.core.codecs import codec_wire_id
 from repro_torch.core.compression import CompressedTensor
+from repro_torch.kernels import cuda, ref
 
 _SCALE_DTYPES = {"e8m0": torch.uint8, "bf16": torch.int16}
 
@@ -58,3 +69,32 @@ def tile_operands(ct: CompressedTensor, device: torch.device) -> tuple:
         ct.codes.data_ptr(), _ptr(ct.mask), _ptr(ct.scales),
         codec_wire_id(spec.quant), spec.k_cap, ck,
     )
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# codes, mask, scales, codec, k_cap, ck, K, N, out, out_f32, stream
+_SIGNATURES = {"deca_decompress": (_P, _P, _P, _I, _I, _I, _I, _I, _P, _I, _P)}
+
+
+def decompress(ct: CompressedTensor, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """CompressedTensor -> dense (K, N) in `out_dtype` (f32 or bf16),
+    bitwise the plain version's."""
+    if ct.device.type == "cpu":
+        return ref.decompress(ct, out_dtype=out_dtype)
+    if ct.device.type != "cuda":
+        raise ValueError(f"no kernel for device {ct.device}")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"out must be f32 or bf16, got {out_dtype}")
+    tile = tile_operands(ct, ct.device)
+    k, n = ct.shape
+    out = torch.empty((k, n), dtype=out_dtype, device=ct.device)
+    err = cuda.library("deca_decompress", _SIGNATURES).deca_decompress(
+        *tile, k, n, out.data_ptr(), int(out_dtype == torch.float32),
+        torch.cuda.current_stream(ct.device).cuda_stream,
+    )
+    cuda.check(err, "deca_decompress")
+    decompress.launches += 1
+    return out
+
+
+decompress.launches = 0

@@ -1,9 +1,11 @@
-"""Entry points of the DECA kernels on the serving path.
+"""Entry points of the DECA kernels.
 
-Counterpart of `repro/kernels/ops.py`. Regime split: at or below
-`GEMV_MAX_M` rows the matmul is the decode GeMV regime, bandwidth-bound on
-the compressed weight stream, and goes to the GeMV kernel; above it (the
-prefill) to the tensor-core GeMM kernel. Each wrapper takes its plain
+Counterpart of `repro/kernels/ops.py`. `decompress` is the standalone
+decompression (the draft-tree build of self-speculative decode). Regime
+split of the matmul: at or below `GEMV_MAX_M` rows the matmul is the
+decode GeMV regime, bandwidth-bound on the compressed weight stream, and
+goes to the GeMV kernel; above it (the prefill) to the tensor-core GeMM
+kernel. Each wrapper takes its plain
 version for CPU tensors and launches its CUDA kernel for CUDA tensors.
 """
 from __future__ import annotations
@@ -13,12 +15,17 @@ from typing import Dict
 import torch
 
 from repro_torch.core.compression import CompressedTensor
-from repro_torch.kernels import deca_gemm
+from repro_torch.kernels import deca_decompress, deca_gemm
 from repro_torch.kernels import paged_attention as _paged_attention
 
 # Rows at or below which the decode-shaped GeMV kernel is used: the decode
 # step's M is the continuous-batching slot count.
 GEMV_MAX_M = 32
+
+
+def decompress(ct: CompressedTensor, *, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Decompress to a dense (K, N) tensor in `out_dtype`."""
+    return deca_decompress.decompress(ct, out_dtype=out_dtype)
 
 
 def decompress_gemm(

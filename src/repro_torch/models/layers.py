@@ -257,13 +257,17 @@ def paged_attention_block(
     fresh_pages: Optional[torch.Tensor] = None,  # (F,)
     kv_lens: Optional[torch.Tensor] = None,      # (B,) valid KV tokens per slot
     copy_pages: Optional[torch.Tensor] = None,   # (C, 2)
+    window_override: Optional[int] = None,       # cap the window (spec draft)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention layer against the paged pool: projections -> per-request
     rope -> write into the pool -> attention -> output projection.
 
     Decode shapes (S == 1 with a `kv_lens` vector) go through the fused
     paged-attention kernel, which decodes the quantized pages inside its
-    walk; prefill reads a gathered view through `attention_core`."""
+    walk; prefill and the spec verify (S = k+1) read a gathered view
+    through `attention_core`. `window_override` caps the attention window
+    of the spec-decode draft passes, so their walk is O(window); verify
+    never sets it, so acceptance stays exact."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = mm(x, params["wq"]).reshape(b, s, hq, dh)
@@ -277,6 +281,8 @@ def paged_attention_block(
         quant=cfg.kv_quant,
     )
     window = cfg.window if local else 0
+    if window_override:
+        window = min(window, window_override) if window else window_override
     if kv_lens is not None and s == 1:
         out = ops.paged_attention(
             q[:, 0], cache, block_tables, kv_lens, positions[:, 0],

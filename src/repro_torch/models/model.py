@@ -3,10 +3,11 @@
 Counterpart of `repro/models/model.py` for the paged serving path of a
 dense attention stack (llama3-8b). Layers are kept per layer in a list
 rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
-as a Python loop with the done flags on the device, so only the sampled
-(C, B) tokens cross to the host, once per chunk. Every FC matmul goes
-through `core.decompress.mm` (the DECA GeMM/GeMV kernels for compressed
-weights) and decode attention through the fused paged-attention kernel.
+and `spec_decode_chunk` its draft/verify rounds as Python loops with the
+done flags on the device, so only the sampled tokens cross to the host,
+once per chunk. Every FC matmul goes through `core.decompress.mm` (the
+DECA GeMM/GeMV kernels for compressed weights) and decode attention
+through the fused paged-attention kernel.
 
 Params are a dict of tensors: {"embed", "final_norm", "lm_head",
 "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "pre_mlp_norm",
@@ -56,6 +57,10 @@ class Model:
         L.kv_codec(cfg.kv_quant)  # fail fast on a non-KV codec
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
+        # the reference scans a uniform stack over one (n_layers, ...)
+        # array per weight, and its compression floor counts that array
+        uniform = len(set(self.kinds)) == 1 and cfg.scan_layers
+        self.layer_stack = cfg.n_layers if uniform else 1
 
     # ------------------------------------------------------------------
     # init
@@ -84,7 +89,10 @@ class Model:
         device = resolve(device)
 
         def shrink(tree):
-            return compress_tree(tree, spec) if spec is not None else tree
+            if spec is None:
+                return tree
+            return compress_tree({"layers": [tree]}, spec,
+                                 layer_stack=self.layer_stack)["layers"][0]
 
         embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
                             device=device) * 0.02
@@ -93,9 +101,12 @@ class Model:
             "final_norm": torch.zeros(cfg.d_model, device=device),
         }
         del embed
-        params["lm_head"] = shrink({"lm_head": L.dense_init(
+        lm_head = {"lm_head": L.dense_init(
             generator, (cfg.d_model, cfg.vocab_size), device, dtype
-        )})["lm_head"]
+        )}
+        if spec is not None:
+            lm_head = compress_tree(lm_head, spec)
+        params["lm_head"] = lm_head["lm_head"]
         params["layers"] = [
             shrink(self.init_block(generator, device=device, dtype=dtype))
             for _ in range(cfg.n_layers)
@@ -146,6 +157,7 @@ class Model:
             fresh_pages=paged.get("fresh_pages"),
             kv_lens=paged.get("kv_lens"),
             copy_pages=paged.get("copy_pages"),
+            window_override=paged.get("window_override"),
         )
         x = x + out
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
@@ -163,9 +175,10 @@ class Model:
         """Returns (logits (B, S, V) f32, pools updated in place).
 
         `paged` holds {block_tables (B, MB), write_slots (B, S), write_pos
-        (B, S)} and optionally fresh_pages (F,), copy_pages (C, 2) and a
+        (B, S)} and optionally fresh_pages (F,), copy_pages (C, 2), a
         kv_lens (B,) vector that routes S == 1 steps through the fused
-        paged-attention kernel."""
+        paged-attention kernel and a window_override that caps its
+        attention window (the spec-decode draft)."""
         cfg = self.cfg
         x = params["embed"][tokens.long()].to(torch.bfloat16)
         new_cache = []
@@ -175,6 +188,23 @@ class Model:
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         logits = mm(x.to(torch.float32), params["lm_head"])
         return logits, new_cache
+
+    def score(self, params: Params, tokens: torch.Tensor, *,
+              block_size: int = 32) -> torch.Tensor:
+        """Teacher-forced logits (S, V) f32 of one token sequence (S,),
+        through a paged pool of its own on the tokens' device: row i is the
+        next-token distribution after tokens[: i + 1]."""
+        s, bs = tokens.shape[0], block_size
+        pages = -(-s // bs)
+        dev = tokens.device
+        pools = self.init_paged_cache(pages, bs, device=dev)
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None]
+        tables = torch.arange(1, pages + 1, dtype=torch.int32, device=dev)[None]
+        logits, _ = self.forward(
+            params, tokens=tokens[None], positions=pos, cache=pools,
+            paged={"block_tables": tables, "write_slots": pos + bs, "write_pos": pos},
+        )
+        return logits[0]
 
     def decode_step_paged(
         self,
@@ -242,3 +272,124 @@ class Model:
             tok = t[:, None]
             toks.append(t)
         return torch.stack(toks), cache
+
+    def spec_decode_chunk(
+        self,
+        params: Params,
+        draft_params: Params,
+        tokens0: torch.Tensor,       # (M, 1) pending token per slot (KV unwritten)
+        cache: Pools,
+        block_tables: torch.Tensor,  # (M, TW) device page ids, bounded width
+        p0: torch.Tensor,            # (M,) position of the pending token
+        fresh: torch.Tensor,         # (F,) device pages to pre-scrub (0 = none)
+        *,
+        sample_fn: Callable[[torch.Tensor, torch.Tensor], torch.Tensor],
+        max_steps: torch.Tensor,     # (M,) emissions this slot may still take
+        eos_ids: torch.Tensor,       # (M,) eos token, -1 = none
+        active: torch.Tensor,        # (M,) bool, slot holds a live request
+        k: int,
+        rounds: int,
+        block_size: int,
+        draft_window: int = 0,
+        out_cap: Optional[int] = None,
+    ) -> Tuple[torch.Tensor, torch.Tensor, Pools]:
+        """Self-speculative decode: `rounds` draft-k / verify-once rounds,
+        the state of every slot on the device (the reference's
+        `spec_decode_chunk`, DESIGN.md §16).
+
+        Between rounds a slot has its committed positions (< pos) and a
+        pending token at `pos` whose KV is unwritten. A round drafts k
+        tokens through `draft_params`, k fused S=1 steps (window-capped by
+        `draft_window`) that write draft KV, then runs one target forward
+        over the k+1 positions [pending, d_1..d_k] through the gather path,
+        which overwrites every draft entry with target KV. Acceptance is
+        the longest prefix of drafts the verify samples match, plus the
+        verify's next row, clamped at the first EOS and at the slot's
+        budget. Rejected entries stay in place: their positions exceed
+        every later query's until the next round overwrites them. Writes
+        at or past `p0 + max_steps` go to the null page under the empty
+        sentinel, so a slot never writes past its page reservation.
+
+        `sample_fn(logits (M, S, V), idx (M, S))` samples every row; idx is
+        the chunk-local output index. Returns (out (out_cap, M) emitted
+        tokens packed from row 0, e_rounds (rounds, M) emissions per round,
+        pools)."""
+        m = tokens0.shape[0]
+        bs, tw = block_size, block_tables.shape[1]
+        dev = tokens0.device
+        if out_cap is None:
+            out_cap = rounds * (k + 1)
+        limit = p0 + max_steps  # first write position past the slot's budget
+        cache = self.paged_scrub(cache, fresh)
+        offs = torch.arange(k + 1, dtype=torch.int32, device=dev)
+        tables = block_tables.long()
+        cols = torch.arange(m, device=dev)[:, None].expand(m, k + 1)
+
+        def fwd(pp, pools, toks, wpos, ok, klen, wov):
+            # flat slot ids from the bounded table; a write that must not
+            # land goes to the null page under the empty sentinel
+            idx = torch.clamp(wpos // bs, 0, tw - 1).long()
+            page = torch.where(ok, torch.gather(tables, 1, idx), 0)
+            logits, pools = self.forward(
+                pp, tokens=toks, positions=wpos, cache=pools,
+                paged={
+                    "block_tables": block_tables,
+                    "write_slots": (page * bs + wpos % bs).to(torch.int32),
+                    "write_pos": torch.where(ok, wpos, L.CACHE_EMPTY_POS),
+                    "kv_lens": klen,
+                    "window_override": wov,
+                },
+            )
+            return logits, pools
+
+        tok = tokens0.to(torch.int32)
+        pos = p0.to(torch.int32)
+        emitted = torch.zeros(m, dtype=torch.int32, device=dev)
+        done = ~active
+        out = torch.zeros((out_cap, m), dtype=torch.int32, device=dev)
+        e_rounds = []
+        for _ in range(rounds):
+            live = ~done
+            # draft: k proposals through the draft weights, fused S=1 walks
+            d, drafts = tok, []
+            for j in range(k):
+                wpos = (pos + j)[:, None]
+                logits, cache = fwd(
+                    draft_params, cache, d, wpos, live[:, None] & (wpos < limit[:, None]),
+                    torch.minimum(pos + j + 1, limit), draft_window or None,
+                )
+                d = sample_fn(logits, (emitted + j)[:, None]).to(torch.int32)
+                drafts.append(d[:, 0])
+            drafts = torch.stack(drafts, dim=1)  # (M, k)
+
+            # verify: one target forward over the k+1 positions
+            wpos_v = pos[:, None] + offs[None, :]
+            logits_v, cache = fwd(
+                params, cache, torch.cat([tok, drafts], dim=1), wpos_v,
+                live[:, None] & (wpos_v < limit[:, None]), None, None,
+            )
+            s = sample_fn(logits_v, emitted[:, None] + offs[None, :]).to(torch.int32)
+
+            # acceptance: the longest matched draft prefix plus the next row
+            span = torch.clamp(torch.minimum(max_steps - emitted - 1,
+                                             torch.full_like(emitted, k)), 0, k)
+            match = (s[:, :k] == drafts) & (offs[None, :k] < span[:, None])
+            e = torch.cumprod(match.to(torch.int32), dim=1).sum(dim=1).to(torch.int32) + 1
+            is_eos = (s == eos_ids[:, None]) & (offs[None, :] < e[:, None])
+            has_eos = is_eos.any(dim=1)
+            first_eos = torch.argmax(is_eos.to(torch.int32), dim=1).to(torch.int32) + 1
+            e = torch.where(has_eos, first_eos, e)
+            e = torch.where(live, e, 0)
+
+            # emit and advance: accepted rows land at the slot's running
+            # output index; the last accepted sample is the next pending
+            rows = emitted[:, None] + offs[None, :]
+            keep = (offs[None, :] < e[:, None]) & (rows < out_cap)
+            out[rows[keep].long(), cols[keep]] = s[keep]
+            last = torch.gather(s, 1, torch.clamp(e - 1, 0, k)[:, None].long())
+            tok = torch.where(live[:, None], last, tok)
+            pos = pos + e
+            emitted = emitted + e
+            done = done | has_eos | (emitted >= max_steps)
+            e_rounds.append(e)
+        return out, torch.stack(e_rounds), cache

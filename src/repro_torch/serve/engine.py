@@ -5,10 +5,13 @@ batching over a block-paged, quantized KV pool with DECA-compressed
 weights. Requests go in through `submit()` and come out of
 `run_until_drained()`; `generate()` submits one request per prompt row.
 
-Sampling in this slice is greedy: the token with the largest logit (the
-first on ties, as `jnp.argmax`). Temperature sampling, which needs the
-reference's threefry `fold_in` + `categorical` stream, is ROADMAP Queue A
-item 4b.
+Sampling is greedy: the token with the largest logit (the first on ties,
+as `jnp.argmax`). Temperature sampling, which needs the reference's
+threefry `fold_in` + `categorical` stream, is ROADMAP Queue A item 4b.
+`spec_decode=SpecConfig(...)` turns on self-speculative decoding: a draft
+tree re-encoded from the served weights proposes k tokens per round and
+one target forward verifies them, so greedy output is the non-speculative
+engine's.
 """
 from __future__ import annotations
 
@@ -19,6 +22,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.decompress import make_draft_tree
+from repro_torch.core.formats import get_spec
 from repro_torch.device import resolve
 from repro_torch.models.model import Model
 from repro_torch.serve.paged_cache import PagedKVCache
@@ -68,6 +73,52 @@ def make_paged_decode_chunk_step(model: Model) -> Callable:
     return chunk_step
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Self-speculative decoding knobs (the reference's `SpecConfig`).
+
+    `k` draft tokens per verify; `draft_codec` names the codec the engine
+    re-encodes the weight tree at for the draft (`make_draft_tree`, no
+    second checkpoint); `draft_window` > 0 caps the draft's attention
+    window so its fused walk is O(window) (verify keeps the full window,
+    so output stays exact); `rounds` draft/verify rounds run per device
+    launch (default: enough to cover the engine's `decode_chunk` at full
+    acceptance)."""
+
+    k: int = 3
+    draft_codec: str = "nf4"
+    draft_window: int = 0
+    rounds: Optional[int] = None
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"spec_decode needs k >= 1, got {self.k}")
+        if self.draft_window < 0:
+            raise ValueError("draft_window must be >= 0 (0 = full window)")
+        if self.rounds is not None and self.rounds < 1:
+            raise ValueError("rounds must be >= 1")
+
+
+def make_paged_spec_decode_step(
+    model: Model, *, k: int, rounds: int, draft_window: int, block_size: int
+) -> Callable:
+    """`rounds` greedy draft-k/verify-once rounds of
+    `Model.spec_decode_chunk` per call. The draft proposes with the same
+    argmax the verify samples with, so the accepted prefix plus the
+    verify's next token is what sequential greedy decode emits."""
+
+    def spec_step(params, draft_params, cache, tokens0, tables, p0, fresh,
+                  max_steps, eos, active):
+        return model.spec_decode_chunk(
+            params, draft_params, tokens0, cache, tables, p0, fresh,
+            sample_fn=lambda logits, idx: greedy(logits),
+            max_steps=max_steps, eos_ids=eos, active=active, k=k,
+            rounds=rounds, block_size=block_size, draft_window=draft_window,
+        )
+
+    return spec_step
+
+
 class GenerationEngine:
     """Continuous-batching greedy generation over a block-paged KV pool.
 
@@ -80,6 +131,13 @@ class GenerationEngine:
     `device`, which defaults to the card. `seed` is recorded for the
     temperature sampler of ROADMAP Queue A item 4b; greedy decoding draws
     no random numbers.
+
+    `spec_decode` builds the draft tree from `params` at
+    `SpecConfig.draft_codec` (decompressing every compressed leaf with the
+    DECA decompression kernel on the card), drafts k tokens per round
+    through the fused paged walk, verifies the k+1 positions in one target
+    forward and rolls rejected pages back. Only the paged engine exists in
+    the port; `paged=False` raises.
     """
 
     def __init__(
@@ -96,8 +154,17 @@ class GenerationEngine:
         kv_quant: Optional[str] = None,
         decode_chunk: int = 8,
         prefill_batch: bool = True,
+        spec_decode: Optional[SpecConfig] = None,
+        paged: bool = True,
         device="cuda",
     ):
+        if not paged:
+            if spec_decode is not None:
+                raise ValueError("spec_decode requires the paged engine")
+            raise ValueError(
+                "the dense ring-cache engine is not ported (ROADMAP Queue A "
+                "item 10); the port serves the paged path only"
+            )
         if temperature > 0:
             raise ValueError(
                 "temperature sampling is not ported yet: this slice serves "
@@ -125,6 +192,20 @@ class GenerationEngine:
         )
         self._paged_prefill = make_paged_prefill_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
+        self.draft_params = None
+        self.spec_rounds = 0
+        if spec_decode is not None:
+            self.draft_params = make_draft_tree(
+                params, get_spec(spec_decode.draft_codec),
+                layer_stack=model.layer_stack,
+            )
+            self.spec_rounds = spec_decode.rounds or max(
+                1, -(-max(1, decode_chunk) // (spec_decode.k + 1))
+            )
+            self._paged_spec_chunk = make_paged_spec_decode_step(
+                model, k=spec_decode.k, rounds=self.spec_rounds,
+                draft_window=spec_decode.draft_window, block_size=block_size,
+            )
         self.scheduler = Scheduler(
             self.kv,
             max_slots=max_slots,
@@ -135,6 +216,10 @@ class GenerationEngine:
             scrub_fn=self._run_paged_scrub,
             chunk=max(1, decode_chunk),
             prefill_batch=prefill_batch,
+            spec_fn=self._run_paged_spec_chunk if spec_decode is not None else None,
+            spec_k=spec_decode.k if spec_decode is not None else 0,
+            spec_rounds=self.spec_rounds,
+            spec_window=spec_decode.draft_window if spec_decode is not None else 0,
         )
 
     def _t(self, a, dtype=torch.int32) -> torch.Tensor:
@@ -167,6 +252,18 @@ class GenerationEngine:
             self._t(eos), self._t(active, torch.bool),
         )
         return toks.cpu().numpy()
+
+    def _run_paged_spec_chunk(self, tokens0, tables, p0, fresh, max_steps, eos,
+                              active):
+        """One device launch of `spec_rounds` rounds; the packed emissions
+        and the per-round counts cross to the host in one copy."""
+        out, e_rounds, self.kv.pools = self._paged_spec_chunk(
+            self.params, self.draft_params, self.kv.pools, self._t(tokens0),
+            self._t(tables), self._t(p0), self._t(fresh), self._t(max_steps),
+            self._t(eos), self._t(active, torch.bool),
+        )
+        both = torch.cat([out, e_rounds]).cpu().numpy()
+        return both[:out.shape[0]], both[out.shape[0]:]
 
     def submit(self, prompt: np.ndarray, *, max_new_tokens: int,
                eos_id: Optional[int] = None) -> int:

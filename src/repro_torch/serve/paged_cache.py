@@ -1,8 +1,9 @@
 """Block-paged KV cache: host-side free-list allocator and per-request block
 tables over the device pools built by `Model.init_paged_cache`.
 
-Counterpart of the base path of `repro/serve/paged_cache.py` (the prefix
-index, park, rollback and the host tier are later ROADMAP items). Layout:
+Counterpart of the base path of `repro/serve/paged_cache.py` and of its
+speculative-decode rollback (the prefix index, park and the host tier are
+later ROADMAP items). Layout:
 per attention layer one (num_blocks+1, block_size, Hkv, W) pool for K and V
 plus a (num_blocks+1, block_size) position plane. Device page 0 is the null
 page: pad and inactive-slot writes land there with the empty-position
@@ -128,6 +129,27 @@ class PagedKVCache:
 
     def blocks_held(self, rid: int) -> int:
         return len(self._tables[rid])
+
+    def rollback(self, rid: int, n_keep: int) -> int:
+        """Speculative-decode rollback: shrink the request back to the
+        pages covering its first `n_keep` tokens. Rejected drafts within a
+        page need nothing (a later round rewrites their positions); whole
+        trailing pages are freed, each credited back to the request's
+        reservation, since a later write there allocates again, and
+        dropped from the un-drained fresh list so no step scrubs a page
+        the request no longer holds. Without a prefix cache every page has
+        one holder, so every trimmed page is freed. Returns pages freed."""
+        table = self._tables[rid]
+        keep = self.blocks_for(max(0, n_keep))
+        if len(table) <= keep:
+            return 0
+        tail = table[keep:]
+        del table[keep:]
+        self._reserved[rid] = self._reserved.get(rid, 0) + len(tail)
+        self.allocator.free(tail)
+        drop = {p + 1 for p in tail}
+        self._fresh = [d for d in self._fresh if d not in drop]
+        return len(tail)
 
     # -- slot / table arrays for the device steps ----------------------------
 

@@ -11,7 +11,8 @@ done flags (EOS / length cap) are computed; the host syncs once per chunk.
 
 The decode step stays fixed-shape over all `max_slots` slots: inactive
 slots feed token 0 at position 0, write to the null page, and their outputs
-are ignored.
+are ignored. With a `spec_fn` each decode launch is instead `spec_rounds`
+self-speculative draft/verify rounds (`_decode_active_spec`).
 """
 from __future__ import annotations
 
@@ -53,6 +54,10 @@ STAT_UNITS: Dict[str, str] = {
     "kv_bytes_per_token": "bytes (pool footprint per token slot, all layers)",
     "kv_read_bytes_per_token": "bytes (KV actually streamed per decoded token)",
     "kv_read_bytes_per_token_worst": "bytes (max_blocks gather per token)",
+    "draft_tokens": "tokens (draft proposals computed on the speculative path)",
+    "verify_calls": "calls (per-slot verify passes on the speculative path)",
+    "accepted_tokens_per_step": "tokens/call (tokens emitted per verify pass; "
+                                ">1 is the speculative-decode win)",
 }
 
 
@@ -83,6 +88,11 @@ class Scheduler:
                     -> host tokens (C, M)
     sample_fn(logits (N,V) on the device) -> host tokens (N,)
     scrub_fn(pages (F,)) scrubs overflow fresh pages out of step.
+    spec_fn(tokens0 (M,1), tables (M,TW), p0 (M,), fresh (F,),
+            max_steps (M,), eos (M,), active (M,))
+            -> host (out (spec_rounds*(spec_k+1), M), e_rounds (spec_rounds, M)),
+            `spec_rounds` draft-`spec_k`/verify rounds; `spec_window` is the
+            draft's attention window cap (0 = none), for the accounting.
     """
 
     def __init__(
@@ -97,9 +107,18 @@ class Scheduler:
         scrub_fn: Callable,
         chunk: int = 1,
         prefill_batch: bool = True,
+        spec_fn: Optional[Callable] = None,
+        spec_k: int = 0,
+        spec_rounds: int = 0,
+        spec_window: int = 0,
     ):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if spec_fn is not None and (spec_k < 1 or spec_rounds < 1):
+            raise ValueError(
+                f"spec_fn requires spec_k >= 1 and spec_rounds >= 1, got "
+                f"k={spec_k}, rounds={spec_rounds}"
+            )
         self.cache = cache
         self.max_slots = max_slots
         self.max_len = max_len
@@ -110,6 +129,10 @@ class Scheduler:
         self._scrub = scrub_fn
         self.chunk = chunk
         self.prefill_batch = prefill_batch
+        self._spec = spec_fn
+        self.spec_k = spec_k
+        self.spec_rounds = spec_rounds
+        self.spec_window = spec_window
         self.queue: collections.deque = collections.deque()
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.results: Dict[int, np.ndarray] = {}
@@ -122,7 +145,7 @@ class Scheduler:
             "paged_block_steps": 0, "dense_block_steps": 0, "peak_blocks": 0,
             "prefill_calls": 0, "prefill_token_steps": 0,
             "prefill_real_tokens": 0, "kv_pages_read": 0,
-            "kv_pages_read_worst": 0,
+            "kv_pages_read_worst": 0, "draft_tokens": 0, "verify_calls": 0,
         }
 
     # ------------------------------------------------------------------
@@ -259,6 +282,9 @@ class Scheduler:
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
         if not active:
             return
+        if self._spec is not None:
+            self._decode_active_spec(active)
+            return
         m, mb, bs = self.max_slots, self.max_blocks, self.cache.block_size
         rem = {i: r.max_new_tokens - len(r.out) for i, r in active}
         c = min(self.chunk, _pow2ceil(max(rem.values())))
@@ -352,6 +378,111 @@ class Scheduler:
                 if steps_taken[i] == j + 1 and self._finished(r):
                     used -= held0[i] + grown[i]
 
+    def _decode_active_spec(self, active) -> None:
+        """Speculative decode: `spec_rounds` draft-k/verify-once rounds in
+        one device launch. The host pre-allocates each slot's span at full
+        acceptance, hands the device a block table bounded to the furthest
+        slot's span (pow2-rounded, read by both the draft walk and the
+        verify gather), then replays the packed emissions against request
+        state and rolls each request back to its committed length, which
+        returns the pages rejection left unwritten."""
+        m, bs = self.max_slots, self.cache.block_size
+        k, rounds = self.spec_k, self.spec_rounds
+        cap = rounds * (k + 1)
+        rem = {i: r.max_new_tokens - len(r.out) for i, r in active}
+
+        used0 = self.cache.allocator.used_count
+        held0 = {i: self.cache.blocks_held(r.rid) for i, r in active}
+        p0s: Dict[int, int] = {}
+        sis: Dict[int, int] = {}
+
+        tokens0 = np.zeros((m, 1), np.int32)
+        p0 = np.zeros(m, np.int32)
+        max_steps = np.zeros(m, np.int32)
+        eos = np.full(m, -1, np.int32)
+        act = np.zeros(m, bool)
+        for i, r in active:
+            pos0 = p0s[i] = r.next_pos - 1
+            si = sis[i] = min(cap, rem[i])
+            tokens0[i, 0] = r.out[-1]
+            p0[i] = pos0
+            max_steps[i] = si
+            act[i] = True
+            if r.eos_id is not None:
+                eos[i] = r.eos_id
+            self.cache.write_slots(r.rid, pos0, si)
+        tw = min(
+            _pow2ceil(max(math.ceil((p0s[i] + sis[i]) / bs) for i, _ in active)),
+            self.max_blocks,
+        )
+        tables = np.zeros((m, tw), np.int32)
+        for i, r in active:
+            tables[i] = self.cache.block_table_row(r.rid, tw)
+        fresh = self.cache.drain_fresh(m * ((cap + bs - 1) // bs + 1))
+
+        out, e_rounds = self._spec(tokens0, tables, p0, fresh, max_steps, eos, act)
+
+        for i, r in active:
+            emitted = 0
+            for t in range(rounds):
+                for _ in range(int(e_rounds[t, i])):
+                    r.out.append(int(out[emitted, i]))
+                    emitted += 1
+            r.peak_blocks = max(r.peak_blocks, self.cache.blocks_held(r.rid))
+            # positions from next_pos - 1 on hold only rejected drafts (the
+            # pending token's KV is written next round)
+            self.cache.rollback(r.rid, r.next_pos - 1)
+
+        self._account_decode_spec(active, e_rounds, p0s, held0, used0, tw)
+        for i, r in active:
+            if self._finished(r):
+                self._evict(i)
+
+    def _account_decode_spec(self, active, e_rounds, p0s, held0, used0, tw):
+        """Replay the spec chunk's per-round charging. A round is one decode
+        step of the batch, so `mean_occupancy` reads as tokens per
+        slot-round; pages are charged over committed tokens only, as in
+        `_account_decode_chunk`. KV read per live slot-round: k fused draft
+        walks (window-capped with a draft window) plus one verify gather
+        over the bounded table width `tw`."""
+        st = self._stats
+        st["decode_chunks"] += 1
+        st["host_syncs"] += 1
+        bs, k, window = self.cache.block_size, self.spec_k, self.spec_window
+        used = used0
+        grown = dict.fromkeys(held0, 0)
+        pos = dict(p0s)
+        cum = dict.fromkeys(held0, 0)
+        total = {i: int(np.sum(e_rounds[:, i])) for i, _ in active}
+        for t in range(e_rounds.shape[0]):
+            live = [i for i, _ in active if int(e_rounds[t, i]) > 0]
+            if not live:
+                break
+            st["decode_steps"] += 1
+            st["verify_calls"] += len(live)
+            st["draft_tokens"] += k * len(live)
+            for i in live:
+                e = int(e_rounds[t, i])
+                for j in range(e):
+                    if (pos[i] + j) % bs == 0:
+                        used += 1
+                        grown[i] += 1
+                for j in range(k):  # draft walks at kv_len = pos + j + 1
+                    kv = pos[i] + j + 1
+                    first = max(0, kv - window) // bs if window else 0
+                    st["kv_pages_read"] += min(tw, -(-kv // bs)) - first
+                st["kv_pages_read"] += tw  # the verify gather
+                st["kv_pages_read_worst"] += e * self.max_blocks
+                st["active_slot_steps"] += e
+                pos[i] += e
+                cum[i] += e
+            st["paged_block_steps"] += used
+            st["dense_block_steps"] += len(live) * self.max_blocks
+            st["peak_blocks"] = max(st["peak_blocks"], used)
+            for i, r in active:
+                if i in live and cum[i] == total[i] and self._finished(r):
+                    used -= held0[i] + grown[i]
+
     def _finished(self, r: Request) -> bool:
         return len(r.out) >= r.max_new_tokens or (
             r.eos_id is not None and bool(r.out) and r.out[-1] == r.eos_id
@@ -387,5 +518,10 @@ class Scheduler:
         st["kv_read_bytes_per_token"] = st["kv_pages_read"] * page_bytes / toks
         st["kv_read_bytes_per_token_worst"] = (
             st["kv_pages_read_worst"] * page_bytes / toks
+        )
+        # every token of a spec engine passes a verify; 0.0 without one
+        st["accepted_tokens_per_step"] = (
+            st["active_slot_steps"] / st["verify_calls"]
+            if st["verify_calls"] else 0.0
         )
         return st

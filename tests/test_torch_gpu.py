@@ -9,17 +9,25 @@ machine with a card and no JAX:
 Tolerance: the kernels and their plain versions multiply the same bf16
 values exactly and sum in f32 in another order (matmuls: K <= 512 here;
 attention: an online softmax over another grouping), so they agree to
-1e-4 of the output's scale.
+1e-4 of the output's scale. Decompression has no accumulation and is
+bitwise. A spec engine's tokens are held against teacher-forced logits of
+the target to 5e-2 of their scale, the kernel-path tolerance of PERF.md.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.compression import compress
-from repro_torch.core.formats import CompressionSpec
-from repro_torch.kernels import deca_gemm, ops, paged_attention, ref
+from repro_torch.configs.base import get_smoke_config
+from repro_torch.core.compression import CompressedTensor, compress
+from repro_torch.core.decompress import make_draft_tree
+from repro_torch.core.formats import CompressionSpec, get_spec
+from repro_torch.kernels import deca_decompress, deca_gemm, ops, paged_attention, ref
 from repro_torch.kernels.ref import CACHE_EMPTY_POS
 from repro_torch.models import layers
+from repro_torch.models.model import Model
+from repro_torch.serve.engine import GenerationEngine, SpecConfig
 
 KV_KINDS = ("none", "bf8", "int8", "int4", "mxfp4", "nf4")
 TOL = 1e-4
@@ -121,3 +129,111 @@ def test_compress_on_the_card_matches_the_cpu_bitwise(card):
                 assert (x is None) == (y is None)
                 if x is not None:
                     assert np.array_equal(x.cpu().numpy(), y.numpy()), (spec.name, plane)
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [1.0, 0.5, 0.05])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_decompress_kernel_matches_plain_bitwise(card, quant, density):
+    """Every codec, density and output type, compared as integer views so
+    that -0.0 and +0.0 count; N = 200 leaves a partial CTA."""
+    g = torch.Generator(device=card).manual_seed(len(quant))
+    w = torch.randn(256, 200, generator=g, device=card) * 0.05
+    w[3, :] = 0.0
+    w[4, :] = -0.0
+    ct = compress(w, CompressionSpec(quant, density))
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = ops.decompress(ct, out_dtype=out_dtype)
+        want = ref.decompress(ct, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == want.shape
+        assert torch.equal(_bits(got), _bits(want)), (quant, density, out_dtype)
+
+
+@pytest.mark.gpu
+def test_decompress_kernel_counts_launches_and_rejects_bad_operands(card):
+    ct = compress(torch.randn(64, 64, device=card), CompressionSpec("int4", 0.5))
+    before = deca_decompress.decompress.launches
+    ops.decompress(ct, out_dtype=torch.float32)
+    assert deca_decompress.decompress.launches == before + 1
+    bad = [
+        dataclasses.replace(ct, mask=ct.mask.cpu()),  # a plane on another device
+        dataclasses.replace(ct, codes=torch.empty(ct.codes.numel() + 1, dtype=torch.uint8,
+                                                  device=card)[1:].view(ct.codes.shape)),
+        dataclasses.replace(ct, scales=ct.scales.t().contiguous().t()),  # not contiguous
+        compress(torch.randn(64, 64, device=card), CompressionSpec("int4", 0.5, group=64)),
+    ]
+    for b in bad:
+        with pytest.raises(ValueError):
+            deca_decompress.decompress(b, out_dtype=torch.float32)
+    with pytest.raises(ValueError):
+        deca_decompress.decompress(ct, out_dtype=torch.float16)
+    assert deca_decompress.decompress.launches == before + 1
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
+    if isinstance(tree, CompressedTensor):
+        return dataclasses.replace(tree, **{
+            n: None if getattr(tree, n) is None else getattr(tree, n).to(device)
+            for n in ("codes", "mask", "scales")})
+    return tree.to(device)
+
+
+def _smoke(device, spec="bf8_50"):
+    model = Model(get_smoke_config("llama3-8b"))
+    params = model.init(torch.Generator().manual_seed(0), device="cpu", spec=get_spec(spec))
+    return model, _to(params, device)
+
+
+@pytest.mark.gpu
+def test_make_draft_tree_on_the_card_equals_the_cpu(card):
+    """The draft tree built through the decompression kernel is the CPU's,
+    every plane of every leaf, with one launch per compressed leaf."""
+    model, params = _smoke("cpu")
+    on_cpu = make_draft_tree(params, get_spec("nf4"), layer_stack=model.layer_stack)
+    before = deca_decompress.decompress.launches
+    on_card = make_draft_tree(_to(params, card), get_spec("nf4"),
+                              layer_stack=model.layer_stack)
+    leaves = 1 + 7 * len(params["layers"])
+    assert deca_decompress.decompress.launches == before + leaves
+    pairs = [(on_card["lm_head"], on_cpu["lm_head"])] + [
+        (a[grp][n], b[grp][n]) for a, b in zip(on_card["layers"], on_cpu["layers"])
+        for grp in ("attn", "mlp") for n in a[grp]]
+    for a, b in pairs:
+        assert isinstance(a, CompressedTensor) and a.spec == b.spec
+        for plane in ("codes", "mask", "scales"):
+            x, y = getattr(a, plane), getattr(b, plane)
+            assert (x is None) == (y is None)
+            if x is not None:
+                assert torch.equal(x.cpu(), y)
+
+
+@pytest.mark.gpu
+def test_spec_engine_on_the_card_emits_tokens_within_logit_tolerance(card):
+    """Each emitted token's teacher-forced target logit lies within 5e-2 of
+    the position's scale of its largest logit."""
+    model, params = _smoke(card)
+    eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                           decode_chunk=8, kv_quant="int8", device=card,
+                           spec_decode=SpecConfig(k=3, draft_codec="nf4"))
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (4, 19, 11)]
+    rids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    done = eng.run_until_drained()
+    assert eng.scheduler.stats()["verify_calls"] > 0
+    for p, r in zip(prompts, rids):
+        out = done[r]
+        assert len(out) == 12
+        seq = torch.as_tensor(np.concatenate([p, out[:-1]]), device=card)
+        rows = eng.model.score(params, seq, block_size=8)[len(p) - 1:]
+        picked = rows.gather(1, torch.as_tensor(out, device=card).long()[:, None])[:, 0]
+        gap = (rows.max(dim=1).values - picked).max()
+        assert float(gap) <= 5e-2 * float(rows.abs().max())

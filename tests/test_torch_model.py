@@ -289,19 +289,52 @@ def test_rms_norm_rope_attention_core_track_reference():
     np.testing.assert_allclose(g, r, rtol=0, atol=2.0**-7 * np.abs(r).max())
 
 
+def _same_leaf(a, b) -> bool:
+    """Both dense and bitwise equal, or both compressed with the same
+    spec, shape and planes."""
+    if isinstance(a, CompressedTensor) != isinstance(b, CompressedTensor):
+        return False
+    if not isinstance(a, CompressedTensor):
+        return torch.equal(_plane(a), _plane(b))
+    if (a.spec, a.shape) != (b.spec, b.shape):
+        return False
+    for name in ("codes", "mask", "scales"):
+        x, y = getattr(a, name), getattr(b, name)
+        if (x is None) != (y is None) or (x is not None and not torch.equal(x, y)):
+            return False
+    return True
+
+
 def test_compress_tree_compresses_fc_weights_on_their_device(reference_params):
-    tm = Model(get_smoke_config("llama3-8b"))
-    dense = tm.init(torch.Generator().manual_seed(0), device="cpu")
+    cfg = get_smoke_config("llama3-8b")
+    dense = params_from_jax(
+        jax.device_get(JModel(jget_smoke_config("llama3-8b")).init(jax.random.PRNGKey(0))),
+        cfg, device="cpu")
     comp = compress_tree(dense, get_spec("bf8_50"))
     assert isinstance(comp["lm_head"], CompressedTensor)
     assert not isinstance(comp["embed"], CompressedTensor)
     mlp = comp["layers"][0]["mlp"]
     assert all(isinstance(mlp[n], CompressedTensor) for n in ("w_gate", "w_up", "w_down"))
-    # the size floor applies per layer here, to the layer-stacked array in
-    # the reference: the smoke config's (64, 32) K/V projections stay dense
-    assert not isinstance(comp["layers"][0]["attn"]["wk"], CompressedTensor)
+    # the size floor counts the layer-stacked array, as the reference's
+    # does: the smoke config's (64, 32) K/V projections, 2 x 2048 elements
+    # stacked, are compressed, and the whole tree is the reference's, leaf
+    # for leaf and plane for plane
+    assert isinstance(comp["layers"][0]["attn"]["wk"], CompressedTensor)
+    want = params_from_jax(jax.device_get(reference_params), cfg, device="cpu")
+    assert set(comp) == set(want)
+    for name in ("embed", "final_norm", "lm_head"):
+        assert _same_leaf(comp[name], want[name]), name
+    for got_l, want_l in zip(comp["layers"], want["layers"]):
+        for group in ("attn", "mlp"):
+            for name, leaf in got_l[group].items():
+                assert _same_leaf(leaf, want_l[group][name]), (group, name)
+        for name in ("pre_norm", "pre_mlp_norm"):
+            assert _same_leaf(got_l[name], want_l[name]), name
     assert compressed_bytes(comp) < compressed_bytes(dense)
     assert comp["layers"][1]["mlp"]["w_up"].device.type == "cpu"
+    # a layer that is not part of a stack keeps its own count
+    alone = compress_tree(dense, get_spec("bf8_50"), layer_stack=1)
+    assert not isinstance(alone["layers"][0]["attn"]["wk"], CompressedTensor)
 
 
 def test_init_with_spec_matches_compressing_afterwards():
