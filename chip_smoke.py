@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from `src/repro_torch/csrc/`, holds each
 against its plain PyTorch version at llama3-8b's shapes (every weight codec
 at densities 1.0 and 0.5, every KV pool kind with window and softcap
 variants), times each beside its plain version, a PyTorch library call of
-the same function and the least time the card could take, then stands up
+the same function and the least time the card could take (and reads its
+device time and its wrapper's host time per call apart), then stands up
 full-width llama3-8b with bf8_50-compressed weights on the card and serves
 8 greedy requests through `GenerationEngine`, checking that every kernel
 carried the run, that the kernel path's logits agree with the plain path's
@@ -70,11 +71,28 @@ def bound_ms(nbytes: float, flops: float):
     return 1e3 * max(t_mem, t_ops), ("bytes" if t_mem >= t_ops else "operations")
 
 
+def fmt_ms(ms) -> str:
+    return "not recorded" if ms is None else f"{ms:.4f} ms"
+
+
+def achieved(case, nbytes: float, flops: float) -> str:
+    """Record and describe the rate `case["ms"]` reached on the quantity
+    that bounds it: TFLOP/s against the tensor cores' 989, or GB/s against
+    the 3350 of device memory."""
+    if case["bound_by"] == "operations":
+        case["tflop_s"] = flops / case["ms"] / 1e9
+        return f"{case['tflop_s']:.1f} TFLOP/s of {BF16_FLOP_PER_S / 1e12:.0f}"
+    case["gb_s"] = nbytes / case["ms"] / 1e6
+    return f"{case['gb_s']:.0f} GB/s of {HBM_BYTES_PER_S / 1e9:.0f}"
+
+
 class Timer:
-    """Median device time of `fn` with CUDA events, each run after a 256 MB
+    """Median time of `fn` between two CUDA events, each run after a 256 MB
     write that evicts the 50 MB L2, as the serving path streams a weight
-    or KV page cold. The write also keeps the card busy while the host
-    enqueues `fn`, so the start event does not time the launch overhead."""
+    or KV page cold. The write (about 0.08 ms) keeps the card busy while
+    the host enqueues `fn`; where the wrapper's host work outlasts it, the
+    rest falls between the events, so a short kernel's reading holds part
+    of its wrapper's host time. `split` gives the two apart."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -95,6 +113,43 @@ class Timer:
             b.synchronize()
             times.append(a.elapsed_time(b))
         return sorted(times)[len(times) // 2]
+
+    def split(self, fn, reps: int = 10) -> tuple:
+        """(device ms, host ms) of one call of `fn`. Device: the kernels
+        `fn` launched, summed over a torch.profiler trace of `reps` calls
+        (each after the L2-evicting write, whose fill kernel is left out)
+        and divided by `reps`; a trace that recorded no kernel of `fn` is
+        taken again, up to three times, and then the device time is None.
+        Host: the median wall of the call alone on an idle card, what the
+        wrapper costs the host per launch."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        torch = self.torch
+        host = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            host.append(1e3 * (time.perf_counter() - t))
+        torch.cuda.synchronize()
+        device = None
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    self.flush.fill_(1)
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(
+                evt.self_device_time_total for evt in prof.key_averages()
+                if evt.device_type == DeviceType.CUDA and evt.self_device_time_total > 0
+                and not getattr(evt, "is_user_annotation", False)
+                and not evt.key.startswith("aten::")
+                and "FillFunctor<unsigned char>" not in evt.key)
+            if us > 0:
+                device = us / 1e3 / reps
+                break
+        return device, sorted(host)[len(host) // 2]
 
 
 def rel_err(got, want) -> tuple:
@@ -123,24 +178,27 @@ def check_decompress(torch, timer, ct, role, cases):
         del got, want
         if ct.spec.name == SERVED_SPEC:
             case["ms"] = timer(lambda: deca_decompress.decompress(ct, out_dtype=dt))
+            case["device_ms"], case["host_ms"] = timer.split(
+                lambda: deca_decompress.decompress(ct, out_dtype=dt))
             case["plain_ms"] = timer(lambda: ref.decompress(ct, dt), reps=3)
             case["library_ms"] = None  # no one PyTorch call decodes the triplet
             # each plane read once, the dense weight written once
-            case["bound_ms"], case["bound_by"] = bound_ms(
-                ct.nbytes + k * n * (4 if dt == torch.float32 else 2), 0.0)
+            moved = ct.nbytes + k * n * (4 if dt == torch.float32 else 2)
+            case["bound_ms"], case["bound_by"] = bound_ms(moved, 0.0)
             log(f"decompress {role:8s} {ct.spec.name} -> {case['out']:8s}: bitwise {equal} "
-                f"kernel {case['ms']:.4f} ms plain {case['plain_ms']:.4f} ms bound "
-                f"{case['bound_ms']:.4f} ms ({case['bound_by']})")
+                f"kernel {case['ms']:.4f} ms ({achieved(case, moved, 0.0)}; device "
+                f"{fmt_ms(case['device_ms'])}, host {case['host_ms']:.4f} ms) plain "
+                f"{case['plain_ms']:.4f} ms bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
         cases.append(case)
         if not equal:
             raise AssertionError(f"decompress disagrees with its plain version: {case}")
 
 
 def check_matmuls(torch, timer, report):
-    """GeMV (M in 1, 4, 32) and GeMM (M in 64, 2048) against their plain
-    versions, and the decompression kernel bitwise against its plain
-    version, for every FC shape, codec and density; timed at the served
-    codec."""
+    """GeMV (M in 1, 4, 32) and GeMM (M in 64, 2048, and 4096, the largest
+    prefill bucket, at gate/up) against their plain versions, and the
+    decompression kernel bitwise against its plain version, for every FC
+    shape, codec and density; timed at the served codec."""
     from repro_torch.core.compression import compress
     from repro_torch.core.formats import CompressionSpec
     from repro_torch.kernels import deca_gemm, ref
@@ -150,8 +208,8 @@ def check_matmuls(torch, timer, report):
     g = torch.Generator(device="cuda").manual_seed(1)
     for k, n, role in FC_SHAPES:
         w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
-        xs = {m: torch.randn(m, k, generator=g, device="cuda").bfloat16().float()
-              for m in (1, 4, 32, 64, 2048)}
+        ms = (1, 4, 32, 64, 2048) + ((4096,) if role == "gate/up" else ())
+        xs = {m: torch.randn(m, k, generator=g, device="cuda").bfloat16().float() for m in ms}
         for quant in CODECS:
             for dens in (1.0, 0.5):
                 spec = CompressionSpec(quant, dens)
@@ -171,15 +229,18 @@ def check_matmuls(torch, timer, report):
                         xb = x.bfloat16()
                         dense = ref.decompress(ct, torch.bfloat16)
                         case["ms"] = timer(lambda: kern(xb, ct, out_dtype=torch.bfloat16))
+                        case["device_ms"], case["host_ms"] = timer.split(
+                            lambda: kern(xb, ct, out_dtype=torch.bfloat16))
                         case["plain_ms"] = timer(lambda: plain(xb, ct, out_dtype=torch.bfloat16), reps=3)
                         case["library_ms"] = timer(lambda: torch.matmul(xb, dense))
-                        case["bound_ms"], case["bound_by"] = bound_ms(
-                            ct.nbytes + 2 * m * k + 2 * m * n, 2.0 * m * k * n)
+                        moved, flops = ct.nbytes + 2 * m * k + 2 * m * n, 2.0 * m * k * n
+                        case["bound_ms"], case["bound_by"] = bound_ms(moved, flops)
                         del dense
                         log(f"{kind} {role:8s} M={m:5d} {spec.name}: rel_err {rel:.2e} "
-                            f"kernel {case['ms']:.4f} ms plain {case['plain_ms']:.4f} ms "
-                            f"library {case['library_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
-                            f"({case['bound_by']})")
+                            f"kernel {case['ms']:.4f} ms ({achieved(case, moved, flops)}; device "
+                            f"{fmt_ms(case['device_ms'])}, host {case['host_ms']:.4f} ms) plain "
+                            f"{case['plain_ms']:.4f} ms library {case['library_ms']:.4f} ms "
+                            f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
                     if rel > KERNEL_TOL:
                         raise AssertionError(f"{kind} disagrees with its plain version: {case}")
                     cases.append(case)
@@ -248,6 +309,8 @@ def check_attention(torch, timer, report):
                 qb = q.bfloat16()
                 bargs = (qb,) + args[1:]
                 case["ms"] = timer(lambda: paged_attention.paged_attention(*bargs, quant=kind))
+                case["device_ms"], case["host_ms"] = timer.split(
+                    lambda: paged_attention.paged_attention(*bargs, quant=kind))
                 case["plain_ms"] = timer(lambda: ref.paged_decode_attention(*bargs, quant=kind), reps=3)
                 kg, vg, kpos = layers.paged_gather_kv(pools, tables, kind)
                 # (B, Hq, T, Dh): each KV head serves its 4 query heads
@@ -262,12 +325,14 @@ def check_attention(torch, timer, report):
                 per_tok = 8 * (2 * w + (4 if codec and codec.has_scale else 0)) + 4
                 pages = ((kv_lens + 31) // 32).sum().item()
                 toks = kv_lens.sum().item()
-                case["bound_ms"], case["bound_by"] = bound_ms(
-                    pages * 32 * per_tok + 2 * qb.numel() * 2 + 4 * 4 * 64,
-                    4.0 * 32 * 128 * toks)
+                moved = pages * 32 * per_tok + 2 * qb.numel() * 2 + 4 * 4 * 64
+                flops = 4.0 * 32 * 128 * toks
+                case["bound_ms"], case["bound_by"] = bound_ms(moved, flops)
                 log(f"attention {kind:5s}: rel_err {rel:.2e} kernel {case['ms']:.4f} ms "
-                    f"plain {case['plain_ms']:.4f} ms sdpa {case['library_ms']:.4f} ms "
-                    f"bound {case['bound_ms']:.4f} ms ({case['bound_by']})")
+                    f"({achieved(case, moved, flops)}; device {fmt_ms(case['device_ms'])}, host "
+                    f"{case['host_ms']:.4f} ms) plain {case['plain_ms']:.4f} ms sdpa "
+                    f"{case['library_ms']:.4f} ms bound {case['bound_ms']:.4f} ms "
+                    f"({case['bound_by']})")
                 del kg, vg, kt, vt
                 if kind == SERVED_KV:
                     no_gathered_kv(torch, paged_attention.paged_attention, bargs, kind, report)
@@ -422,9 +487,11 @@ def profile_serving(torch, eng, prompts, report, key="profile"):
         return
     log(f"{key} pass: wall {wall_ms:.1f} ms, device busy {busy:.1f} ms, idle share "
         f"{1 - busy / wall_ms:.3f} (upper bound: the profiler slows the host)")
-    ours = ("::gemv_kernel", "::splitk_reduce", "::gemm_kernel", "::paged_attention_kernel")
+    ours = ("::gemv_kernel", "::splitk_reduce", "::gemm_sm90_kernel", "::split_kv_kernel",
+            "::combine_kernel")
     deca = sum(r["device_ms"] for r in rows if any(k in r["name"] for k in ours))
-    log(f"  port kernels and split-K reduce {deca:.1f} ms, other kernels {busy - deca:.1f} ms")
+    log(f"  port kernels (GeMV with its split-K reduce, GeMM, split-KV attention with its "
+        f"combine) {deca:.1f} ms, other kernels {busy - deca:.1f} ms")
     for r in rows[:8]:
         log(f"  {r['device_ms']:9.2f} ms {r['count']:6d}x  {r['name'][:90]}")
 
@@ -666,6 +733,7 @@ def main() -> int:
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng).numpy() for n in lens]
     sched = eng.scheduler
     walls = {"prefill": 0.0, "decode": 0.0}
+    prefill_calls = []
 
     def timed(name, fn):
         def run(*a):
@@ -673,6 +741,8 @@ def main() -> int:
             out = fn(*a)
             torch.cuda.synchronize()
             walls[name] += time.perf_counter() - t
+            if name == "prefill":
+                prefill_calls.append(time.perf_counter() - t)
             return out
         return run
 
@@ -692,7 +762,8 @@ def main() -> int:
     st = sched.stats()
     log(f"served {len(rids)} requests (prompt lengths {lens}) x 64 new tokens, "
         f"kv {SERVED_KV}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; "
-        f"prefill {walls['prefill']:.2f} s over {st['prefill_calls']} calls, decode "
+        f"prefill {walls['prefill']:.2f} s over {st['prefill_calls']} calls "
+        f"({', '.join(f'{w:.2f}' for w in prefill_calls)} s), decode "
         f"{walls['decode']:.2f} s over {st['decode_chunks']} chunks / {st['decode_steps']} "
         f"steps = {st['active_slot_steps'] / max(walls['decode'], 1e-9):.1f} tok/s; "
         f"peak device memory {peak / 1e9:.2f} GB")
@@ -702,7 +773,8 @@ def main() -> int:
         f"{cfg.n_layers}; per prefill call: deca_gemm "
         f"{launches['deca_gemm'] / max(st['prefill_calls'], 1):.1f}")
     report["serve"] = {"prompt_lens": lens, "tokens": n_tok, "wall_s": wall,
-                       "prefill_s": walls["prefill"], "decode_s": walls["decode"],
+                       "prefill_s": walls["prefill"], "prefill_calls_s": list(prefill_calls),
+                       "decode_s": walls["decode"],
                        "peak_bytes": peak, "launches": launches, "stats": st}
     if any(len(done[r]) != 64 for r in rids):
         raise AssertionError("a request did not emit its 64 tokens")
@@ -746,15 +818,23 @@ def main() -> int:
 
     gv = pick(mm_cases, kernel="gemv", role="gate/up", M=4, spec=SERVED_SPEC)
     gm = pick(mm_cases, kernel="gemm", role="gate/up", M=2048, spec=SERVED_SPEC)
+    gm4 = pick(mm_cases, kernel="gemm", role="gate/up", M=4096, spec=SERVED_SPEC)
+    log(f"deca_gemm gate/up {SERVED_SPEC}: M=2048 {gm['ms']:.4f} ms, M=4096 {gm4['ms']:.4f} ms "
+        f"({gm4['tflop_s']:.1f} TFLOP/s; library {gm4['library_ms']:.4f} ms, bound "
+        f"{gm4['bound_ms']:.4f} ms)")
     at = pick(att_cases, kind=SERVED_KV, variant="plain")
     dc = pick(dec_cases, role="gate/up", spec=SERVED_SPEC, out="float32")
+    for name, c in (("deca_gemv", gv), ("deca_gemm", gm), ("deca_paged_attention", at),
+                    ("deca_decompress", dc)):
+        log(f"{name}: event-timed {c['ms']:.4f} ms, device (profiler) {fmt_ms(c['device_ms'])}, "
+            f"wrapper host {c['host_ms']:.4f} ms a call")
     csrc = "src/repro_torch/csrc/"
     # each kernel's launches on the path it serves: the matmul and attention
     # kernels on the non-spec serve, the decompression kernel on the spec path
     launches["deca_decompress"] = spec_launches["deca_decompress"]
     rows = [
         ("deca_gemv", csrc + "deca_gemm.cu", "src/repro/kernels/deca_gemm.py:176", gv),
-        ("deca_gemm", csrc + "deca_gemm.cu", "src/repro/kernels/deca_gemm.py:104", gm),
+        ("deca_gemm", csrc + "deca_gemm_sm90.cu", "src/repro/kernels/deca_gemm.py:104", gm),
         ("deca_paged_attention", csrc + "paged_attention.cu",
          "src/repro/kernels/paged_attention.py:118", at),
         ("deca_decompress", csrc + "deca_decompress.cu",

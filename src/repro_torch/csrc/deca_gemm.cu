@@ -1,14 +1,14 @@
-// Fused DECA decompression + matmul for Hopper (sm_90a).
+// DECA decode GeMV for Hopper (sm_90a).
 //
-// Replaces repro/kernels/deca_gemm.py: decompress_gemv_pallas (decode,
-// M <= 32) and decompress_gemm_pallas (prefill, M > 32), body _gemm_kernel.
-// Both compute out (M, N) = bf16(x) @ bf16(decompress(W)) with f32
-// accumulation and store once in the output type. The dense weight never
-// exists in device memory: a CTA stages a tile of the compressed triplet
-// (codes, mask bits, scale bits) in shared memory, and each thread decodes
-// one (group, column) of it with deca::decode_column right before use.
+// Replaces repro/kernels/deca_gemm.py::decompress_gemv_pallas (decode,
+// M <= 32; body _gemm_kernel). It computes out (M, N) = bf16(x) @
+// bf16(decompress(W)) with f32 accumulation and stores once in the output
+// type. The dense weight never exists in device memory: a CTA stages a tile
+// of the compressed triplet (codes, mask bits, scale bits) in shared memory,
+// and each thread decodes one (group, column) of it with deca::decode_column
+// right before use. The prefill GeMM (M > 32) is deca_gemm_sm90.cu.
 //
-// What bounds them, and what the design does about it. Code bytes of one
+// What bounds it, and what the design does about it. Code bytes of one
 // column are N apart, so a thread that fetched its own column byte by byte
 // would wait a full memory latency per byte (the first version of these
 // kernels did, and ran at 2-5 % of the memory rate). Instead every tile is
@@ -16,27 +16,17 @@
 // pieces of a code row, and each thread issues a batch of kBatch loads
 // before it stores any, so many loads are in flight per thread.
 //
-// GeMV. Bound by device-memory bytes: the compressed weight stream (about
-// 5 bits per weight at bf8_50) dwarfs x and out. A CTA owns 128 output
-// columns, one per thread, and walks its K range in chunks of up to 8
-// groups: stage the chunk's codes, masks, scales and x rows, then each
-// thread decodes its column group by group and keeps M f32 sums in
-// registers. When 128-column blocks give too few CTAs for 132 SMs (N = 1024
-// gives 8), K is split over gridDim.y CTAs that write f32 partials to a
-// workspace, and a second pass sums them in split order, so the result is
-// deterministic.
-//
-// GeMM. Bound by the tensor cores at prefill sizes. A CTA computes a 64x64
-// output tile with 8 warps, each holding two 16x16 f32 WMMA accumulators.
-// Per K step of 128 rows (4 groups) it stages x (cast to bf16) and the
-// compressed tile, the 256 threads decode one (group, column) each into a
-// bf16 shared tile, and the warps run WMMA bf16 16x16x16 over it. TMA,
-// wgmma and a producer/consumer pipeline that overlaps the decode with the
-// MMA are later work.
+// Bound by device-memory bytes: the compressed weight stream (about 5 bits
+// per weight at bf8_50) dwarfs x and out. A CTA owns 128 output columns,
+// one per thread, and walks its K range in chunks of up to 8 groups: stage
+// the chunk's codes, masks, scales and x rows, then each thread decodes its
+// column group by group and keeps M f32 sums in registers. When 128-column
+// blocks give too few CTAs for 132 SMs (N = 1024 gives 8), K is split over
+// gridDim.y CTAs that write f32 partials to a workspace, and a second pass
+// sums them in split order, so the result is deterministic.
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 #include "deca_tile.cuh"
 
@@ -283,99 +273,6 @@ cudaError_t launch_gemv(const void* x, int x_f32, const uint8_t* codes,
   return cudaGetLastError();
 }
 
-namespace wmma = nvcuda::wmma;
-constexpr int kBM = 64, kBN = 64, kBK = 128, kGemmThreads = 256;
-constexpr int kKGroups = kBK / deca::kGroup;  // groups per K step
-constexpr int kAPitch = kBK + 8;   // bf16 elements; multiple of 8 for WMMA
-constexpr int kBPitch = kBN + 8;
-constexpr int kCPitch = kBN + 4;   // f32 elements; multiple of 4
-constexpr int kABytes = kBM * kAPitch * 2;
-constexpr int kBBytes = kBK * kBPitch * 2;
-constexpr int kStageBytes = kKGroups * 64 * kBN;  // codes, ck <= 64
-constexpr int kBitsBytes = 2 * kKGroups * kBN * 4;
-constexpr int kCBytes = kBM * kCPitch * 4;
-constexpr int kLoopBytes = kABytes + kBBytes + kStageBytes + kBitsBytes;
-constexpr int kGemmSmem = kLoopBytes > kCBytes ? kLoopBytes : kCBytes;
-
-__global__ void __launch_bounds__(kGemmThreads)
-gemm_kernel(const void* x, int x_f32, const uint8_t* codes,
-            const int32_t* mask, const void* scales, int codec, int k_cap,
-            int ck, int M, int K, int N, void* out, int out_f32) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + kABytes);
-  uint8_t* cs = smem + kABytes + kBBytes;
-  uint32_t* ms = reinterpret_cast<uint32_t*>(cs + kStageBytes);
-  uint32_t* ss = ms + kKGroups * kBN;
-  float* Cs = reinterpret_cast<float*>(smem);  // reused after the K loop
-
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int wm = warp / 2, wn = warp % 2;  // 4 x 2 warps over 64 x 64
-  const long long m0 = (long long)blockIdx.y * kBM;
-  const long long n0 = (long long)blockIdx.x * kBN;
-  const int cols = (int)min((long long)kBN, N - n0);
-  const int ng = K / deca::kGroup;
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[2];
-  wmma::fill_fragment(c[0], 0.0f);
-  wmma::fill_fragment(c[1], 0.0f);
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    const int g0 = k0 / deca::kGroup;
-    const int ngs = min(kKGroups, ng - g0);
-    stage_x<kBK, kGemmThreads>(As, kAPitch, x, x_f32, kBM, M, K, m0, k0, K);
-    stage_code_rows<kBN, kGemmThreads>(cs, codes, (long long)g0 * ck, ngs * ck,
-                                       N, n0, cols);
-    stage_group_bits<kBN, kGemmThreads>(ms, ss, mask, scales, codec, g0, ngs,
-                                        N, n0, cols);
-    __syncthreads();
-    {
-      const int gl = tid / kBN, cl = tid % kBN;  // 4 groups x 64 columns
-      float w[deca::kGroup];
-      if (gl < ngs && cl < cols) {
-        const int gi = gl * kBN + cl;
-        deca::decode_column(codec, cs + gl * ck * kBN + cl, kBN, k_cap,
-                            mask != nullptr, ms[gi], scales != nullptr,
-                            deca::scale_value(codec, scales != nullptr, ss[gi]), w);
-      } else {
-#pragma unroll
-        for (int i = 0; i < deca::kGroup; ++i) w[i] = 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < deca::kGroup; ++i)
-        Bs[(gl * deca::kGroup + i) * kBPitch + cl] = __float2bfloat16_rn(w[i]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, As + (wm * 16) * kAPitch + kk, kAPitch);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, Bs + kk * kBPitch + wn * 32 + j * 16, kBPitch);
-        wmma::mma_sync(c[j], a, b, c[j]);
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-    wmma::store_matrix_sync(Cs + (wm * 16) * kCPitch + wn * 32 + j * 16, c[j],
-                            kCPitch, wmma::mem_row_major);
-  __syncthreads();
-  for (int i = tid; i < kBM * kBN; i += kGemmThreads) {
-    const int r = i / kBN, cc = i % kBN;
-    const long long gm = m0 + r, gn = n0 + cc;
-    if (gm < M && gn < N) {
-      const float v = Cs[r * kCPitch + cc];
-      if (out_f32) ((float*)out)[gm * N + gn] = v;
-      else ((__nv_bfloat16*)out)[gm * N + gn] = __float2bfloat16_rn(v);
-    }
-  }
-}
-
 }  // namespace
 
 extern "C" int deca_gemv(const void* x, int x_f32, const void* codes,
@@ -397,20 +294,5 @@ extern "C" int deca_gemv(const void* x, int x_f32, const void* codes,
   if (err != cudaSuccess) return (int)err;
   const long long mn = (long long)M * N;
   splitk_reduce<<<(unsigned)((mn + 255) / 256), 256, 0, s>>>(w, splits, mn, out, out_f32);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int deca_gemm(const void* x, int x_f32, const void* codes,
-                         const void* mask, const void* scales, int codec,
-                         int k_cap, int ck, int M, int K, int N, void* out,
-                         int out_f32, void* stream) {
-  if (ck > 64) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      gemm_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  gemm_kernel<<<grid, kGemmThreads, kGemmSmem, (cudaStream_t)stream>>>(
-      x, x_f32, (const uint8_t*)codes, (const int32_t*)mask, scales, codec,
-      k_cap, ck, M, K, N, out, out_f32);
   return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Launch geometry of the three Hopper kernels, re-derived for an H100.
+"""Launch geometry of the Hopper kernels, re-derived for an H100.
 
 The reference (`repro/kernels/autotune.py`) budgets TPU VMEM and 128-lane
 tiles. On Hopper the scarce things are different: shared memory per CTA
@@ -11,9 +11,12 @@ and plain versions need:
                     column blocks) split K until >= 2 CTAs per SM are in
                     flight; the f32 partials are summed by a second,
                     deterministic pass
-  attention_smem    shared bytes of one paged-attention CTA (slot, KV head):
-                    one page's stored K and V bytes, the same decoded to f32,
-                    plus the g query rows, scores and accumulators
+  attention_splits  split-KV plan of the paged-attention decode, from the
+                    shapes alone (MB, B, Hkv): enough splits of the page
+                    walk for a grid of ATTENTION_CTAS_PER_SM CTAs per SM,
+                    each split at least one page, so that several CTAs an
+                    SM wait on page loads at once. At 4 slots of llama3-8b
+                    that is 32 splits of 2 pages (1024 CTAs)
   select_block      largest divisor helper (the plain GeMV's column tiles)
 """
 from __future__ import annotations
@@ -23,7 +26,7 @@ import math
 SM_COUNT = 132            # H100 SXM streaming multiprocessors
 GEMV_COLS = 128           # output columns per GeMV CTA (one per thread)
 GEMV_MAX_SPLITS = 64
-MAX_SMEM = 227 * 1024     # per-CTA ceiling on Hopper
+ATTENTION_CTAS_PER_SM = 8  # split-KV grid size over the SM count (4 fit an SM at once)
 
 
 def divisors(n: int):
@@ -58,16 +61,12 @@ def gemv_splits(n: int, n_groups: int) -> int:
     return -(-n_groups // per)
 
 
-def attention_smem(block_size: int, d_head: int, group: int, row_bytes: int) -> int:
-    """Shared bytes of one paged-attention CTA (see csrc/paged_attention.cu):
-    the page's stored K and V rows (`row_bytes` per token), K and V decoded
-    to f32 rows padded by one word, query rows, accumulators, scores,
-    (m, l, alpha) per query head, and per-token scales and positions."""
-    floats = (
-        2 * block_size * (d_head + 1)
-        + 2 * group * d_head
-        + group * block_size
-        + 3 * group
-        + 2 * block_size
-    )
-    return 4 * floats + 4 * block_size + 2 * block_size * row_bytes
+def attention_splits(mb: int, batch: int, kv_heads: int):
+    """(splits, pages per split) of the split-KV walk over a block table of
+    `mb` pages: ATTENTION_CTAS_PER_SM CTAs per SM over the (KV head, slot,
+    split) grid, each split at least one page, every page in exactly one
+    split. Shapes only: the slots' lengths stay on the device."""
+    ctas = ATTENTION_CTAS_PER_SM * SM_COUNT
+    want = max(1, min(mb, -(-ctas // max(1, batch * kv_heads))))
+    pps = -(-mb // want)
+    return -(-mb // pps), pps

@@ -20,7 +20,7 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-LIBRARIES = ("deca_gemm", "paged_attention", "deca_decompress")
+LIBRARIES = ("deca_gemm", "deca_gemm_sm90", "paged_attention", "deca_decompress")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -13,10 +13,18 @@ shared memory (csrc/deca_gemm.cu).
                    is staged through shared memory in K chunks. Narrow N
                    splits K over more CTAs (autotune.gemv_splits) into an
                    f32 workspace that a second pass sums in a fixed order.
-  decompress_gemm  M > 32, every prefill FC matmul. Bound by the tensor
-                   cores at prefill sizes: a 64x64 CTA tile decodes each
-                   (128, 64) weight tile into shared memory as bf16 and
-                   accumulates with WMMA bf16 16x16x16 into f32 fragments.
+  decompress_gemm  M > 32, every prefill FC matmul
+                   (csrc/deca_gemm_sm90.cu). At prefill sizes the tensor
+                   cores would bound it, but each weight tile is decoded on
+                   the vector units first, once per 256 rows of x, and that
+                   decode sets its pace. One producer thread streams x
+                   (bf16, 128-byte swizzle) and the compressed triplet
+                   through a TMA ring, two decoder warpgroups write each
+                   decoded bf16 tile into a second ring in the swizzled
+                   K-major layout wgmma reads, and two consumer warpgroups
+                   accumulate m64n128k16 wgmmas in f32 registers. x is rounded to bf16 once, here, as the
+                   kernel's bf16(x); N must be a multiple of 16 (TMA row
+                   strides).
 
 On CPU tensors each wrapper returns its plain version from
 `kernels/ref.py`; on CUDA tensors it launches its kernel or raises.
@@ -37,9 +45,11 @@ _SIGNATURES = {
     # x, x_f32, codes, mask, scales, codec, k_cap, ck, M, K, N, splits,
     # workspace, out, out_f32, stream
     "deca_gemv": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
-    # x, x_f32, codes, mask, scales, codec, k_cap, ck, M, K, N, out,
-    # out_f32, stream
-    "deca_gemm": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _I, _P),
+}
+_GEMM_SIGNATURES = {
+    # x (bf16), codes, mask, scales, codec, k_cap, ck, scale bytes, M, K, N,
+    # out, out_f32, stream
+    "deca_gemm": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _I, _P),
 }
 _FLOATS = (torch.bfloat16, torch.float32)
 
@@ -87,15 +97,22 @@ def decompress_gemv(
 def decompress_gemm(
     x: torch.Tensor, ct: CompressedTensor, *, out_dtype=torch.float32
 ) -> torch.Tensor:
-    """x (M, K) @ decompress(ct) (K, N) -> (M, N), tensor-core tiles."""
+    """x (M, K) @ decompress(ct) (K, N) -> (M, N), wgmma tiles."""
     if x.device.type == "cpu":
         return ref.decompress_gemm(x, ct, out_dtype=out_dtype)
     x, tile = _launch_args(x, ct, out_dtype)
+    x = x.to(torch.bfloat16)  # the kernel's bf16(x): one TMA dtype
     m, (k, n) = x.shape[0], ct.shape
+    if n % 16:
+        raise ValueError(f"the GeMM kernel takes N a multiple of 16, got {n}")
+    ck = tile[-1]
+    if ck > 64:
+        raise ValueError(f"the GeMM kernel takes at most 64 code bytes a group, got {ck}")
+    scale_bytes = 0 if ct.scales is None else ct.scales.element_size()
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = _lib().deca_gemm(
-        x.data_ptr(), int(x.dtype == torch.float32), *tile, m, k, n,
-        out.data_ptr(), int(out_dtype == torch.float32),
+    err = cuda.library("deca_gemm_sm90", _GEMM_SIGNATURES).deca_gemm(
+        x.data_ptr(), *tile, scale_bytes, m, k, n, out.data_ptr(),
+        int(out_dtype == torch.float32),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda.check(err, "deca_gemm")

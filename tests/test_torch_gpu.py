@@ -23,7 +23,7 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.core.compression import CompressedTensor, compress
 from repro_torch.core.decompress import make_draft_tree
 from repro_torch.core.formats import CompressionSpec, get_spec
-from repro_torch.kernels import deca_decompress, deca_gemm, ops, paged_attention, ref
+from repro_torch.kernels import autotune, deca_decompress, deca_gemm, ops, paged_attention, ref
 from repro_torch.kernels.ref import CACHE_EMPTY_POS
 from repro_torch.models import layers
 from repro_torch.models.model import Model
@@ -38,6 +38,10 @@ def card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device; the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
 def _close(got, want):
@@ -78,11 +82,10 @@ def test_kernels_count_their_launches_and_reject_bad_operands(card):
         deca_gemm.decompress_gemv(torch.randn(40, 64, device=card), ct)
 
 
-def _pools(kind, device, seed=0):
+def _pools(kind, device, seed=0, b=3, hq=8, hkv=2, dh=64, bs=16, mb=8, lens=(100, 7, 128)):
     """Ragged slots over a shuffled, quantized pool (block size 16)."""
     g = torch.Generator(device=device).manual_seed(seed)
-    b, hq, hkv, dh, bs, mb = 3, 8, 2, 64, 16, 8
-    kv_lens = torch.tensor([100, 7, 128], dtype=torch.int32, device=device)
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device=device)
     pools = layers.init_paged_kv_cache(b * mb + 1, bs, hkv, dh, device=device, quant=kind)
     perm = torch.randperm(b * mb, generator=g, device=device).reshape(b, mb) + 1
     used = torch.arange(mb, device=device)[None] < (kv_lens[:, None] + bs - 1) // bs
@@ -111,9 +114,109 @@ def test_paged_attention_kernel_matches_plain(card, kind, variant):
     want = ref.paged_decode_attention(*args, quant=kind, **kw)
     torch.cuda.synchronize()
     assert got.dtype == args[0].dtype and _close(got, want)
-    # bf16 queries come back in bf16
-    got_b = paged_attention.paged_attention(args[0].bfloat16(), *args[1:], quant=kind, **kw)
+    # bf16 queries come back in bf16: the combine's store is the f32 result
+    # rounded once, bit for bit a cast of it
+    qb = args[0].bfloat16()
+    got_b = paged_attention.paged_attention(qb, *args[1:], quant=kind, **kw)
+    got_f = paged_attention.paged_attention(qb.float(), *args[1:], quant=kind, **kw)
     assert got_b.dtype == torch.bfloat16
+    assert torch.equal(_bits(got_b), _bits(got_f.bfloat16()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [320, 4096])
+@pytest.mark.parametrize("m", [33, 64, 129, 200, 2048])
+@pytest.mark.parametrize("density", [1.0, 0.05])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_gemm_kernel_ragged_shapes_match_plain(card, quant, density, m, n):
+    """The wgmma GeMM on ragged M (TMA zero fill past M), N = 320 (a partial
+    128-column tile) with K = 480 (an odd group count), N = 4096 with
+    K = 512; bf16 dense is the widest code stage (64 bytes a group)."""
+    k = 480 if n == 320 else 512
+    g = torch.Generator(device=card).manual_seed(m + n)
+    w = torch.randn(k, n, generator=g, device=card) * 0.05
+    ct = compress(w, CompressionSpec(quant, density))
+    assert quant != "bf16" or density < 1 or ct.codes.shape[1] == 64
+    x32 = torch.randn(m, k, generator=g, device=card)
+    want = ref.decompress_gemm(x32, ct, out_dtype=torch.float32)
+    for x in (x32, x32.bfloat16()):
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = deca_gemm.decompress_gemm(x, ct, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            if out_dtype == torch.float32:
+                assert _close(got, want), (x.dtype, out_dtype)
+            else:  # the f32 tolerance, then one more rounding: half a bf16 ulp
+                bound = 2.0**-8 * want.abs() + TOL * want.abs().max()
+                assert torch.all((got.float() - want).abs() <= bound), (x.dtype, out_dtype)
+
+
+# (pool shape, kv_lens, window): more pages than one split, a window that
+# leaves the leading splits empty, a padding slot with kv_len 0, B Hkv = 1
+_SPLIT_CASES = {
+    "multi_page_splits": (dict(b=4, hq=32, hkv=8, dh=128, mb=64, lens=(1024, 700, 333, 17)), 0),
+    "window_skips_splits": (dict(b=4, hq=32, hkv=8, dh=128, mb=64, lens=(1024, 700, 333, 17)),
+                            100),
+    "empty_slot": (dict(b=3, hq=8, hkv=2, dh=64, mb=8, lens=(100, 0, 128)), 0),
+    "one_head_one_slot": (dict(b=1, hq=4, hkv=1, dh=128, mb=16, lens=(250,)), 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["none", "int8", "int4"])
+@pytest.mark.parametrize("case", sorted(_SPLIT_CASES))
+def test_split_kv_attention_edges_match_plain(card, case, kind):
+    shape, window = _SPLIT_CASES[case]
+    q, pools, tables, kv_lens, q_pos = _pools(kind, card, seed=7, **shape)
+    splits, pps = autotune.attention_splits(shape["mb"], shape["b"], shape["hkv"])
+    assert splits > 1
+    if case.startswith("multi") or case.startswith("window"):
+        assert pps > 1  # several pages in a split
+    if case.startswith("window"):
+        assert (1023 - window + 1) // 16 >= pps  # split 0 of slot 0 sees no page
+    args = (q, pools, tables, kv_lens, q_pos)
+    got = paged_attention.paged_attention(*args, quant=kind, window=window)
+    want = ref.paged_decode_attention(*args, quant=kind, window=window)
+    torch.cuda.synchronize()
+    assert _close(got, want)
+    for slot in range(shape["b"]):
+        if shape["lens"][slot] == 0:
+            assert torch.all(got[slot] == 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [1.0, 0.5, 0.05])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_gemm_kernel_operand_is_the_plain_bf16_weight(card, quant, density):
+    """x = the identity picks each weight row out of the product in one
+    exact f32 term, so the GeMM's output is its decoded bf16 operand, which
+    must equal the plain version's bf16 weight value for value (the sparse
+    groups' set-bit walk against the plain prefix-sum gather)."""
+    g = torch.Generator(device=card).manual_seed(len(quant) + int(10 * density))
+    w = torch.randn(480, 320, generator=g, device=card) * 0.05
+    ct = compress(w, CompressionSpec(quant, density))
+    got = deca_gemm.decompress_gemm(torch.eye(480, device=card), ct)
+    want = ref.decompress(ct, torch.bfloat16).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_gemm_and_attention_kernels_are_deterministic(card):
+    """Two launches on the same inputs give the same bits: the GeMM sums
+    each output in one fixed order, and the split-KV combine merges the
+    splits in split order without atomics."""
+    g = torch.Generator(device=card).manual_seed(11)
+    ct = compress(torch.randn(512, 4096, generator=g, device=card) * 0.05,
+                  CompressionSpec("bf8", 0.5))
+    x = torch.randn(200, 512, generator=g, device=card)
+    a, b = (deca_gemm.decompress_gemm(x, ct) for _ in range(2))
+    assert torch.equal(_bits(a), _bits(b))
+    shape, _ = _SPLIT_CASES["multi_page_splits"]
+    args = _pools("int8", card, seed=3, **shape)
+    a, b = (paged_attention.paged_attention(*args, quant="int8") for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
 
 
 @pytest.mark.gpu
@@ -129,10 +232,6 @@ def test_compress_on_the_card_matches_the_cpu_bitwise(card):
                 assert (x is None) == (y is None)
                 if x is not None:
                     assert np.array_equal(x.cpu().numpy(), y.numpy()), (spec.name, plane)
-
-
-def _bits(t):
-    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
 
 
 @pytest.mark.gpu

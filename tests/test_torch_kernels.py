@@ -192,6 +192,30 @@ def test_gemv_splits_cover_every_group_once():
     assert autotune.gemv_splits(1024, 128) * 8 >= autotune.SM_COUNT  # >= one CTA per SM
 
 
-def test_attention_shared_memory_fits_llama3_8b():
-    assert autotune.attention_smem(32, 128, 4, 128) <= autotune.MAX_SMEM
-    assert autotune.select_block(48, 20) == 16
+@pytest.mark.parametrize("n,target,want", [(48, 20, 16), (1024, 256, 256), (97, 50, 1), (12, 8, 6)])
+def test_select_block_largest_divisor(n, target, want):
+    assert autotune.select_block(n, target) == want
+
+
+@pytest.mark.parametrize("mb,batch,kv_heads", [
+    (64, 4, 8), (64, 1, 8), (64, 16, 8), (8, 3, 2), (16, 1, 1), (1, 4, 8), (7, 2, 2),
+    (64, 64, 8), (64, 2, 8)])
+def test_attention_split_plan_covers_each_page_once(mb, batch, kv_heads):
+    """The splits' page ranges [s pps, (s + 1) pps) partition the block
+    table's [0, MB), none empty, so the kernel's clip of each range to the
+    pages a slot can see, [lo_page, n_pages), folds each of those pages
+    exactly once. The plan depends on the shapes alone."""
+    splits, pps = autotune.attention_splits(mb, batch, kv_heads)
+    assert splits >= 1 and pps >= 1
+    ranges = [range(s * pps, min((s + 1) * pps, mb)) for s in range(splits)]
+    assert all(len(r) > 0 for r in ranges)
+    assert [p for r in ranges for p in r] == list(range(mb))
+    # at least two CTAs an SM, or a split per page
+    assert splits * batch * kv_heads >= min(mb * batch * kv_heads, 2 * autotune.SM_COUNT)
+
+
+def test_attention_split_plan_at_llama3_8b():
+    """4 slots x 8 KV heads over 64-page tables: 32 splits of 2 pages, 1024
+    CTAs for 132 SMs."""
+    assert autotune.attention_splits(64, 4, 8) == (32, 2)
+    assert autotune.attention_splits(64, 1, 1) == (64, 1)
