@@ -195,10 +195,11 @@ def check_decompress(torch, timer, ct, role, cases):
 
 
 def check_matmuls(torch, timer, report):
-    """GeMV (M in 1, 4, 32) and GeMM (M in 64, 2048, and 4096, the largest
-    prefill bucket, at gate/up) against their plain versions, and the
-    decompression kernel bitwise against its plain version, for every FC
-    shape, codec and density; timed at the served codec."""
+    """GeMV (M in 1, 4, 16, 32: M = 16 is the spec verify) and GeMM (M in
+    64, 2048, and 4096, the largest prefill bucket, at gate/up) against
+    their plain versions, and the decompression kernel bitwise against its
+    plain version, for every FC shape, codec and density; timed at the
+    served codec, and the GeMV also at the draft codec (nf4_100, M = 4)."""
     from repro_torch.core.compression import compress
     from repro_torch.core.formats import CompressionSpec
     from repro_torch.kernels import deca_gemm, ref
@@ -208,7 +209,7 @@ def check_matmuls(torch, timer, report):
     g = torch.Generator(device="cuda").manual_seed(1)
     for k, n, role in FC_SHAPES:
         w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
-        ms = (1, 4, 32, 64, 2048) + ((4096,) if role == "gate/up" else ())
+        ms = (1, 4, 16, 32, 64, 2048) + ((4096,) if role == "gate/up" else ())
         xs = {m: torch.randn(m, k, generator=g, device="cuda").bfloat16().float() for m in ms}
         for quant in CODECS:
             for dens in (1.0, 0.5):
@@ -225,7 +226,8 @@ def check_matmuls(torch, timer, report):
                     worst[kind] = max(worst[kind], rel)
                     case = {"kernel": kind, "role": role, "K": k, "N": n, "M": m,
                             "spec": spec.name, "max_abs_err": err, "rel_err": rel}
-                    if spec.name == SERVED_SPEC:
+                    draft = spec.name == f"{DRAFT_CODEC}_100" and kind == "gemv" and m == 4
+                    if spec.name == SERVED_SPEC or draft:
                         xb = x.bfloat16()
                         dense = ref.decompress(ct, torch.bfloat16)
                         case["ms"] = timer(lambda: kern(xb, ct, out_dtype=torch.bfloat16))
@@ -494,6 +496,35 @@ def profile_serving(torch, eng, prompts, report, key="profile"):
         f"combine) {deca:.1f} ms, other kernels {busy - deca:.1f} ms")
     for r in rows[:8]:
         log(f"  {r['device_ms']:9.2f} ms {r['count']:6d}x  {r['name'][:90]}")
+    gemv_per_step(rows, report[key])
+
+
+def gemv_per_step(rows, out):
+    """The GeMV's device time per forward step, by the codec of its
+    instance (gemv_kernel<codec, MB>: 2 is bf8, the served weights; 6 is
+    nf4, the spec draft's), each step being 225 launches (7 FC matmuls in
+    each of 32 layers, and lm_head). The split-K reduce is not templated,
+    so its time goes to each codec by its share of the GeMV launches."""
+    reduce = [r for r in rows if "::splitk_reduce" in r["name"]]
+    red_ms = sum(r["device_ms"] for r in reduce)
+    kern = [r for r in rows if "::gemv_kernel<" in r["name"]]
+    total = sum(r["count"] for r in kern)
+    out["gemv_per_step"] = {}
+    for codec, what in ((2, "bf8_50 target"), (6, "nf4 draft")):
+        mine = [r for r in kern if f"::gemv_kernel<{codec}," in r["name"]]
+        n = sum(r["count"] for r in mine)
+        if n == 0:
+            continue
+        steps = n / 225
+        ms = sum(r["device_ms"] for r in mine)
+        shared = red_ms * n / total
+        out["gemv_per_step"][what] = {"steps": steps, "kernel_ms": ms / steps,
+                                      "with_reduce_ms": (ms + shared) / steps}
+        log(f"  GeMV device time per {what} step: {(ms + shared) / steps:.3f} ms "
+            f"({ms / steps:.3f} ms in gemv_kernel, {shared / steps:.3f} ms its share of "
+            f"splitk_reduce) over {steps:.0f} steps ({n} launches; instances "
+            + ", ".join(f"{r['name'].split('gemv_kernel')[1].split('>')[0]}> {r['count']}x"
+                        for r in mine) + ")")
 
 
 def counters():
@@ -817,6 +848,12 @@ def main() -> int:
         return next(c for c in cases if all(c.get(k) == v for k, v in want.items()))
 
     gv = pick(mm_cases, kernel="gemv", role="gate/up", M=4, spec=SERVED_SPEC)
+    for m, sp in ((1, SERVED_SPEC), (4, SERVED_SPEC), (16, SERVED_SPEC), (32, SERVED_SPEC),
+                  (4, f"{DRAFT_CODEC}_100")):
+        c = pick(mm_cases, kernel="gemv", role="gate/up", M=m, spec=sp)
+        log(f"deca_gemv gate/up M={m:2d} {sp}: event-timed {c['ms']:.4f} ms, device "
+            f"{fmt_ms(c['device_ms'])}, wrapper host {c['host_ms']:.4f} ms; library "
+            f"{c['library_ms']:.4f} ms; bound {c['bound_ms']:.4f} ms")
     gm = pick(mm_cases, kernel="gemm", role="gate/up", M=2048, spec=SERVED_SPEC)
     gm4 = pick(mm_cases, kernel="gemm", role="gate/up", M=4096, spec=SERVED_SPEC)
     log(f"deca_gemm gate/up {SERVED_SPEC}: M=2048 {gm['ms']:.4f} ms, M=4096 {gm4['ms']:.4f} ms "

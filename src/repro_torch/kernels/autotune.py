@@ -10,7 +10,11 @@ and plain versions need:
                     GEMV_COLS columns, so narrow outputs (N = 1024 gives 8
                     column blocks) split K until >= 2 CTAs per SM are in
                     flight; the f32 partials are summed by a second,
-                    deterministic pass
+                    deterministic pass (none with one split)
+  gemv_plan         the GeMV's whole launch plan: splits, the compression
+                    groups a stage of its shared-memory ring holds, and the
+                    CTA's dynamic shared bytes (gemv_smem_bytes, the sum
+                    csrc/deca_gemm.cu's `layout` carves and checks)
   attention_splits  split-KV plan of the paged-attention decode, from the
                     shapes alone (MB, B, Hkv): enough splits of the page
                     walk for a grid of ATTENTION_CTAS_PER_SM CTAs per SM,
@@ -21,11 +25,17 @@ and plain versions need:
 """
 from __future__ import annotations
 
+import functools
 import math
 
 SM_COUNT = 132            # H100 SXM streaming multiprocessors
-GEMV_COLS = 128           # output columns per GeMV CTA (one per thread)
+GEMV_COLS = 128           # output columns per GeMV CTA (two threads each)
 GEMV_MAX_SPLITS = 64
+GEMV_CTAS_PER_SM = 2      # split-K aims at this many GeMV CTAs an SM
+GEMV_MB = (1, 2, 4, 8, 16, 32)  # row buckets the GeMV is instantiated for
+GEMV_MAX_CHUNK = 8        # compression groups a GeMV ring stage holds, at most
+GEMV_CODE_STAGE = 16384   # code bytes a stage holds, at most
+GEMV_X_STAGE = 8192       # f32 x bytes a stage holds, at most
 ATTENTION_CTAS_PER_SM = 8  # split-KV grid size over the SM count (4 fit an SM at once)
 
 
@@ -53,12 +63,42 @@ def select_block(n: int, target: int) -> int:
 
 
 def gemv_splits(n: int, n_groups: int) -> int:
-    """Split-K count for an (M <= 32, K) x (K, N) GeMV: enough CTAs for two
-    per SM, each split keeping at least one compression group."""
+    """Split-K count for an (M <= 32, K) x (K, N) GeMV: enough CTAs for
+    GEMV_CTAS_PER_SM per SM, each split keeping at least one compression
+    group."""
     col_blocks = -(-n // GEMV_COLS)
-    want = max(1, min(-(-2 * SM_COUNT // col_blocks), n_groups, GEMV_MAX_SPLITS))
+    want = max(1, min(-(-GEMV_CTAS_PER_SM * SM_COUNT // col_blocks), n_groups,
+                      GEMV_MAX_SPLITS))
     per = -(-n_groups // want)  # groups per split; every split owns >= 1
     return -(-n_groups // per)
+
+
+def gemv_mb(m: int) -> int:
+    """The row bucket (instance) of the GeMV for M rows of x."""
+    return next(b for b in GEMV_MB if m <= b)
+
+
+def gemv_smem_bytes(chunk: int, ck: int, mb: int, sparse: bool, scale_bytes: int) -> int:
+    """Dynamic shared bytes of a GeMV CTA: two ring stages, each the code
+    rows (chunk ck x GEMV_COLS bytes), mask words, scale bits and x
+    (chunk 32 x mb f32), planes 16-byte aligned; the halves' partial sums
+    reuse the ring; then a 16-float nibble table."""
+    a16 = lambda b: -(-b // 16) * 16
+    stage = (a16(chunk * ck * GEMV_COLS) + (chunk * GEMV_COLS * 4 if sparse else 0)
+             + a16(chunk * GEMV_COLS * scale_bytes) + chunk * 32 * mb * 4)
+    return max(2 * stage, GEMV_COLS * mb * 4) + 16 * 4
+
+
+@functools.lru_cache(maxsize=None)
+def gemv_plan(n: int, n_groups: int, m: int, ck: int, sparse: bool, scale_bytes: int):
+    """(splits, chunk groups, shared bytes) of a GeMV launch, from shapes
+    alone. A stage holds at most GEMV_MAX_CHUNK groups, GEMV_CODE_STAGE
+    code bytes and GEMV_X_STAGE bytes of x, and at least one group."""
+    mb = gemv_mb(m)
+    chunk = max(1, min(GEMV_MAX_CHUNK, GEMV_X_STAGE // (32 * mb * 4),
+                       GEMV_CODE_STAGE // (ck * GEMV_COLS)))
+    return (gemv_splits(n, n_groups), chunk,
+            gemv_smem_bytes(chunk, ck, mb, sparse, scale_bytes))
 
 
 def attention_splits(mb: int, batch: int, kv_heads: int):

@@ -7,12 +7,14 @@ once in `out_dtype`; the decompressed weight exists only in registers or
 shared memory (csrc/deca_gemm.cu).
 
   decompress_gemv  M <= 32, every decode-step FC matmul. Bound by the bytes
-                   of the compressed weight stream: one thread per output
-                   column walks its K range group by group, decoding its
-                   column's codes into registers and keeping M f32 sums; x
-                   is staged through shared memory in K chunks. Narrow N
-                   splits K over more CTAs (autotune.gemv_splits) into an
-                   f32 workspace that a second pass sums in a fixed order.
+                   of the compressed weight stream: a CTA owns 128 output
+                   columns, two threads each, and streams their codes,
+                   masks and scales through a two-stage cp.async ring with
+                   x beside them (bf16-rounded f32); each value is decoded
+                   in registers, a sparse group walking only its set mask
+                   bits at small M. Narrow N splits K over more CTAs
+                   (autotune.gemv_plan) into an f32 workspace that a second
+                   pass sums in a fixed order; one split stores out itself.
   decompress_gemm  M > 32, every prefill FC matmul
                    (csrc/deca_gemm_sm90.cu). At prefill sizes the tensor
                    cores would bound it, but each weight tile is decoded on
@@ -43,8 +45,8 @@ from repro_torch.kernels.deca_decompress import tile_operands
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     # x, x_f32, codes, mask, scales, codec, k_cap, ck, M, K, N, splits,
-    # workspace, out, out_f32, stream
-    "deca_gemv": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
+    # chunk groups, shared bytes, workspace, out, out_f32, stream
+    "deca_gemv": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P),
 }
 _GEMM_SIGNATURES = {
     # x (bf16), codes, mask, scales, codec, k_cap, ck, scale bytes, M, K, N,
@@ -81,13 +83,17 @@ def decompress_gemv(
     m, (k, n) = x.shape[0], ct.shape
     if not 1 <= m <= 32:
         raise ValueError(f"the GeMV kernel takes 1 <= M <= 32, got {m}")
-    splits = autotune.gemv_splits(n, k // 32)
-    ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+    scale_bytes = 0 if ct.scales is None else ct.scales.element_size()
+    splits, chunk, smem = autotune.gemv_plan(
+        n, k // 32, m, tile[-1], ct.mask is not None, scale_bytes)
+    ws = None  # one split: the kernel stores out, no second pass
+    if splits > 1:
+        ws = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
     err = _lib().deca_gemv(
-        x.data_ptr(), int(x.dtype == torch.float32), *tile, m, k, n, splits,
-        ws.data_ptr(), out.data_ptr(), int(out_dtype == torch.float32),
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), int(x.dtype == torch.float32), *tile, m, k, n, splits, chunk, smem,
+        None if ws is None else ws.data_ptr(), out.data_ptr(),
+        int(out_dtype == torch.float32), torch.cuda.current_stream(x.device).cuda_stream,
     )
     cuda.check(err, "deca_gemv")
     decompress_gemv.launches += 1

@@ -70,6 +70,62 @@ def test_gemv_and_gemm_kernels_match_plain(card, spec, m):
             assert torch.all((got.float() - want).abs() <= 2.0**-7 * want.abs() + 1e-6)
 
 
+# (N, K) of the GeMV edge cases: N = 259 is no multiple of 16 (the ragged
+# staging path), 320 a partial 128-column block, 1024 and 4096 many splits,
+# 33792 = 264 blocks one split (the kernel stores out itself); K = 480 is an
+# odd group count, and at N = 259 each of its 15 splits owns one group
+_GEMV_SHAPES = [(259, 480), (259, 4096), (320, 480), (320, 4096), (1024, 480),
+                (1024, 4096), (4096, 480), (4096, 4096), (33792, 480)]
+_GEMV_M = (1, 2, 3, 4, 5, 8, 9, 16, 17, 31, 32)  # every MB bucket and its edges
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", _GEMV_SHAPES)
+@pytest.mark.parametrize("density", [1.0, 0.5, 0.05])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_gemv_kernel_edges_match_plain(card, quant, density, n, k):
+    """The GeMV at every M bucket edge, with x in f32 and bf16 and out in
+    f32 and bf16, against the plain version: 1e-4 of max abs(plain) in f32,
+    and one bf16 ulp more in bf16."""
+    splits = autotune.gemv_splits(n, k // 32)
+    assert (splits == 1) == (n == 33792)
+    if (n, k) == (259, 480):
+        assert splits == 15  # one group a split
+    g = torch.Generator(device=card).manual_seed(n + k)
+    ct = compress(torch.randn(k, n, generator=g, device=card) * 0.05,
+                  CompressionSpec(quant, density))
+    for m in _GEMV_M:
+        x32 = torch.randn(m, k, generator=g, device=card)
+        want = ref.decompress_gemv(x32, ct, out_dtype=torch.float32)
+        scale = TOL * float(want.abs().max())
+        for x in (x32, x32.bfloat16()):
+            for out_dtype in (torch.float32, torch.bfloat16):
+                got = deca_gemm.decompress_gemv(x, ct, out_dtype=out_dtype)
+                torch.cuda.synchronize()
+                assert got.dtype == out_dtype and got.shape == (m, n)
+                ulp = 0.0 if out_dtype == torch.float32 else 2.0**-7
+                err = (got.float() - want).abs() - ulp * want.abs()
+                assert float(err.max()) <= scale, (m, x.dtype, out_dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k", [(4096, 4096), (33792, 480)])
+@pytest.mark.parametrize("m", [4, 16])
+def test_gemv_kernel_is_deterministic(card, n, k, m):
+    """Two launches give the same bits, with split-K (each split summed in
+    a fixed order by the second pass) and with one split (no second pass);
+    both halves of a column meet in one fixed order too."""
+    assert (autotune.gemv_splits(n, k // 32) > 1) == (n == 4096)
+    g = torch.Generator(device=card).manual_seed(n + m)
+    ct = compress(torch.randn(k, n, generator=g, device=card) * 0.05,
+                  CompressionSpec("bf8", 0.5))
+    x = torch.randn(m, k, generator=g, device=card)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        a, b = (deca_gemm.decompress_gemv(x, ct, out_dtype=out_dtype) for _ in range(2))
+        torch.cuda.synchronize()
+        assert torch.equal(_bits(a), _bits(b))
+
+
 @pytest.mark.gpu
 def test_kernels_count_their_launches_and_reject_bad_operands(card):
     ct = compress(torch.randn(64, 64, device=card), CompressionSpec("int8", 1.0))

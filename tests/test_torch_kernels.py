@@ -19,6 +19,7 @@ from repro.kernels import ref as jref
 from repro.models import layers as jlayers
 
 from repro_torch.convert import _leaf, to_tensor
+from repro_torch.core.formats import CompressionSpec as TSpec
 from repro_torch.kernels import autotune, deca_gemm, ops, ref
 from repro_torch.models import layers as tlayers
 
@@ -190,6 +191,42 @@ def test_gemv_splits_cover_every_group_once():
         assert 1 <= s <= ng and -(-ng // per) == s  # every split owns >= 1 group
     assert autotune.gemv_splits(128256, 128) == 1
     assert autotune.gemv_splits(1024, 128) * 8 >= autotune.SM_COUNT  # >= one CTA per SM
+
+
+# llama3-8b FC shapes as (N, groups): q/o, k/v, gate/up, down, lm_head
+_LLAMA_FC = [(4096, 128), (1024, 128), (14336, 128), (4096, 448), (128256, 128)]
+
+
+@pytest.mark.parametrize("quant", CODECS)
+def test_gemv_plan_covers_every_group_and_fits_shared_memory(quant):
+    """For llama3-8b's FC shapes and a sweep of (N, groups), at every
+    density and M in 1..32: the splits partition the groups, none empty;
+    the grid gives each SM a CTA wherever the (column block, group) pairs
+    and the split cap allow it; a ring stage keeps to its code budget and
+    its x to two 16-byte quads a thread; and the CTA's shared bytes fit
+    the 227 KB a CTA can opt in to."""
+    shapes = _LLAMA_FC + [(n, ng) for n in (1, 100, 259, 320, 1024, 33792)
+                          for ng in (1, 2, 15, 128)]
+    for dens in (1.0, 0.5, 0.25, 0.05):
+        spec = TSpec(quant, dens)
+        ck, sb = spec.k_cap * spec.bits // 8, spec.codec.scale_bits // 8
+        for n, ng in shapes:
+            blocks = -(-n // autotune.GEMV_COLS)
+            for m in range(1, 33):
+                splits, chunk, smem = autotune.gemv_plan(n, ng, m, ck, spec.is_sparse, sb)
+                per = -(-ng // splits)
+                owned = [range(s * per, min((s + 1) * per, ng)) for s in range(splits)]
+                assert all(len(r) > 0 for r in owned)
+                assert [g for r in owned for g in r] == list(range(ng))
+                assert blocks * splits >= min(
+                    autotune.SM_COUNT, blocks * min(ng, autotune.GEMV_MAX_SPLITS))
+                mb = autotune.gemv_mb(m)
+                assert m <= mb <= 32 and 1 <= chunk <= 8
+                assert chunk * 32 * mb // 4 <= 2 * 256  # x quads: two a thread
+                assert chunk == 1 or chunk * ck * autotune.GEMV_COLS <= 16384
+                assert smem <= 227 * 1024, (spec.name, n, m, smem)
+    for n, ng in _LLAMA_FC:  # a CTA per SM at every full-width FC shape
+        assert -(-n // autotune.GEMV_COLS) * autotune.gemv_splits(n, ng) >= autotune.SM_COUNT
 
 
 @pytest.mark.parametrize("n,target,want", [(48, 20, 16), (1024, 256, 256), (97, 50, 1), (12, 8, 6)])
