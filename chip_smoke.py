@@ -21,7 +21,13 @@ kernels. Without a card, or without the port beside it, it exits non-zero
 and prints no result. After the plain serve it builds a self-speculative
 engine on the same weights (an nf4 draft tree re-encoded through the
 decompression kernel, k = 3), serves 4 greedy requests and holds every
-emitted token against teacher-forced logits of the target.
+emitted token against teacher-forced logits of the target. Both engines
+run decode as CUDA graphs captured per shape: each captured graph (every
+plain chunk length, and one spec launch) is replayed against the
+uncaptured step from the same pools, tokens and every pool plane bitwise.
+Last, it times the keyed temperature sampler captured alone and serves at
+temperature 0.7, plain and spec, holding every token against teacher-forced
+perturbed scores and spec against sequential token for token.
 """
 from __future__ import annotations
 
@@ -460,6 +466,109 @@ def compare_paths(torch, model, params, report):
         raise AssertionError(f"kernel path logits disagree with the plain path: {rows}")
 
 
+def chunk_timer(torch, graphs, fn, records):
+    """Wrap a scheduler's device step (`decode_chunk_fn` or `spec_fn`):
+    each call's wall up to its tokens on the host, its device steps (the
+    chunk length C, or the spec rounds) and whether it captured a graph
+    (the first call of its shape: one uncaptured run plus the capture)."""
+    def run(*a):
+        n = len(graphs.graphs)
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        records.append({"wall_s": time.perf_counter() - t, "captured": len(graphs.graphs) > n,
+                        "steps": int(a[2].shape[0]) if a[2].ndim == 3 else None})
+        return out
+    return run
+
+
+def graph_costs(graphs, calls, what) -> dict:
+    """Each captured graph's capture time and memory, and what its first
+    call cost against the replayed calls."""
+    rows = [{"key": [list(s) for s in key[:3]], "capture_s": g.capture_s,
+             "graph_bytes": g.graph_bytes, "launches_a_replay": list(g.launches)}
+            for key, g in graphs.graphs.items()]
+    first = [c["wall_s"] for c in calls if c["captured"]]
+    later = [c["wall_s"] for c in calls if not c["captured"]]
+    log(f"{what} graphs: {len(rows)} captured, " + "; ".join(
+        f"shapes {r['key']} capture {r['capture_s']:.3f} s, {r['graph_bytes'] / 1e6:.1f} MB, "
+        f"{r['launches_a_replay'][0]} GeMV + {r['launches_a_replay'][2]} attention launches "
+        f"a replay" for r in rows))
+    log(f"  {what}: first call of each shape (uncaptured run + capture) "
+        f"{', '.join(f'{1e3 * w:.1f}' for w in first)} ms; replayed calls mean "
+        f"{1e3 * sum(later) / max(len(later), 1):.2f} ms over {len(later)}")
+    return {"graphs": rows, "first_calls_s": first, "replayed_calls_s": later}
+
+
+def check_replays(torch, eng, graphs, what, report, limit=None):
+    """Each captured graph (up to `limit`) replayed on its last inputs
+    against the uncaptured step from the same pools: tokens and every pool
+    plane (null page excluded) bitwise equal, or the run fails."""
+    from repro_torch.serve.graphs import replay_check
+
+    keys = list(graphs.graphs)[:limit]
+    for key in keys:
+        bad = replay_check(graphs, key, eng.kv.pools)
+        log(f"{what} replay, shapes {[list(s) for s in key[:3]]}: tokens and every pool "
+            f"plane bitwise the uncaptured run's: {not bad}")
+        if bad:
+            raise AssertionError(f"{what} replay differs from the uncaptured run: {bad[:8]}")
+    report.setdefault("replay_checks", []).append({"what": what, "graphs": len(keys)})
+    torch.cuda.empty_cache()
+
+
+
+def profile_replays(torch, graphs, what, report, n=4):
+    """A captured graph alone: `n` replays of the first graph on its last
+    inputs, timed between CUDA events (the wall), then `n` more traced with
+    torch.profiler with events around them too: the kernels' device time
+    over that window's wall is the share the card computes, the rest the
+    gaps between the graph's kernels. The replays rewrite the pages of the
+    graph's last chunk, which no request holds any more."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    key, g = next(iter(graphs.graphs.items()))
+    steps = key[2][0] if len(key[2]) == 3 else None  # positions (C, M, 1) of a chunk
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    g.graph.replay()
+    a.record()
+    for _ in range(n):
+        g.graph.replay()
+    b.record()
+    b.synchronize()
+    wall = a.elapsed_time(b) / n
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
+        for _ in range(n):
+            g.graph.replay()
+        b.record()
+        b.synchronize()
+    traced = a.elapsed_time(b) / n
+    rows = sorted(({"name": e.key, "device_ms": e.self_device_time_total / 1e3 / n,
+                    "count": e.count / n} for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("aten::")), key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    groups = {"GeMV": ("::gemv_kernel", "::splitk_reduce"),
+              "attention": ("::split_kv_kernel", "::combine_kernel")}
+    split = {k: sum(r["device_ms"] for r in rows if any(t in r["name"] for t in v))
+             for k, v in groups.items()}
+    split["other"] = busy - sum(split.values())
+    kernels = sum(r["count"] for r in rows)
+    per = f" = {wall / steps:.3f} ms a step" if steps else ""
+    log(f"{what} replay alone (shapes {[list(x) for x in key[:3]]}): {wall:.3f} ms a replay"
+        f"{per}; device busy {busy:.3f} ms ({', '.join(f'{k} {v:.3f}' for k, v in split.items())}),"
+        f" {kernels:.0f} kernels; idle share {1 - busy / traced:.3f} of the traced "
+        f"replays ({traced:.3f} ms each)")
+    for r in rows[:8]:
+        log(f"  {r['device_ms']:8.3f} ms {r['count']:7.0f}x  {r['name'][:90]}")
+    report.setdefault("replay_profiles", {})[what] = {
+        "wall_ms": wall, "traced_wall_ms": traced, "busy_ms": busy, "split_ms": split,
+        "kernels": kernels,
+        "steps": steps, "rows": rows[:30]}
+
+
 def profile_serving(torch, eng, prompts, report, key="profile"):
     """Device time by kernel over a short second serving pass (4 requests,
     16 new tokens), traced with torch.profiler. The profiler slows the host,
@@ -620,6 +729,8 @@ def serve_spec(torch, model, params, prompts, plain_outs, report):
     check_draft_leaf(torch, params["layers"][0]["mlp"]["w_up"],
                      eng.draft_params["layers"][0]["mlp"]["w_up"], get_spec(DRAFT_CODEC))
 
+    launches_ = []
+    eng.scheduler._spec = chunk_timer(torch, eng._spec_graphs, eng.scheduler._spec, launches_)
     rids = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -646,48 +757,153 @@ def serve_spec(torch, model, params, prompts, plain_outs, report):
     same = sum(list(o) == list(p[:SPEC_NEW]) for o, p in zip(outs, plain_outs))
     log(f"spec requests equal token for token to the non-spec serve of the same "
         f"prompts: {same}/{len(outs)}")
+    later = [c["wall_s"] for c in launches_ if not c["captured"]]
+    round_ms = 1e3 * sum(later) / max(len(later), 1) / eng.spec_rounds
+    log(f"spec round wall (replayed launches of {eng.spec_rounds} rounds): {round_ms:.2f} ms "
+        f"a round over {len(later)} launches, {st['accepted_tokens_per_step']:.3f} tokens a "
+        f"verify")
     report["spec"] = {"build_s": build_s, "build_peak_extra_bytes": peak_extra,
                       "target_bytes": target_b, "draft_bytes": draft_b, "tokens": n_tok,
                       "wall_s": wall, "launches": launches, "stats": st,
-                      "argmax_share": argmax_share, "same_as_plain": same}
+                      "argmax_share": argmax_share, "same_as_plain": same,
+                      "spec_launches": launches_, "round_ms": round_ms,
+                      "graphs": graph_costs(eng._spec_graphs, launches_, "spec round")}
+    check_replays(torch, eng, eng._spec_graphs, "spec launch", report, limit=1)
+    profile_replays(torch, eng._spec_graphs, "spec launch", report)
     return eng, launches
 
 
-def spec_round_split(torch, eng, prompts, report):
-    """Where a spec round's time goes: a second pass whose forwards are
-    synchronized and timed by kind (S = 1 draft step, S = k + 1 verify,
-    anything longer prefill). The syncs cost the pass some overlap, so
-    these walls are upper bounds of the unsynchronized run's."""
-    model = eng.model
-    walls, calls = {}, {}
-    inner = model.forward
+def temperature_check(torch, model, params, prompts, outs, temp, seed, rids):
+    """Every token of a temperature serve against teacher-forced logits:
+    with the sampler's own keys (seed, request id, output index), the
+    token's perturbed score gumbel + logit / temp lies within the kernel
+    path's logit tolerance (over temp) of the position's largest. A wrong
+    key would pick tokens the scores do not favour. Returns, per request,
+    the teacher-forced perturbed scores (for the near-tie proofs)."""
+    from repro_torch.serve import sampling
 
-    def timed(params, **kw):
-        s = kw["tokens"].shape[1]
-        name = "draft" if s == 1 else "verify" if s == SPEC_K + 1 else "prefill"
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = inner(params, **kw)
-        torch.cuda.synchronize()
-        walls[name] = walls.get(name, 0.0) + time.perf_counter() - t
-        calls[name] = calls.get(name, 0) + 1
-        return out
+    key, worst, scores = sampling.prng_key(seed, "cuda"), 0.0, []
+    for rid, p, out in zip(rids, prompts, outs):
+        seq = torch.as_tensor(list(p) + list(out[:-1]), device="cuda")
+        rows = model.score(params, seq)[len(p) - 1:]
+        n, v = rows.shape
+        keys = sampling.fold_in(sampling.fold_in(key.expand(n, 2),
+                                                 torch.full((n,), rid, device="cuda")),
+                                torch.arange(n, device="cuda"))
+        s = sampling.gumbel(keys, v) + rows / temp
+        tol = LOGIT_TOL * rows.abs().max() / temp
+        em = torch.as_tensor(out, device="cuda").long()
+        gap = (s.max(dim=1).values - s.gather(1, em[:, None])[:, 0]).max()
+        worst = max(worst, float(gap / tol))
+        scores.append((s, tol))
+        del rows
+    if worst > 1.0:
+        raise AssertionError(f"a sampled token lies {worst:.2f} tolerances below the top "
+                             "teacher-forced perturbed score")
+    return worst, scores
 
-    model.forward = timed
-    try:
-        for p in prompts:
-            eng.submit(p, max_new_tokens=SPEC_NEW)
+
+def serve_temperature(torch, model, params, prompts, report, temp=0.7, seed=0):
+    """The plain and the spec engine at temperature `temp`, seed `seed`, on
+    the same requests: every token held against teacher-forced perturbed
+    scores, and spec against sequential token for token. Where they part,
+    the first differing token must be a near tie of the teacher-forced
+    scores (both within the logit tolerance of the top): the two paths sum
+    their logits in other orders (verify at M = 16 and gather attention,
+    decode at M = 4 and the split-KV kernel)."""
+    from repro_torch.serve.engine import GenerationEngine, SpecConfig
+
+    outs, res = {}, {}
+    for name, spec in (("plain", None), ("spec", SpecConfig(k=SPEC_K, draft_codec=DRAFT_CODEC))):
+        eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                               max_len=2048, decode_chunk=8, temperature=temp, seed=seed,
+                               spec_decode=spec)
+        calls = []
+        if spec is None:
+            eng.scheduler._decode_chunk = chunk_timer(torch, eng._chunk_graphs,
+                                                      eng.scheduler._decode_chunk, calls)
+        else:
+            eng.scheduler._spec = chunk_timer(torch, eng._spec_graphs, eng.scheduler._spec,
+                                              calls)
+        rids = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
         t0 = time.perf_counter()
-        eng.run_until_drained()
+        done = eng.run_until_drained()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    finally:
-        del model.forward
-    rest = wall - sum(walls.values())
-    log(f"spec pass split (synchronized forwards): wall {wall:.2f} s = " + ", ".join(
-        f"{k} {v:.2f} s over {calls[k]} forwards ({1e3 * v / calls[k]:.1f} ms each)"
-        for k, v in walls.items()) + f", host outside forwards {rest:.2f} s")
-    report["spec_split"] = {"wall_s": wall, "walls_s": walls, "calls": calls}
+        outs[name] = [done[r] for r in rids]
+        st = eng.scheduler.stats()
+        later = [c for c in calls if not c["captured"]]
+        per = sum(c["wall_s"] for c in later) / max(1, sum(c["steps"] or eng.spec_rounds
+                                                          for c in later))
+        worst, scores = temperature_check(torch, eng.model, params, prompts, outs[name],
+                                          temp, seed, rids)
+        res[name] = {"wall_s": wall, "ms_per_device_step": 1e3 * per, "stats": st,
+                     "worst_gap_in_tolerances": worst}
+        log(f"temperature {temp} seed {seed}, {name}: {sum(map(len, outs[name]))} tokens in "
+            f"{wall:.2f} s; replayed {'decode steps' if spec is None else 'spec rounds'} "
+            f"{1e3 * per:.2f} ms each; every token within {worst:.3f} of the tolerance of the "
+            f"top teacher-forced perturbed score")
+        del eng
+        torch.cuda.empty_cache()
+    same, ties = 0, []
+    for i, (a, b) in enumerate(zip(outs["plain"], outs["spec"])):
+        diff = [j for j, (x, y) in enumerate(zip(a, b)) if x != y]
+        if not diff:
+            same += 1
+            continue
+        j = diff[0]
+        s, tol = scores[i]  # the spec serve's; the prefix up to j is common
+        top = s[j].max()
+        gaps = [float(top - s[j, int(t)]) for t in (a[j], b[j])]
+        near = max(gaps) <= float(tol)
+        ties.append({"request": i, "at": j, "near_tie": near,
+                     "score_gap": abs(gaps[0] - gaps[1]), "tolerance": float(tol)})
+        if not near:
+            raise AssertionError(f"spec and sequential part at request {i} output {j} "
+                                 "where the scores show no near tie")
+    log(f"temperature: spec equals sequential token for token on {same}/{len(prompts)} "
+        f"requests; where they part, a near tie of the teacher-forced scores: {ties}")
+    report["temperature"] = {"temp": temp, "seed": seed, **res, "same": same, "ties": ties}
+
+
+def sampler_time(torch, report):
+    """The keyed sampler's device time, captured alone in a CUDA graph as
+    the decode graph runs it: 4 rows (a plain step or a draft step) and 16
+    rows (a verify of k = 3) of llama3-8b's 128256 logits, the median of
+    20 replays between CUDA events."""
+    from repro_torch.serve import sampling
+
+    out = {}
+    for rows in (4, 16):
+        g = torch.Generator(device="cuda").manual_seed(rows)
+        logits = torch.randn(rows, 128256, generator=g, device="cuda") * 3
+        rids = torch.arange(rows, device="cuda")
+        steps = torch.full((rows,), 7, device="cuda")
+        key = sampling.prng_key(0, "cuda")
+        temp = torch.tensor(0.7, device="cuda")
+        graph = torch.cuda.CUDAGraph()
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            eager = sampling.sample_rows_keyed(key, rids, steps, logits, temp)
+        torch.cuda.current_stream().wait_stream(stream)
+        with torch.cuda.graph(graph, stream=stream):
+            toks = sampling.sample_rows_keyed(key, rids, steps, logits, temp)
+        times = []
+        for _ in range(20):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        if not torch.equal(toks, eager):
+            raise AssertionError("the captured sampler disagrees with the uncaptured one")
+        out[rows] = sorted(times)[len(times) // 2]
+        del graph
+    log(f"keyed sampler, captured alone: {out[4]:.4f} ms for 4 x 128256 logits (a decode "
+        f"or draft step), {out[16]:.4f} ms for 16 x 128256 (a verify)")
+    report["sampler_ms"] = out
 
 
 def main() -> int:
@@ -778,7 +994,8 @@ def main() -> int:
         return run
 
     sched._prefill = timed("prefill", sched._prefill)
-    sched._decode_chunk = timed("decode", sched._decode_chunk)
+    chunks = []
+    sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, sched._decode_chunk, chunks)
     rids = [eng.submit(p, max_new_tokens=64) for p in prompts]
     torch.cuda.reset_peak_memory_stats()
     for fn in counters().values():
@@ -791,6 +1008,7 @@ def main() -> int:
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(done[r]) for r in rids)
     st = sched.stats()
+    walls["decode"] = sum(c["wall_s"] for c in chunks)
     log(f"served {len(rids)} requests (prompt lengths {lens}) x 64 new tokens, "
         f"kv {SERVED_KV}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} tok/s; "
         f"prefill {walls['prefill']:.2f} s over {st['prefill_calls']} calls "
@@ -798,15 +1016,27 @@ def main() -> int:
         f"{walls['decode']:.2f} s over {st['decode_chunks']} chunks / {st['decode_steps']} "
         f"steps = {st['active_slot_steps'] / max(walls['decode'], 1e-9):.1f} tok/s; "
         f"peak device memory {peak / 1e9:.2f} GB")
+    later = [c for c in chunks if not c["captured"]]
+    replay_ms = 1e3 * sum(c["wall_s"] for c in later) / max(1, sum(c["steps"] for c in later))
+    log(f"decode with graphs: {1e3 * walls['decode'] / st['decode_steps']:.2f} ms a decode "
+        f"step over the serve (first chunk of each shape included); replayed chunks "
+        f"{replay_ms:.2f} ms a device step over {len(later)} chunks")
     steps_run = launches["deca_paged_attention"] / cfg.n_layers  # one per layer a step
     log(f"launches on the served run: {launches}; per decode step: deca_gemv "
         f"{launches['deca_gemv'] / max(steps_run, 1):.1f}, deca_paged_attention "
         f"{cfg.n_layers}; per prefill call: deca_gemm "
         f"{launches['deca_gemm'] / max(st['prefill_calls'], 1):.1f}")
+    if launches["deca_gemv"] != (7 * cfg.n_layers + 1) * steps_run:
+        raise AssertionError("the decode steps did not launch 7 GeMVs a layer and lm_head's")
     report["serve"] = {"prompt_lens": lens, "tokens": n_tok, "wall_s": wall,
                        "prefill_s": walls["prefill"], "prefill_calls_s": list(prefill_calls),
-                       "decode_s": walls["decode"],
+                       "decode_s": walls["decode"], "chunks": chunks,
+                       "decode_ms_per_step": 1e3 * walls["decode"] / st["decode_steps"],
+                       "replayed_ms_per_device_step": replay_ms,
                        "peak_bytes": peak, "launches": launches, "stats": st}
+    report["serve"]["graphs"] = graph_costs(eng._chunk_graphs, chunks, "plain decode")
+    check_replays(torch, eng, eng._chunk_graphs, "plain decode chunk", report)
+    profile_replays(torch, eng._chunk_graphs, "plain decode chunk", report)
     if any(len(done[r]) != 64 for r in rids):
         raise AssertionError("a request did not emit its 64 tokens")
     if not all(0 <= int(t) < cfg.vocab_size for r in rids for t in done[r]):
@@ -839,7 +1069,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     spec_eng, spec_launches = serve_spec(torch, model, params, prompts[:4], plain_outs, report)
     profile_serving(torch, spec_eng, [p[:512] for p in prompts[:4]], report, "spec_profile")
-    spec_round_split(torch, spec_eng, [p[:512] for p in prompts[:4]], report)
+    del spec_eng
+    torch.cuda.empty_cache()
+
+    # 7. keyed temperature sampling, on the card inside the captured graphs
+    sampler_time(torch, report)
+    serve_temperature(torch, model, params, prompts[:4], report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")

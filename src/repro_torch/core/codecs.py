@@ -138,8 +138,16 @@ def unpack_nibbles(codes: torch.Tensor, dim: int) -> torch.Tensor:
     return stacked.reshape(shape)
 
 
-def _lut(values: np.ndarray, device) -> torch.Tensor:
-    return torch.as_tensor(values, dtype=torch.float32, device=device)
+_LUTS: Dict[Tuple[str, torch.device], torch.Tensor] = {}
+
+
+def _lut(name: str, values: np.ndarray, device) -> torch.Tensor:
+    """The table `values` on `device`, copied there once: a decode graph
+    may run the decoder, and no host copy may happen inside a capture."""
+    key = (name, torch.device(device))
+    if key not in _LUTS:
+        _LUTS[key] = torch.as_tensor(values, dtype=torch.float32, device=device)
+    return _LUTS[key]
 
 
 def _fp4_decode(nib: torch.Tensor) -> torch.Tensor:
@@ -387,7 +395,7 @@ class NF4Codec(Codec):
 
     def decode_values(self, codes):
         nib = unpack_nibbles(codes, 1)
-        return _lut(NF4_LUT, codes.device)[nib.long()]
+        return _lut("nf4", NF4_LUT, codes.device)[nib.long()]
 
     def kv_encode(self, x):
         scale, safe = self._kv_scale(x, 1.0)
@@ -395,7 +403,7 @@ class NF4Codec(Codec):
         return pack_nibbles(_count_above(q, _NF4_MIDS), -1), scale
 
     def kv_decode(self, codes, scales):
-        vals = _lut(NF4_LUT, codes.device)[unpack_nibbles(codes, -1).long()]
+        vals = _lut("nf4", NF4_LUT, codes.device)[unpack_nibbles(codes, -1).long()]
         return vals * scales.to(torch.float32)[..., None]
 
 

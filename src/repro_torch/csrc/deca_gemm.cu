@@ -36,7 +36,10 @@
 //     the codec switch folds away. A sparse group with MB <= kSetBitMaxMB
 //     walks its set mask bits from the top (one FLO a bit): the j-th stored
 //     value meets x at its position, so the work follows the k_cap stored
-//     values (16 of 32 at bf8_50). Dense groups, and sparse ones at larger
+//     values (16 of 32 at bf8_50). For a chunk whose x holds an inf or a
+//     NaN (flagged as x is staged, told to the CTA by the chunk's barrier)
+//     a rolled pass adds the x * +0 products of the clear positions, NaN
+//     there as in the plain version. Dense groups, and sparse ones at larger
 //     MB, walk the 32 positions, where x is one broadcast load for the
 //     whole warp; there the FMAs, not the decode, set the pace (walking the
 //     set bits at MB = 16 and 32 took 1.7x and 3.0x longer).
@@ -185,7 +188,8 @@ __device__ __forceinline__ void issue_planes(uint8_t* st, const Layout& l, const
 // x rows [0, MB) x columns [gc 32, (gc + ngc) 32) in quads of 4 columns
 // (k % 4 == 0, so every quad is an aligned 16-byte f32 or 8-byte bf16
 // load); rows at or past M are 0. fetch_x issues the loads, put_x stores
-// them as bf16-rounded f32 into the stage's [k][MB] x.
+// them as bf16-rounded f32 into the stage's [k][MB] x and says whether
+// any of the thread's values is an inf or a NaN.
 template <int MB>
 __device__ __forceinline__ void fetch_x(uint4 (&raw)[kXQuads<MB>], const Args& a, int gc,
                                         int ngc) {
@@ -208,9 +212,10 @@ __device__ __forceinline__ void fetch_x(uint4 (&raw)[kXQuads<MB>], const Args& a
 }
 
 template <int MB>
-__device__ __forceinline__ void put_x(float* xs, const uint4 (&raw)[kXQuads<MB>], int x_f32,
+__device__ __forceinline__ bool put_x(float* xs, const uint4 (&raw)[kXQuads<MB>], int x_f32,
                                       int ngc) {
   const int kq = ngc * deca::kGroup / 4;
+  bool nonfinite = false;
 #pragma unroll
   for (int u = 0; u < kXQuads<MB>; ++u) {
     const int q = threadIdx.x + u * kThreads;
@@ -229,9 +234,13 @@ __device__ __forceinline__ void put_x(float* xs, const uint4 (&raw)[kXQuads<MB>]
         v[3] = __uint_as_float(raw[u].y & 0xFFFF0000u);
       }
 #pragma unroll
-      for (int e = 0; e < 4; ++e) xs[(k + e) * MB + m] = v[e];
+      for (int e = 0; e < 4; ++e) {
+        xs[(k + e) * MB + m] = v[e];
+        nonfinite |= (__float_as_uint(v[e]) & 0x7F800000u) == 0x7F800000u;  // inf, NaN
+      }
     }
   }
+  return nonfinite;
 }
 
 // One stored code of a column, code bytes kCols apart: value j's byte (two
@@ -374,6 +383,23 @@ __device__ __forceinline__ void fold_group(float (&acc)[MB], const uint8_t* col,
   }
 }
 
+// x * +0 at every clear position of this thread's sparse groups of a chunk:
+// the products the set-bit walk leaves out, exact to leave out unless x is
+// an inf or a NaN there, where the plain version's x * +0 is NaN. Run only
+// for a chunk whose x is not finite, so its loop stays rolled.
+template <int MB>
+__device__ __forceinline__ void add_clear_positions(float (&acc)[MB], const uint8_t* xs,
+                                                    const uint32_t* ms, int ngc, int half,
+                                                    int col) {
+  for (int gl = half; gl < ngc; gl += 2) {
+    const uint32_t clear = ~ms[gl * kCols + col];
+    const float* xg = reinterpret_cast<const float*>(xs + gl * deca::kGroup * MB * 4);
+#pragma unroll 1
+    for (int i = 0; i < deca::kGroup; ++i)
+      if ((clear >> i) & 1u) fma_row<MB>(acc, xg + i * MB, 0.0f);
+  }
+}
+
 template <int kCodec, int MB>
 __global__ void __launch_bounds__(kThreads, kMinCtas<MB>) gemv_kernel(Args a) {
   constexpr int kScaleBytes = scale_bytes_of(kCodec);
@@ -397,13 +423,16 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<MB>) gemv_kernel(Args a) {
   uint4 raw[kXQuads<MB>];
   issue_planes<kScaleBytes>(smem, l, a, g_begin, min(a.chunk, g_end - g_begin), n0, cols);
   fetch_x<MB>(raw, a, g_begin, min(a.chunk, g_end - g_begin));
-  put_x<MB>(reinterpret_cast<float*>(smem + l.x), raw, a.x_f32, min(a.chunk, g_end - g_begin));
+  bool bad_x = put_x<MB>(reinterpret_cast<float*>(smem + l.x), raw, a.x_f32,
+                         min(a.chunk, g_end - g_begin));
   for (int c = 0; c < n_chunks; ++c) {
     const int gc = g_begin + c * a.chunk, ngc = min(a.chunk, g_end - gc);
     uint8_t* cur = smem + (c & 1) * l.stage;
     uint8_t* nxt = smem + ((c + 1) & 1) * l.stage;
     asm volatile("cp.async.wait_group 0;" ::: "memory");
-    __syncthreads();  // chunk c landed, and every thread is done with chunk c - 1
+    // chunk c landed, and every thread is done with chunk c - 1; the same
+    // barrier tells every thread whether chunk c's x holds an inf or a NaN
+    const bool nonfinite = __syncthreads_or(bad_x);
     const bool more = c + 1 < n_chunks;
     const int ngn = more ? min(a.chunk, g_end - gc - a.chunk) : 0;
     if (more) {  // chunk c + 1 into the stage chunk c - 1 used, in flight while c decodes
@@ -421,7 +450,10 @@ __global__ void __launch_bounds__(kThreads, kMinCtas<MB>) gemv_kernel(Args a) {
       fold_group<kCodec, MB>(acc, cur + gl * a.ck * kCols + col, xg, sparse,
                              sparse ? ms[gi] : 0u, a.k_cap, scale, lut);
     }
-    if (more) put_x<MB>(reinterpret_cast<float*>(nxt + l.x), raw, a.x_f32, ngn);
+    if constexpr (MB <= kSetBitMaxMB) {
+      if (sparse && nonfinite) add_clear_positions<MB>(acc, cur + l.x, ms, ngc, half, col);
+    }
+    if (more) bad_x = put_x<MB>(reinterpret_cast<float*>(nxt + l.x), raw, a.x_f32, ngn);
   }
   __syncthreads();  // every fold is done: the ring holds the halves' sums now
   float* part = reinterpret_cast<float*>(smem);

@@ -369,10 +369,14 @@ cudaError_t launch_split(dim3 grid, int smem, cudaStream_t s, const void* q, int
                          const void* q_pos, void* ws, int Hq, int Hkv, int Dh, int rb,
                          int bs, int MB, int pps, int buf_bytes, int causal, int window,
                          float softcap) {
-  if (smem > 48 * 1024) {  // above the default limit: opt in
+  // above the default limit: opt in, once per instance and size, so a
+  // launch inside a CUDA graph capture makes no attribute call
+  static int opted_in = 48 * 1024;
+  if (smem > opted_in) {
     cudaError_t err = cudaFuncSetAttribute(
         split_kv_kernel<kCodec, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    opted_in = smem;
   }
   split_kv_kernel<kCodec, kG><<<grid, kThreads, smem, s>>>(
       q, q_f32, (const uint8_t*)kp, (const uint8_t*)vp, (const int32_t*)ppos,

@@ -64,8 +64,9 @@ def _scores_mask(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
     """Additive f32 mask (B, Sq, Sk) for per-request positions."""
     dq = q_pos[..., :, None]
     dk = k_pos[..., None, :]
-    ok = torch.ones(torch.broadcast_shapes(dq.shape, dk.shape), dtype=torch.bool,
-                    device=q_pos.device)
+    # all True at the broadcast shape; torch.broadcast_shapes would import
+    # sympy at its first call, some 3 s of a process's first prefill
+    ok = torch.ones_like(dq, dtype=torch.bool) & torch.ones_like(dk, dtype=torch.bool)
     if causal:
         ok = ok & (dk <= dq)
     if window > 0:
@@ -198,7 +199,7 @@ def paged_update_cache(
     scatter("kp", k)
     scatter("vp", v)
     if fresh_pages is not None:
-        cache["ppos"][fresh_pages.long()] = CACHE_EMPTY_POS
+        cache["ppos"].index_fill_(0, fresh_pages.long(), CACHE_EMPTY_POS)
     cache["ppos"].view(-1)[flat] = write_pos.reshape(-1).to(torch.int32)
     if ks is not None:
         scatter("ks", ks)

@@ -4,8 +4,9 @@ Counterpart of `repro/models/model.py` for the paged serving path of a
 dense attention stack (llama3-8b). Layers are kept per layer in a list
 rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
 and `spec_decode_chunk` its draft/verify rounds as Python loops with the
-done flags on the device, so only the sampled tokens cross to the host,
-once per chunk. Every FC matmul goes through `core.decompress.mm` (the
+done flags on the device and no host sync inside, so only the sampled
+tokens cross to the host, once per chunk, and on the card the engine
+captures each loop whole as one CUDA graph (`serve/graphs.py`). Every FC matmul goes through `core.decompress.mm` (the
 DECA GeMM/GeMV kernels for compressed weights) and decode attention
 through the fused paged-attention kernel.
 
@@ -139,7 +140,7 @@ class Model:
         step's fixed fresh-page width carries."""
         idx = pages.long()
         for cache in pools:
-            cache["ppos"][idx] = L.CACHE_EMPTY_POS
+            cache["ppos"].index_fill_(0, idx, L.CACHE_EMPTY_POS)
         return pools
 
     # ------------------------------------------------------------------
@@ -313,7 +314,9 @@ class Model:
         `sample_fn(logits (M, S, V), idx (M, S))` samples every row; idx is
         the chunk-local output index. Returns (out (out_cap, M) emitted
         tokens packed from row 0, e_rounds (rounds, M) emissions per round,
-        pools)."""
+        pools). Nothing in the rounds waits on the host: the emissions land
+        by an unmasked scatter whose rejected rows go to a spare row of
+        `out` that is cut off at the end."""
         m = tokens0.shape[0]
         bs, tw = block_size, block_tables.shape[1]
         dev = tokens0.device
@@ -346,7 +349,7 @@ class Model:
         pos = p0.to(torch.int32)
         emitted = torch.zeros(m, dtype=torch.int32, device=dev)
         done = ~active
-        out = torch.zeros((out_cap, m), dtype=torch.int32, device=dev)
+        out = torch.zeros((out_cap + 1, m), dtype=torch.int32, device=dev)
         e_rounds = []
         for _ in range(rounds):
             live = ~done
@@ -385,11 +388,11 @@ class Model:
             # output index; the last accepted sample is the next pending
             rows = emitted[:, None] + offs[None, :]
             keep = (offs[None, :] < e[:, None]) & (rows < out_cap)
-            out[rows[keep].long(), cols[keep]] = s[keep]
+            out.index_put_((torch.where(keep, rows, out_cap).long(), cols), s)
             last = torch.gather(s, 1, torch.clamp(e - 1, 0, k)[:, None].long())
             tok = torch.where(live[:, None], last, tok)
             pos = pos + e
             emitted = emitted + e
             done = done | has_eos | (emitted >= max_steps)
             e_rounds.append(e)
-        return out, torch.stack(e_rounds), cache
+        return out[:out_cap], torch.stack(e_rounds), cache

@@ -11,7 +11,11 @@ done flags (EOS / length cap) are computed; the host syncs once per chunk.
 
 The decode step stays fixed-shape over all `max_slots` slots: inactive
 slots feed token 0 at position 0, write to the null page, and their outputs
-are ignored. With a `spec_fn` each decode launch is instead `spec_rounds`
+are ignored. Sampling is per request: every sampled row carries its request
+id and its output index (`sample_fn(logits, rids, steps)`, and `rids` /
+`start_steps` for the device steps), so admission order and batch
+composition never change a request's tokens; padding and inactive rows
+carry rid -1, a uint32 id no request has. With a `spec_fn` each decode launch is instead `spec_rounds`
 self-speculative draft/verify rounds (`_decode_active_spec`).
 """
 from __future__ import annotations
@@ -84,12 +88,15 @@ class Scheduler:
                last_idx (B,)) -> last-token logits (B, V) on the device
     decode_chunk_fn(tokens0 (M,1), tables (M,MB), positions (C,M,1),
                     write_slots (C,M,1), write_pos (C,M,1), fresh (C,F),
-                    kv_lens (C,M), max_steps (M,), eos (M,), active (M,))
-                    -> host tokens (C, M)
-    sample_fn(logits (N,V) on the device) -> host tokens (N,)
+                    kv_lens (C,M), rids (M,), start_steps (M,),
+                    max_steps (M,), eos (M,), active (M,))
+                    -> host tokens (C, M); step j of slot i is output
+                    index start_steps[i] + j of request rids[i]
+    sample_fn(logits (N,V) on the device, rids (N,), steps (N,))
+              -> host tokens (N,)
     scrub_fn(pages (F,)) scrubs overflow fresh pages out of step.
-    spec_fn(tokens0 (M,1), tables (M,TW), p0 (M,), fresh (F,),
-            max_steps (M,), eos (M,), active (M,))
+    spec_fn(tokens0 (M,1), tables (M,TW), p0 (M,), fresh (F,), rids (M,),
+            start_steps (M,), max_steps (M,), eos (M,), active (M,))
             -> host (out (spec_rounds*(spec_k+1), M), e_rounds (spec_rounds, M)),
             `spec_rounds` draft-`spec_k`/verify rounds; `spec_window` is the
             draft's attention window cap (0 = none), for the accounting.
@@ -244,6 +251,8 @@ class Scheduler:
         ).copy()
         tables = np.zeros((b, tw), np.int32)
         last_idx = np.zeros(b, np.int32)
+        rids = np.full(b, -1, np.int64)  # padding rows: the unused uint32 id
+        steps0 = np.zeros(b, np.int64)
         for row, (slot, r, start, n) in enumerate(rows):
             tokens[row, :n] = r.prompt[start:start + n]
             positions[row] = start + positions[row]
@@ -252,6 +261,8 @@ class Scheduler:
             tables[row] = self.cache.block_table_row(r.rid, tw)
             r.prefilled = start + n
             last_idx[row] = n - 1
+            rids[row] = r.rid
+            steps0[row] = len(r.out)  # the request's first output index
         fresh_rows = self.cache.drain_fresh_rows(b * pages)
         for extra in fresh_rows[1:]:
             # more recycled pages than the launch's fresh vector carries:
@@ -261,7 +272,7 @@ class Scheduler:
             tokens, positions, tables, write_slots, write_pos, fresh_rows[0],
             last_idx,
         )
-        toks = self._sample(logits)  # the round's device->host sync
+        toks = self._sample(logits, rids, steps0)  # the round's device->host sync
         for row, (slot, r, start, n) in enumerate(rows):
             r.out.append(int(toks[row]))
             r.peak_blocks = max(r.peak_blocks, self.cache.blocks_held(r.rid))
@@ -302,6 +313,8 @@ class Scheduler:
         write_pos = np.full((c, m, 1), CACHE_EMPTY_POS, np.int32)
         tables = np.zeros((m, mb), np.int32)
         kv_lens = np.zeros((c, m), np.int32)
+        rids = np.full(m, -1, np.int64)
+        start_steps = np.zeros(m, np.int64)
         max_steps = np.zeros(m, np.int32)
         eos = np.full(m, -1, np.int32)
         act = np.zeros(m, bool)
@@ -309,6 +322,8 @@ class Scheduler:
             p0 = p0s[i] = r.next_pos - 1  # feed back the last sampled token
             si = min(c, rem[i])
             tokens0[i, 0] = r.out[-1]
+            rids[i] = r.rid
+            start_steps[i] = len(r.out)
             max_steps[i] = si
             act[i] = True
             if r.eos_id is not None:
@@ -329,7 +344,7 @@ class Scheduler:
 
         toks = self._decode_chunk(
             tokens0, tables, positions, write_slots, write_pos, fresh,
-            kv_lens, max_steps, eos, act,
+            kv_lens, rids, start_steps, max_steps, eos, act,
         )  # (c, m) host tokens: the chunk's one device->host sync
 
         steps_taken: Dict[int, int] = {}
@@ -398,6 +413,8 @@ class Scheduler:
 
         tokens0 = np.zeros((m, 1), np.int32)
         p0 = np.zeros(m, np.int32)
+        rids = np.full(m, -1, np.int64)
+        start_steps = np.zeros(m, np.int64)
         max_steps = np.zeros(m, np.int32)
         eos = np.full(m, -1, np.int32)
         act = np.zeros(m, bool)
@@ -405,6 +422,8 @@ class Scheduler:
             pos0 = p0s[i] = r.next_pos - 1
             si = sis[i] = min(cap, rem[i])
             tokens0[i, 0] = r.out[-1]
+            rids[i] = r.rid
+            start_steps[i] = len(r.out)  # sampling keys ride the global index
             p0[i] = pos0
             max_steps[i] = si
             act[i] = True
@@ -420,7 +439,8 @@ class Scheduler:
             tables[i] = self.cache.block_table_row(r.rid, tw)
         fresh = self.cache.drain_fresh(m * ((cap + bs - 1) // bs + 1))
 
-        out, e_rounds = self._spec(tokens0, tables, p0, fresh, max_steps, eos, act)
+        out, e_rounds = self._spec(tokens0, tables, p0, fresh, rids, start_steps,
+                                   max_steps, eos, act)
 
         for i, r in active:
             emitted = 0

@@ -61,11 +61,11 @@ def _record(eng, port: bool):
         return prefill(*a)
 
     def on_chunk(*a):
-        # tokens0, tables, positions, wslots, wpos, fresh, kv_lens, then
-        # max_steps, eos, active (the reference also passes rids and steps)
-        args = a if port else a[:7] + a[9:]
+        # tokens0, tables, positions, wslots, wpos, fresh, kv_lens, request
+        # ids, output indices, max_steps, eos, active: the same arguments
+        # in both packages
         log.append(("chunk", [r.rid if r else -1 for r in sched.slots],
-                    [np.array(x) for x in args]))
+                    [np.array(x) for x in a]))
         return chunk(*a)
 
     sched._prefill, sched._decode_chunk = on_prefill, on_chunk
@@ -181,11 +181,19 @@ def test_generate_and_request_validation():
 
 
 def test_temperature_sampling_is_refused_with_its_roadmap_item():
+    """Temperature sampling (Queue A item 4b) is no longer refused: the
+    engine serves at T > 0, every token in the vocabulary. What the port
+    still refuses names its roadmap item (the dense ring-cache engine,
+    item 10), and params on another device than the engine's raise."""
     cfg = get_smoke_config("llama3-8b")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="Queue A item 4b"):
-        GenerationEngine(model, params, temperature=0.7, device="cpu")
+    eng = GenerationEngine(model, params, temperature=0.7, seed=5, device="cpu",
+                           **ENGINE)
+    out = eng.generate(np.stack([p[:4] for p in _prompts()[:2]]), 4)
+    assert out.shape == (2, 4) and ((0 <= out) & (out < cfg.vocab_size)).all()
+    with pytest.raises(ValueError, match="Queue A item 10"):
+        GenerationEngine(model, params, temperature=0.7, paged=False, device="cpu")
     on_meta = dict(params, embed=params["embed"].to("meta"))
     with pytest.raises(ValueError, match="lie on"):
         GenerationEngine(model, on_meta, device="cpu")

@@ -392,3 +392,220 @@ def test_spec_engine_on_the_card_emits_tokens_within_logit_tolerance(card):
         picked = rows.gather(1, torch.as_tensor(out, device=card).long()[:, None])[:, 0]
         gap = (rows.max(dim=1).values - picked).max()
         assert float(gap) <= 5e-2 * float(rows.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# the GeMV with non-finite x (the set-bit walk's positional fallback)
+# ---------------------------------------------------------------------------
+
+def _same_nonfinite(got, want):
+    """NaN, +inf and -inf where the plain version has them; finite values
+    to the kernel tolerance."""
+    got, want = got.float(), want.float()
+    for probe in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(probe(got), probe(want)):
+            return False
+    fin = torch.isfinite(want)
+    return not fin.any() or _close(got[fin], want[fin])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [0.5, 0.05])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_gemv_nonfinite_x_at_a_masked_out_position_matches_plain(card, quant, density):
+    """An inf and a NaN in x where a sparse column's bit is clear: the
+    plain version's x * +0 gives NaN there, and the kernel's set-bit walk
+    (M <= 8), which skips clear positions, must give it too."""
+    k, n = 512, 320
+    g = torch.Generator(device=card).manual_seed(17)
+    ct = compress(torch.randn(k, n, generator=g, device=card) * 0.05,
+                  CompressionSpec(quant, density))
+    dense = ref.decompress(ct, torch.float32)
+    # a position with clear bits in some columns and set bits in others
+    zeros = (dense == 0).sum(dim=1)
+    pos = int(torch.nonzero((zeros > 0) & (zeros < n))[0])
+    for m in (1, 2, 4, 8, 16):
+        x = torch.randn(m, k, generator=g, device=card)
+        x[0, pos] = float("inf")
+        if m > 1:
+            x[1, (pos + 40) % k] = float("nan")
+        if m > 2:
+            x[2, pos] = -float("inf")
+        want = ref.decompress_gemv(x, ct, out_dtype=torch.float32)
+        assert torch.isnan(want[0]).any() and torch.isinf(want[0]).any()
+        for xx in (x, x.bfloat16()):
+            got = deca_gemm.decompress_gemv(xx, ct, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert _same_nonfinite(got, want), (m, xx.dtype)
+
+
+# ---------------------------------------------------------------------------
+# captured decode: graphs against the uncaptured steps, and the sampler
+# ---------------------------------------------------------------------------
+
+def _served_engine(card, kind, spec=None, **kw):
+    """A smoke-config engine on the card that has served requests whose
+    chunks took every length C in 8, 4, 2, 1 (each length its own graph)."""
+    model, params = _smoke(card)
+    eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                           decode_chunk=8, kv_quant=kind, device=card, spec_decode=spec, **kw)
+    rng = np.random.default_rng(5)
+    for new in (9, 5, 3, 2):  # one request each: remaining 8, 4, 2, 1 after prefill
+        eng.submit(rng.integers(0, 256, 11).astype(np.int32), max_new_tokens=new)
+        eng.run_until_drained()
+    return eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+def test_decode_graph_replay_is_bitwise_the_uncaptured_chunk(card, kind):
+    """For C in 1, 2, 4, 8: the replayed chunk's tokens and every pool
+    plane (the null page excluded) are the uncaptured chunk's, bitwise."""
+    from repro_torch.serve.graphs import replay_check
+
+    eng = _served_engine(card, kind)
+    graphs = eng._chunk_graphs.graphs
+    assert sorted(key[2][0] for key in graphs) == [1, 2, 4, 8]  # positions (C, M, 1)
+    for key in graphs:
+        assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind,temperature", [("int8", 0.0), ("nf4", 0.7)])
+def test_spec_graph_replay_is_bitwise_the_uncaptured_round(card, kind, temperature):
+    """A replayed spec launch, greedy and sampled, is the uncaptured one:
+    the verify's gather decodes the pool inside the capture (nf4 through
+    its table, which lives on the card)."""
+    from repro_torch.serve.graphs import replay_check
+
+    eng = _served_engine(card, kind, spec=SpecConfig(k=3, draft_codec="nf4"),
+                         temperature=temperature)
+    assert eng._spec_graphs.graphs and not eng._chunk_graphs.graphs
+    for key in eng._spec_graphs.graphs:
+        assert replay_check(eng._spec_graphs, key, eng.kv.pools) == [], key
+
+
+@pytest.mark.gpu
+def test_replays_count_the_launches_of_uncaptured_chunks(card):
+    """N replays add to each wrapper's counter what N uncaptured runs of
+    the same chunk do: 15 GeMV (7 FC matmuls in each of 2 layers, and
+    lm_head) and 2 attention launches a step."""
+    from repro_torch.serve.graphs import launch_counters
+
+    eng = _served_engine(card, "int8")
+    steps = eng._chunk_graphs
+    key = max(steps.graphs, key=lambda k: k[2][0])  # C = 8
+    g = steps.graphs[key]
+    counts = lambda: [fn.launches for fn in launch_counters()]
+    before = counts()
+    for _ in range(3):
+        g.replay()
+    torch.cuda.synchronize()
+    replayed = [a - b for a, b in zip(counts(), before)]
+    before = counts()
+    for _ in range(3):
+        steps.fn(*g.inputs)
+    torch.cuda.synchronize()
+    eager = [a - b for a, b in zip(counts(), before)]
+    assert replayed == eager == [3 * 8 * 15, 0, 3 * 8 * 2, 0]
+
+
+@pytest.mark.gpu
+def test_engine_on_the_card_samples_with_temperature(card):
+    """At T = 0.7 the card's engine serves: chunked decode equals single
+    steps token for token (the same kernels at the same shapes), and the
+    tokens are not the greedy ones."""
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (4, 19, 11)]
+    outs = {}
+    for name, kw in (("chunked", dict(decode_chunk=8, temperature=0.7)),
+                     ("single", dict(decode_chunk=1, temperature=0.7)),
+                     ("greedy", dict(decode_chunk=8))):
+        model, params = _smoke(card)
+        eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                               kv_quant="int8", device=card, seed=3, **kw)
+        rids = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        done = eng.run_until_drained()
+        outs[name] = [done[r].tolist() for r in rids]
+    assert outs["chunked"] == outs["single"]
+    assert outs["chunked"] != outs["greedy"]
+
+
+@pytest.mark.gpu
+def test_sampler_on_the_card_is_the_cpu_sampler(card):
+    """Random bits and uniforms bitwise the CPU's; gumbel within 2 ulp at
+    the scale max(|g|, 1) (each device's log its own); tokens the CPU's on
+    the same logits but at a near tie of the CPU's perturbed scores."""
+    from repro_torch.serve import sampling
+
+    rng = np.random.default_rng(9)
+    n, v, temp = 16, 128256, 0.7
+    logits = torch.from_numpy((rng.standard_normal((n, v)) * 3).astype(np.float32))
+    rids = torch.from_numpy(rng.integers(0, 1000, n))
+    steps = torch.from_numpy(rng.integers(0, 5000, n))
+    keys = sampling.fold_in(sampling.fold_in(sampling.prng_key(4).expand(n, 2), rids), steps)
+    assert torch.equal(sampling.random_bits(keys.to(card), v).cpu(),
+                       sampling.random_bits(keys, v))
+    assert torch.equal(sampling.uniform(keys.to(card), v).cpu(), sampling.uniform(keys, v))
+    g_cpu, g_card = sampling.gumbel(keys, v), sampling.gumbel(keys.to(card), v).cpu()
+    scale = torch.clamp_min(g_cpu.abs(), 1.0)
+    ulp = torch.nextafter(scale, torch.tensor(float("inf"))) - scale
+    assert bool(((g_card - g_cpu).abs() <= 2 * ulp).all())
+    t = torch.tensor(temp)
+    want = sampling.sample_rows_keyed(sampling.prng_key(4), rids, steps, logits, t)
+    got = sampling.sample_rows_keyed(sampling.prng_key(4, card), rids.to(card),
+                                     steps.to(card), logits.to(card), t.to(card)).cpu()
+    s = g_cpu + logits / t
+    tol = 2 * ulp + (torch.nextafter(s.abs(), torch.tensor(float("inf"))) - s.abs())
+    for i in torch.nonzero(got != want)[:, 0].tolist():
+        a, b = int(want[i]), int(got[i])
+        assert float(s[i, a] - s[i, b]) <= float(tol[i, a] + tol[i, b]), i
+
+
+@pytest.mark.gpu
+def test_pools_that_move_after_a_capture_are_refused(card):
+    eng = _served_engine(card, "int8")
+    eng.kv.pools[0]["ppos"] = eng.kv.pools[0]["ppos"].clone()
+    eng.submit(np.arange(5, dtype=np.int32), max_new_tokens=4)
+    with pytest.raises(RuntimeError, match="reallocated"):
+        eng.run_until_drained()
+
+
+@pytest.mark.gpu
+def test_garbage_is_collected_before_a_capture_not_inside_it(card):
+    """Destroying a CUDA graph (a dead engine's, freed by the cyclic
+    garbage collector) inside another capture invalidates that capture. A
+    capture first collects what is garbage, and records with the collector
+    off: the step's uncaptured run sees it on, its capture off."""
+    import gc
+    import weakref
+
+    from repro_torch.serve.graphs import StepGraphs
+
+    class Cycle:
+        pass
+
+    junk = Cycle()
+    junk.me = junk
+    dead = weakref.ref(junk)
+    del junk
+    seen = []
+    steps = StepGraphs(lambda x: (seen.append(gc.isenabled()), x + 1)[1], device=card,
+                       pools=lambda: [])
+    out = steps([np.arange(4, dtype=np.int32)])
+    assert dead() is None and gc.isenabled()
+    assert seen == [True, False]
+    assert out.tolist() == [1, 2, 3, 4]
+
+
+@pytest.mark.gpu
+def test_a_failed_capture_raises(card):
+    """A step that waits on the host cannot be captured: the capture
+    raises, and no graph is kept to fall back on."""
+    from repro_torch.serve.graphs import StepGraphs
+
+    steps = StepGraphs(lambda x: x + int(x.sum().item()), device=card, pools=lambda: [])
+    with pytest.raises(RuntimeError):
+        steps([np.arange(4, dtype=np.int32)])
+    assert steps.graphs == {}
+    torch.cuda.synchronize()

@@ -177,7 +177,9 @@ def _run_both(kind, jparams):
     )
     ttoks, tpools = make_paged_decode_chunk_step(tm)(
         tparams, tpools, T(tok0), T(tables), T(cpos), T(cslots), T(cpos),
-        T(cfresh), T(ckv), T(max_steps), T(eos), T(active),
+        T(cfresh), T(ckv), torch.zeros(2, dtype=torch.int64),
+        torch.zeros(2, dtype=torch.int64), T(max_steps), T(eos), T(active),
+        torch.tensor(0.0), torch.zeros(2, dtype=torch.int64), greedy=True,
     )
     # tokens past a slot's done point are junk in both packages
     keep = np.arange(c)[:, None] < max_steps[None, :]

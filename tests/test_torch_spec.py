@@ -231,7 +231,9 @@ def _spec_round_both(kind, jparams, *, eos, window):
     )
     tout, te, tpools = make_paged_spec_decode_step(tm, **geo)(
         tparams, tdraft, tpools, T(c["tokens0"]), T(c["tables"]), T(c["p0"]),
-        T(c["fresh"]), T(c["max_steps"]), T(eos), T(c["active"]),
+        T(c["fresh"]), torch.zeros(2, dtype=torch.int64), torch.zeros(2, dtype=torch.int64),
+        T(c["max_steps"]), T(eos), T(c["active"]), torch.tensor(0.0),
+        torch.zeros(2, dtype=torch.int64), greedy=True,
     )
     return ((np.asarray(jout), np.asarray(je)), (tout.numpy(), te.numpy()),
             jpools, tpools)
@@ -271,9 +273,9 @@ def _record_spec(eng, port: bool):
     inner = sched._spec
 
     def on_spec(*a):
-        # tokens0, tables, p0, fresh, then max_steps, eos, active (the
-        # reference also passes request ids and output indices)
-        log.append([np.array(x) for x in (a if port else a[:4] + a[6:])])
+        # tokens0, tables, p0, fresh, request ids, output indices,
+        # max_steps, eos, active: the same arguments in both packages
+        log.append([np.array(x) for x in a])
         return inner(*a)
 
     sched._spec = on_spec
@@ -398,9 +400,10 @@ def test_spec_config_validation(reference_params):
     tm, tparams = _port(reference_params)
     with pytest.raises(ValueError, match="paged"):
         GenerationEngine(tm, tparams, paged=False, spec_decode=SpecConfig(), device="cpu")
-    with pytest.raises(ValueError, match="Queue A item 4b"):
-        GenerationEngine(tm, tparams, temperature=0.5, spec_decode=SpecConfig(),
-                         device="cpu")
+    # temperature is a working option of the spec engine (Queue A item 4b)
+    warm = GenerationEngine(tm, tparams, temperature=0.5, spec_decode=SpecConfig(),
+                            device="cpu", **ENGINE)
+    assert not warm.greedy and warm.spec_rounds == 2
     cache = PagedKVCache(_PoolStub(), num_blocks=4, block_size=2)
     with pytest.raises(ValueError, match="spec_k >= 1"):
         Scheduler(cache, max_slots=1, max_len=8, prefill_fn=None, decode_chunk_fn=None,
