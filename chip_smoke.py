@@ -25,13 +25,23 @@ emitted token against teacher-forced logits of the target. Both engines
 run decode as CUDA graphs captured per shape: each captured graph (every
 plain chunk length, and one spec launch) is replayed against the
 uncaptured step from the same pools, tokens and every pool plane bitwise.
-Last, it times the keyed temperature sampler captured alone and serves at
+Then it times the keyed temperature sampler captured alone and serves at
 temperature 0.7, plain and spec, holding every token against teacher-forced
-perturbed scores and spec against sequential token for token.
+perturbed scores and spec against sequential token for token. Last come
+two serving features: `prefix_serve` serves 8 prompts over two system
+prompts in two waves with the prefix cache on and off (hits, copy-on-write
+clones, the shared pages bitwise unchanged, per-request time to first
+token), and `chunked_prefill` lets a 1536-token prompt arrive while three
+requests decode, prefilled whole and in 256-token chunks (the worst gap
+between decode chunks, the long request's time to first token, no decode
+graph captured meanwhile). Each new phase sets the launch counts to 0
+before it, reads them after, and holds every token against teacher-forced
+logits.
 """
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -429,6 +439,7 @@ def compare_paths(torch, model, params, report):
     slots = (tables[0, pos[0].long() // bs] * bs + pos[0] % bs)[None]
     fresh = tables[0, :8].clone()
     last = torch.tensor([n - 1], device="cuda")
+    no_copy = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
     results, fed, steps = {}, [], 4
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
     for path in ("kernel", "plain"):
@@ -436,7 +447,7 @@ def compare_paths(torch, model, params, report):
         with ctx:
             pools = model.init_paged_cache(16, bs, device="cuda")
             logits, pools = make_paged_prefill_step(model)(
-                params, tokens, pos, pools, tables, slots, pos, fresh, last)
+                params, tokens, pos, pools, tables, slots, pos, fresh, no_copy, last)
             outs = [logits.float()]
             for j in range(steps):
                 if path == "kernel":  # both paths are fed the kernel path's tokens
@@ -667,7 +678,7 @@ def check_draft_leaf(torch, target, served, draft_spec):
         f"({time.perf_counter() - t0:.1f} s on the CPU)")
 
 
-def teacher_forced(torch, model, params, prompts, outs, report):
+def teacher_forced(torch, model, params, prompts, outs, report, key="teacher_forced"):
     """Each emitted token's logit in one teacher-forced target forward over
     prompt + emitted tokens (kernel path) lies within LOGIT_TOL of the
     position's scale below the position's largest logit. Returns the share
@@ -683,12 +694,12 @@ def teacher_forced(torch, model, params, prompts, outs, report):
         exact += int((rows.argmax(dim=1) == em).sum())
         total += len(out)
         del rows
-    report["teacher_forced"] = {"worst_gap": worst, "argmax_share": exact / total}
-    log(f"teacher-forced target logits: worst gap of an emitted token below the "
+    report[key] = {"worst_gap": worst, "argmax_share": exact / total}
+    log(f"teacher-forced target logits ({key}): worst gap of an emitted token below the "
         f"position's max {worst:.3e} of max|logit| (tolerance {LOGIT_TOL}); emitted "
         f"token is the argmax at {exact}/{total} positions")
     if worst > LOGIT_TOL:
-        raise AssertionError("a spec token lies outside the teacher-forced logit tolerance")
+        raise AssertionError(f"a token lies outside the teacher-forced logit tolerance ({key})")
     return exact / total
 
 
@@ -906,6 +917,257 @@ def sampler_time(torch, report):
     report["sampler_ms"] = out
 
 
+_PREFILL_SHAPES = set()  # (rows, span, table width) met by serve_waves
+
+
+def serve_waves(torch, eng, waves, new):
+    """Serve `waves` of prompts through `eng`, each wave submitted at once
+    and drained before the next. Returns the tokens in submission order and
+    what the run cost: its wall, each prefill call's wall, shape, clones
+    and GeMV launches (a call whose shape this process had not met pays
+    the first-call costs of its shape), each request's time from submit to
+    its first token, each decode chunk's wall and the launches of the
+    whole run, with every count set to 0 before it."""
+    sched = eng.scheduler
+    prefills, chunks, first, submitted = [], [], {}, {}
+    inner_prefill, inner_rows = sched._prefill, sched._prefill_rows
+    gemv = counters()["deca_gemv"]
+
+    def prefill(*a):
+        shape = (a[0].shape[0], a[0].shape[1], a[2].shape[1])
+        n0 = gemv.launches
+        t = time.perf_counter()
+        out = inner_prefill(*a)
+        torch.cuda.synchronize()
+        prefills.append({"wall_s": time.perf_counter() - t, "rows": shape[0],
+                         "span": shape[1], "table": shape[2],
+                         "copies": int((a[6][:, 1] != 0).sum()),
+                         "gemv_launches": gemv.launches - n0,
+                         "new_shape": shape not in _PREFILL_SHAPES})
+        _PREFILL_SHAPES.add(shape)
+        return out
+
+    def rows(rows_, **kw):
+        inner_rows(rows_, **kw)  # ends in the host copy of the sampled tokens
+        now = time.perf_counter()
+        for _, r, _, _ in rows_:
+            if r.out and r.rid not in first:
+                first[r.rid] = now
+
+    sched._prefill, sched._prefill_rows = prefill, rows
+    sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, sched._decode_chunk, chunks)
+    gc.collect()  # a dead engine (its graphs hold it in a cycle) would count in the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    outs, rids_all = [], []
+    t0 = time.perf_counter()
+    for wave in waves:
+        rids = []
+        for p in wave:
+            rids.append(eng.submit(p, max_new_tokens=new))
+            submitted[rids[-1]] = time.perf_counter()
+        done = eng.run_until_drained()
+        outs += [done[r] for r in rids]
+        rids_all += rids
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    ttft = [first[r] - submitted[r] for r in rids_all]
+    return outs, {"wall_s": wall, "tokens": sum(map(len, outs)), "prefills": prefills,
+                  "ttft_s": ttft, "chunks": chunks, "launches": launches,
+                  "peak_bytes": torch.cuda.max_memory_allocated(),
+                  "graphs": len(eng._chunk_graphs.graphs), "stats": sched.stats()}
+
+
+def pool_pages(torch, pools, pages):
+    """Every plane of allocator pages `pages` (device pages + 1), per layer."""
+    idx = torch.as_tensor([p + 1 for p in pages], device="cuda")
+    return [{n: t[idx].clone() for n, t in layer.items()} for layer in pools]
+
+
+def prefix_serve(torch, model, params, report, new=64):
+    """The multi-tenant prefix cache at full width. Two seeded system
+    prompts, A (1000 tokens, not page-aligned) and B (512 tokens, 16 whole
+    pages); A with a tail and B alone are served and drained, then six
+    more are submitted at once: A and B with seeded tails of 1-256 tokens,
+    and B verbatim, whose cached pages cover the whole prompt (its last
+    token is recomputed into a copy-on-write clone). A fresh engine with
+    the cache off serves the same waves. Every token of both serves is
+    held against teacher-forced logits; every plane of every page the
+    index held after the first wave must be bitwise unchanged after the
+    second; the drained pool holds only the index's pages."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    v = model.cfg.vocab_size
+    g = torch.Generator().manual_seed(7)
+    sys_a = torch.randint(0, v, (1000,), generator=g)
+    sys_b = torch.randint(0, v, (512,), generator=g)
+    tails = [torch.randint(0, v, (int(n),), generator=g)
+             for n in torch.randint(1, 257, (6,), generator=g)]
+    cat = lambda *t: torch.cat(t).numpy()
+    waves = [[cat(sys_a, tails[0]), sys_b.numpy()],
+             [cat(sys_a, tails[1]), cat(sys_b, tails[2]), cat(sys_a, tails[3]),
+              cat(sys_b, tails[4]), cat(sys_a, tails[5]), sys_b.numpy()]]
+    prompts = waves[0] + waves[1]
+    res, outs = {}, {}
+    for name, on in (("prefix", True), ("baseline", False)):
+        eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                               max_len=2048, decode_chunk=8, prefix_cache=on)
+        got, first = serve_waves(torch, eng, waves[:1], new)
+        cached = eng.kv.prefix.page_multiset() if on else []
+        before = pool_pages(torch, eng.kv.pools, cached) if on else None
+        rest, second = serve_waves(torch, eng, waves[1:], new)
+        outs[name] = got + rest
+        st, occ = second["stats"], eng.kv.occupancy()
+        run = {"waves": [first, second], "occupancy": occ}
+        if on:
+            kept = set(eng.kv.prefix.page_multiset())
+            if not set(cached) <= kept:
+                raise AssertionError("pages cached after the first wave left the index")
+            after = pool_pages(torch, eng.kv.pools, cached)
+            bad = [(i, n) for i, (a, b) in enumerate(zip(before, after))
+                   for n in a if not torch.equal(a[n], b[n])]
+            run["cached_after_first_wave"] = len(cached)
+            log(f"prefix_serve: {len(cached)} pages the index held after the first wave "
+                f"(A, A's tail, B): every plane of every layer bitwise unchanged across "
+                f"the second wave: {not bad}")
+            if bad:
+                raise AssertionError(f"shared pages changed under the second wave: {bad[:8]}")
+            if not (st["prefix_hit_tokens"] > 0 and st["cow_copies"] >= 1):
+                raise AssertionError(f"the prefix serve shared nothing: {st}")
+            if occ["used"] != occ["cached"]:
+                raise AssertionError(f"drained pool: used {occ['used']} != cached "
+                                     f"{occ['cached']}")
+        for w in (first, second):
+            idle = [k for k, n in w["launches"].items() if n == 0 and k != "deca_decompress"]
+            if idle:
+                raise AssertionError(f"kernels never launched on the prefix path: {idle}")
+        if len(eng._chunk_graphs.graphs) > 4:
+            raise AssertionError("more than four decode graphs")
+        teacher_forced(torch, eng.model, params, prompts, outs[name], report,
+                       key=f"teacher_forced_{name}")
+        n_tok = first["tokens"] + second["tokens"]
+        wall = first["wall_s"] + second["wall_s"]
+        pf = first["prefills"] + second["prefills"]
+        log(f"prefix_serve {name}: {n_tok} tokens in {wall:.2f} s = {n_tok / wall:.1f} "
+            f"tok/s; peak device memory {max(first['peak_bytes'], second['peak_bytes']) / 1e9:.2f}"
+            f" GB; prefix_hit_tokens {st['prefix_hit_tokens']}, cow_copies "
+            f"{st['cow_copies']}, prefix_cached_pages {st['prefix_cached_pages']}; "
+            f"occupancy {occ}; {len(eng._chunk_graphs.graphs)} decode graphs")
+        log(f"  prefill calls (rows x span, table, clones, GeMV launches, wall; * = first of "
+            f"its shape): " + "; ".join(
+                f"{c['rows']}x{c['span']} t{c['table']} c{c['copies']} g{c['gemv_launches']} "
+                f"{1e3 * c['wall_s']:.1f} ms{'*' if c['new_shape'] else ''}" for c in pf))
+        log(f"  submit to first token: wave 1 (cold) "
+            f"{', '.join(f'{1e3 * t:.1f}' for t in first['ttft_s'])} ms; wave 2 "
+            f"({'hits' if on else 'cold'}) {', '.join(f'{1e3 * t:.1f}' for t in second['ttft_s'])}"
+            f" ms; launches wave 1 {first['launches']}, wave 2 {second['launches']}")
+        res[name] = run
+        del eng
+        torch.cuda.empty_cache()
+    same = sum(list(a) == list(b) for a, b in zip(outs["prefix"], outs["baseline"]))
+    log(f"prefix_serve: prefix-on tokens equal the prefix-off tokens on {same}/{len(prompts)} "
+        "requests (both held against teacher-forced logits above)")
+    report["prefix_serve"] = {"prompt_lens": [len(p) for p in prompts], "same": same, **res}
+
+
+def chunked_prefill(torch, model, params, report, chunk=256):
+    """Chunked prefill at full width: three requests (prompts of 64-256
+    tokens, 192 new tokens) decode; after their second decode chunk a
+    1536-token prompt (64 new tokens) arrives. Run with the prompt
+    prefilled whole and in chunks of `chunk` tokens: the largest wall gap
+    between two consecutive decode chunks of the residents (the worst
+    inter-token time), each prefill call's wall and the long request's
+    time to its first token. Every token of both runs is held against
+    teacher-forced logits, and the chunked run captures no decode graph
+    while the long prompt prefills."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    v = model.cfg.vocab_size
+    g = torch.Generator().manual_seed(8)
+    residents = [torch.randint(0, v, (int(n),), generator=g).numpy()
+                 for n in torch.randint(64, 257, (3,), generator=g)]
+    long = torch.randint(0, v, (1536,), generator=g).numpy()
+    res = {}
+    for name, pc in (("whole", None), ("chunked", chunk)):
+        eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                               max_len=2048, decode_chunk=8, prefill_chunk=pc)
+        sched = eng.scheduler
+        ends, prefills = [], []
+        inner_chunk, inner_prefill = sched._decode_chunk, sched._prefill
+
+        def decode(*a):
+            out = inner_chunk(*a)
+            torch.cuda.synchronize()
+            ends.append((time.perf_counter(), bool(a[11][:3].all())))
+            return out
+
+        def prefill(*a):
+            t = time.perf_counter()
+            out = inner_prefill(*a)
+            torch.cuda.synchronize()
+            prefills.append({"wall_s": time.perf_counter() - t, "rows": a[0].shape[0],
+                             "span": a[0].shape[1], "table": a[2].shape[1]})
+            return out
+
+        sched._decode_chunk, sched._prefill = decode, prefill
+        for fn in counters().values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=192) for p in residents]
+        while sched.stats()["decode_chunks"] < 2:
+            sched.step()
+        graphs = len(eng._chunk_graphs.graphs)
+        t_arrive = time.perf_counter()
+        rids.append(eng.submit(long, max_new_tokens=64))
+        req = sched.queue[-1]
+        while not req.out:
+            sched.step()
+        ttft = time.perf_counter() - t_arrive
+        graphs_at_first = len(eng._chunk_graphs.graphs)
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+        outs = [done[r] for r in rids]
+        st = sched.stats()
+        live = [t for t, residents_on in ends if residents_on]
+        gaps = [b - a for a, b in zip(live, live[1:])]
+        calls = ", ".join(f"{c['rows']}x{c['span']} {1e3 * c['wall_s']:.1f} ms"
+                          for c in prefills)
+        run = {"wall_s": wall, "ttft_s": ttft, "worst_gap_s": max(gaps), "gaps_s": gaps,
+               "prefills": prefills, "launches": launches, "stats": st,
+               "graphs_before": graphs, "graphs_at_first_token": graphs_at_first,
+               "graphs": len(eng._chunk_graphs.graphs)}
+        log(f"chunked_prefill {name} (prefill_chunk={pc}): long request's first token "
+            f"{1e3 * ttft:.1f} ms after it arrived; worst gap between two decode chunks of "
+            f"the residents {1e3 * max(gaps):.1f} ms (median "
+            f"{1e3 * sorted(gaps)[len(gaps) // 2]:.1f}); prefill_chunk_calls "
+            f"{st['prefill_chunk_calls']}; prefill calls (rows x span) {calls}; "
+            f"decode graphs {graphs} before the arrival, {graphs_at_first} at its first "
+            f"token, {run['graphs']} at the end; {sum(map(len, outs))} tokens in {wall:.2f} s; "
+            f"launches {launches}")
+        idle = [k for k, n in launches.items() if n == 0 and k != "deca_decompress"]
+        if idle:
+            raise AssertionError(f"kernels never launched on the chunked-prefill path: {idle}")
+        if pc is not None:
+            if st["prefill_chunk_calls"] == 0:
+                raise AssertionError("no chunked prefill launch")
+            if graphs_at_first != graphs:
+                raise AssertionError("a decode graph was captured while the long prompt "
+                                     "prefilled in chunks")
+        if run["graphs"] > 4:
+            raise AssertionError("more than four decode graphs")
+        teacher_forced(torch, eng.model, params, residents + [long], outs, report,
+                       key=f"teacher_forced_{name}_prefill")
+        res[name] = run
+        del eng, sched
+        torch.cuda.empty_cache()
+    report["chunked_prefill"] = {"chunk": chunk, **res}
+
+
 def main() -> int:
     import torch
 
@@ -1075,6 +1337,12 @@ def main() -> int:
     # 7. keyed temperature sampling, on the card inside the captured graphs
     sampler_time(torch, report)
     serve_temperature(torch, model, params, prompts[:4], report)
+
+    # 8. the multi-tenant prefix cache and copy-on-write clones
+    prefix_serve(torch, model, params, report)
+
+    # 9. a long prompt prefilled whole and in chunks while others decode
+    chunked_prefill(torch, model, params, report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")

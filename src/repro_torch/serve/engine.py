@@ -40,12 +40,17 @@ from repro_torch.serve.scheduler import Scheduler
 
 def make_paged_prefill_step(model: Model) -> Callable:
     """paged_prefill(params, tokens (B,Sp), positions, pools, block_tables,
-    write_slots, write_pos, fresh_pages, last_idx (B,)) -> (last-token
-    logits (B, V), pools). Each row's last real token is selected on the
-    device, so only the (B, V) rows the sampler needs leave the forward."""
+    write_slots, write_pos, fresh_pages, copies (C,2), last_idx (B,)) ->
+    (last-token logits (B, V), pools). Each row's last real token is
+    selected on the device, so only the (B, V) rows the sampler needs leave
+    the forward. `copies` are the round's copy-on-write page clones ((0, 0)
+    rows pad the shape): the cache update applies them in place before any
+    scrub or scatter, so a prefix-hit row recomputing its last prompt token
+    writes into its private clone, never into the shared page. The same
+    step runs chunked prefill, through a length-bounded block table."""
 
     def paged_prefill(params, tokens, positions, cache, tables, slots, wpos,
-                      fresh, last_idx):
+                      fresh, copies, last_idx):
         logits, cache = model.forward(
             params, tokens=tokens, positions=positions, cache=cache,
             paged={
@@ -53,6 +58,7 @@ def make_paged_prefill_step(model: Model) -> Callable:
                 "write_slots": slots,
                 "write_pos": wpos,
                 "fresh_pages": fresh,
+                "copy_pages": copies,
             },
         )
         rows = torch.arange(logits.shape[0], device=logits.device)
@@ -168,6 +174,17 @@ class GenerationEngine:
     through the fused paged walk, verifies the k+1 positions in one target
     forward and rolls rejected pages back. Only the paged engine exists in
     the port; `paged=False` raises.
+
+    `prefix_cache=True` turns on multi-tenant prefix sharing: a radix index
+    over `block_size`-token prompt chunks maps cached prefixes to
+    refcounted pages, admission pins the longest cached prefix and
+    computes only the rest, and the first write into a shared page clones
+    it (copy-on-write). It is off by default, so an idle pool drains to
+    empty (the index keeps its pages). `prefill_chunk` caps the prompt
+    tokens one prefill call processes per request: longer prompts run as
+    chunks interleaved with decode rounds, each through a length-bounded
+    block table. `None` keeps monolithic prefill. Neither changes a token
+    on the CPU; both compose with `spec_decode`.
     """
 
     def __init__(
@@ -185,6 +202,8 @@ class GenerationEngine:
         decode_chunk: int = 8,
         prefill_batch: bool = True,
         spec_decode: Optional[SpecConfig] = None,
+        prefix_cache: bool = False,
+        prefill_chunk: Optional[int] = None,
         paged: bool = True,
         device="cuda",
     ):
@@ -219,7 +238,7 @@ class GenerationEngine:
             num_blocks = max_slots * self.max_blocks
         self.kv = PagedKVCache(
             model, num_blocks=num_blocks, block_size=block_size,
-            device=self.device,
+            device=self.device, prefix_cache=prefix_cache,
         )
         self._paged_prefill = make_paged_prefill_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
@@ -258,6 +277,7 @@ class GenerationEngine:
             spec_k=spec_decode.k if spec_decode is not None else 0,
             spec_rounds=self.spec_rounds,
             spec_window=spec_decode.draft_window if spec_decode is not None else 0,
+            prefill_chunk=prefill_chunk,
         )
 
     def _t(self, a) -> torch.Tensor:
@@ -277,11 +297,11 @@ class GenerationEngine:
         return toks.cpu().numpy()
 
     def _run_paged_prefill(self, tokens, positions, tables, slots, wpos, fresh,
-                           last_idx):
+                           copies, last_idx):
         logits, self.kv.pools = self._paged_prefill(
             self.params, self._t(tokens), self._t(positions), self.kv.pools,
             self._t(tables), self._t(slots), self._t(wpos), self._t(fresh),
-            self._t(last_idx),
+            self._t(copies), self._t(last_idx),
         )
         return logits
 

@@ -1,40 +1,64 @@
-"""Block-paged KV cache: host-side free-list allocator and per-request block
-tables over the device pools built by `Model.init_paged_cache`.
+"""Block-paged KV cache: host-side refcounted free-list allocator, radix
+prefix index, and per-request block tables over the device pools built by
+`Model.init_paged_cache`.
 
-Counterpart of the base path of `repro/serve/paged_cache.py` and of its
-speculative-decode rollback (the prefix index, park and the host tier are
-later ROADMAP items). Layout:
+Counterpart of `repro/serve/paged_cache.py` without its host tier, park and
+window freeing (ROADMAP Queue A items 9, 8 and 10). Layout:
 per attention layer one (num_blocks+1, block_size, Hkv, W) pool for K and V
 plus a (num_blocks+1, block_size) position plane. Device page 0 is the null
 page: pad and inactive-slot writes land there with the empty-position
 sentinel. Allocator page `a` is device page `a + 1`.
 
-A request at length `len` holds exactly ceil(len / block_size) pages.
-Admission reserves its worst-case page count up front, so lazy per-step
-allocation never deadlocks mid-flight; allocating past the reservation is an
-accounting bug and raises.
+  BlockAllocator  refcounted free-list: a page returns to the free list
+                  when its last holder drops it
+  PrefixIndex     radix tree over `block_size`-token prompt chunks mapping
+                  shared prompt prefixes to pages; it holds one reference
+                  on every page it caches, and LRU leaf eviction reclaims
+                  index-only pages when admission needs headroom
+  PagedKVCache    block tables, lazy page allocation, admission
+                  reservations, copy-on-write, and the flat write-slot /
+                  block-table / fresh-page / copy arrays the device steps take
+
+A request at length `len` holds exactly ceil(len / block_size) pages; with
+the prefix index on, pages holding a prompt prefix another request already
+computed are shared. Admission reserves the worst-case page count of the
+non-shared tail up front (plus one page when a copy-on-write clone of the
+last shared page is inevitable), so lazy per-step allocation never
+deadlocks mid-flight; allocating past the reservation is an accounting bug
+and raises.
 """
 from __future__ import annotations
 
+import hashlib
 import math
-from typing import Any, Dict, List, Optional, Set
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 
+def chain_key(parent_key: bytes, chunk: bytes) -> bytes:
+    """Content address of a radix-index node: a hash of its parent's key
+    and its own token-chunk bytes (the reference's `host_tier.chain_key`;
+    the root's key is b"")."""
+    return hashlib.blake2b(parent_key + chunk, digest_size=16).digest()
+
+
 class BlockAllocator:
-    """LIFO free-list over `num_blocks` page ids [0, num_blocks). Freeing a
-    page that is not held is a double-free and raises. (The reference
-    refcounts pages for its prefix cache, ROADMAP Queue A item 5; without
-    one every page has exactly one holder.)"""
+    """Refcounted LIFO free-list over `num_blocks` page ids [0, num_blocks).
+
+    `alloc()` hands out a page at count 1; `incref` adds a holder (a
+    request sharing a prefix page, or the prefix index pinning it); `free`
+    drops one holder per listed page and returns the pages whose count
+    reached zero to the free list. Dropping a page nobody holds is a
+    double-free and raises."""
 
     def __init__(self, num_blocks: int):
         if num_blocks <= 0:
             raise ValueError(f"need at least one block, got {num_blocks}")
         self.num_blocks = num_blocks
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
-        self._held: Set[int] = set()
+        self._refs: Dict[int, int] = {}
 
     @property
     def free_count(self) -> int:
@@ -42,21 +66,210 @@ class BlockAllocator:
 
     @property
     def used_count(self) -> int:
-        return len(self._held)
+        """Distinct pages allocated: a shared page counts once."""
+        return len(self._refs)
+
+    @property
+    def shared_count(self) -> int:
+        """Pages held by more than one holder."""
+        return sum(1 for c in self._refs.values() if c > 1)
+
+    def ref_count(self, block: int) -> int:
+        return self._refs.get(block, 0)
 
     def alloc(self) -> int:
         if not self._free:
             raise RuntimeError("KV pool exhausted (admission should prevent this)")
         b = self._free.pop()
-        self._held.add(b)
+        self._refs[b] = 1
         return b
 
-    def free(self, blocks) -> None:
+    def incref(self, block: int) -> None:
+        if block not in self._refs:
+            raise ValueError(f"incref on unallocated block {block}")
+        self._refs[block] += 1
+
+    def free(self, blocks) -> List[int]:
+        """Drop one reference per listed page; returns the pages whose
+        count reached zero (now back on the free list)."""
+        freed: List[int] = []
         for b in blocks:
-            if b not in self._held:
+            c = self._refs.get(b)
+            if c is None:
                 raise ValueError(f"double-free / foreign block {b}")
-            self._held.remove(b)
-            self._free.append(b)
+            if c > 1:
+                self._refs[b] = c - 1
+            else:
+                del self._refs[b]
+                self._free.append(b)
+                freed.append(b)
+        return freed
+
+
+class _RadixNode:
+    __slots__ = ("chunk", "page", "children", "parent", "tick", "key")
+
+    def __init__(self, chunk: bytes, page: Optional[int],
+                 parent: Optional["_RadixNode"], tick: int, key: bytes = b""):
+        self.chunk = chunk
+        self.page = page
+        self.children: Dict[bytes, "_RadixNode"] = {}
+        self.parent = parent
+        self.tick = tick
+        self.key = key  # content address: chain_key over the root path
+
+
+class PrefixIndex:
+    """Radix tree keyed on `block_size`-token prompt chunks (int32 bytes).
+
+    Each node maps one full page of prompt tokens to the page holding its
+    KV; a root-to-node path is a cached prompt prefix. The index increfs
+    every page it caches, so a request's release never drops a cached
+    prefix: pages leave the index only through `evict` (oldest-touched
+    leaves first, and only while no request shares them) or `drop_subtree`.
+    The reference's tier members (tiered nodes, restore, spill) belong to
+    ROADMAP Queue A item 9 and are not ported: every node here holds its
+    page in device memory."""
+
+    def __init__(self, block_size: int, allocator: BlockAllocator):
+        self.block_size = block_size
+        self.allocator = allocator
+        self._root = _RadixNode(b"", None, None, 0)
+        self._pages = 0
+        self._tick = 0
+
+    def _chunks(self, prompt) -> Iterator[bytes]:
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        bs = self.block_size
+        for i in range(len(p) // bs):
+            yield p[i * bs:(i + 1) * bs].tobytes()
+
+    @property
+    def pages(self) -> int:
+        """Pages the index pins (one reference each)."""
+        return self._pages
+
+    def lookup(self, prompt) -> List[int]:
+        """Longest cached full-page prefix of `prompt` -> its page ids in
+        position order. Touches the matched chain's LRU ticks."""
+        self._tick += 1
+        node, pages = self._root, []
+        for key in self._chunks(prompt):
+            child = node.children.get(key)
+            if child is None:
+                break
+            child.tick = self._tick
+            pages.append(child.page)
+            node = child
+        return pages
+
+    def insert(self, prompt, table: List[int]) -> int:
+        """Cache every full page of a finished prefill: chunks already
+        indexed are kept (first writer wins: the later request's identical
+        page stays private), new chunks pin the request's page with one
+        index reference. Returns pages newly pinned."""
+        self._tick += 1
+        node, added = self._root, 0
+        for i, key in enumerate(self._chunks(prompt)):
+            child = node.children.get(key)
+            if child is None:
+                if i >= len(table):
+                    break
+                child = _RadixNode(key, table[i], node, self._tick,
+                                   key=chain_key(node.key, key))
+                node.children[key] = child
+                self.allocator.incref(table[i])
+                self._pages += 1
+                added += 1
+            else:
+                child.tick = self._tick
+            node = child
+        return added
+
+    def evictable_count(self) -> int:
+        """Pages reclaimable now: nodes whose whole subtree the index alone
+        holds (count 1), which evict leaf-first without breaking a chain a
+        request still shares."""
+        def walk(n: _RadixNode) -> Tuple[int, bool]:
+            total, all_free = 0, True
+            for c in n.children.values():
+                t, a = walk(c)
+                total += t
+                all_free = all_free and a
+            if n.page is None:  # the root
+                return total, all_free
+            if all_free and self.allocator.ref_count(n.page) == 1:
+                return total + 1, True
+            return total, False
+
+        return walk(self._root)[0]
+
+    def _frontier(self) -> List[_RadixNode]:
+        """Eviction candidates: index-only (count 1) leaves."""
+        out, stack = [], [self._root]
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if (n.page is not None and not n.children
+                    and self.allocator.ref_count(n.page) == 1):
+                out.append(n)
+        return out
+
+    def evict(self, n_pages: int) -> int:
+        """Reclaim up to `n_pages` index-only pages, LRU leaves first
+        (evicting a leaf may expose its parent as the next candidate).
+        Returns pages returned to the free list."""
+        freed = 0
+        while freed < n_pages:
+            frontier = self._frontier()
+            if not frontier:
+                break
+            frontier.sort(key=lambda n: n.tick)
+            for node in frontier:
+                if freed >= n_pages:
+                    break
+                del node.parent.children[node.chunk]
+                self._pages -= 1
+                freed += len(self.allocator.free([node.page]))
+        return freed
+
+    def drop_subtree(self, node: _RadixNode) -> int:
+        """Unlink `node` and everything below it, dropping the index's
+        reference on each of their pages (a request sharing one keeps its
+        own). Returns pages returned to the free list."""
+        if node.parent is None:
+            raise ValueError("the root cannot be dropped")
+        del node.parent.children[node.chunk]
+        pages, stack = [], [node]
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            pages.append(n.page)
+        self._pages -= len(pages)
+        return len(self.allocator.free(pages))
+
+    def drop_key(self, key: bytes) -> int:
+        """`drop_subtree` of the node whose content address is `key`;
+        0 when no node has it."""
+        stack = [self._root]
+        while stack:
+            n = stack.pop()
+            for c in n.children.values():
+                if c.key == key:
+                    return self.drop_subtree(c)
+                stack.append(c)
+        return 0
+
+    def page_multiset(self) -> List[int]:
+        """Every page the index holds a reference on, one entry per node
+        (the audit hook of the reference's `check_invariants`)."""
+        out, stack = [], [self._root]
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.page is not None:
+                out.append(n.page)
+        return out
 
 
 class PagedKVCache:
@@ -70,6 +283,7 @@ class PagedKVCache:
         block_size: int,
         device="cuda",
         dtype=torch.bfloat16,
+        prefix_cache: bool = False,
     ):
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -78,9 +292,16 @@ class PagedKVCache:
         self.pools = model.init_paged_cache(
             num_blocks, block_size, device=device, dtype=dtype
         )
+        self.prefix: Optional[PrefixIndex] = (
+            PrefixIndex(block_size, self.allocator) if prefix_cache else None
+        )
         self._tables: Dict[int, List[int]] = {}
         self._reserved: Dict[int, int] = {}
         self._fresh: List[int] = []  # device pages allocated since last drain
+        self._pending_copies: List[Tuple[int, int]] = []  # (src, dst) device ids
+        # lifetime counters (Scheduler.stats() reports them)
+        self.prefix_hit_tokens = 0
+        self.cow_copies = 0
 
     # -- admission accounting ------------------------------------------------
 
@@ -104,28 +325,102 @@ class PagedKVCache:
         """Pages promised to admitted requests but not yet allocated."""
         return sum(self._reserved.values())
 
-    def can_admit(self, kv_len: int) -> bool:
-        return self.free_blocks - self.reserved_blocks >= self.blocks_for(kv_len)
+    def occupancy(self) -> Dict[str, int]:
+        """Pool occupancy now, in pages: used (distinct pages held by
+        requests and the index), free, reserved, admittable (free minus
+        reserved), shared (more than one holder), cached (pinned by the
+        index), total, and the number of request tables."""
+        used = self.allocator.used_count
+        free = self.allocator.free_count
+        reserved = self.reserved_blocks
+        return {
+            "used": used,
+            "free": free,
+            "reserved": reserved,
+            "admittable": free - reserved,
+            "shared": self.allocator.shared_count,
+            "cached": self.prefix.pages if self.prefix is not None else 0,
+            "total": self.num_blocks,
+            "tables": len(self._tables),
+        }
 
-    def admit(self, rid: int, kv_len: int) -> int:
-        """Admit a request and reserve pages for its worst case. Returns
-        the prompt tokens already in the pool (0: no prefix cache yet)."""
+    def _hit_arithmetic(self, kv_len: int, prompt, n_hit: int) -> Tuple[int, int]:
+        """(hit tokens, pages to reserve) for a hit of `n_hit` pages. The
+        hit is capped at len(prompt) - 1 tokens: the last prompt token is
+        always recomputed (its logits give the first sample), and when the
+        cached pages cover the whole prompt its KV write lands in a shared
+        page, so one more page is reserved for the copy-on-write clone."""
+        hit_tokens = clone = 0
+        if prompt is not None and len(prompt) > 1 and n_hit:
+            hit_tokens = min(n_hit * self.block_size, len(prompt) - 1)
+            clone = int(n_hit * self.block_size >= len(prompt))
+        return hit_tokens, self.blocks_for(kv_len) - n_hit + clone
+
+    def _plan(self, kv_len: int, prompt) -> Tuple[List[int], int, int]:
+        """Admission plan: (hit pages, hit tokens, pages to reserve). The
+        reference's tiered half (restorable host-tier hits) is ROADMAP Queue
+        A item 9."""
+        hit_pages: List[int] = []
+        if self.prefix is not None and prompt is not None and len(prompt) > 1:
+            hit_pages = self.prefix.lookup(prompt)
+        hit_tokens, need = self._hit_arithmetic(kv_len, prompt, len(hit_pages))
+        return hit_pages, hit_tokens, need
+
+    def can_admit(self, kv_len: int, prompt=None) -> bool:
+        hit_pages, _, need = self._plan(kv_len, prompt)
+        headroom = self.free_blocks - self.reserved_blocks
+        if self.prefix is not None:
+            # index-only pages are reclaimable headroom, minus the hit
+            # pages themselves, which admission pins instead of evicting
+            hit_idx_only = sum(1 for p in hit_pages if self.allocator.ref_count(p) == 1)
+            headroom += self.prefix.evictable_count() - hit_idx_only
+        return headroom >= need
+
+    def admit(self, rid: int, kv_len: int, prompt=None) -> int:
+        """Admit a request: pin its longest cached prompt prefix (with a
+        prefix index and a `prompt`), reclaim index-only pages if the
+        reservation needs them, and reserve pages for the rest of its worst
+        case. Returns the prompt tokens the request shares instead of
+        computing (0 without an index)."""
         if rid in self._tables:
             raise ValueError(f"request {rid} already admitted")
-        need = self.blocks_for(kv_len)
-        if need > self.free_blocks - self.reserved_blocks:
+        hit_pages, hit_tokens, need = self._plan(kv_len, prompt)
+        for p in hit_pages:
+            self.allocator.incref(p)
+        headroom = self.free_blocks - self.reserved_blocks
+        if need > headroom and self.prefix is not None:
+            headroom += self.reclaim_index_pages(need - headroom)
+        if need > headroom:
+            self.allocator.free(hit_pages)  # roll the pins back
             raise RuntimeError(f"admitting request {rid} would oversubscribe the pool")
-        self._tables[rid] = []
+        self._tables[rid] = list(hit_pages)
         self._reserved[rid] = need
-        return 0
+        self.prefix_hit_tokens += hit_tokens
+        return hit_tokens
+
+    def reclaim_index_pages(self, n_pages: int) -> int:
+        """Evict up to `n_pages` index-only pages for admission headroom.
+        Returns pages returned to the free list."""
+        if self.prefix is None or n_pages <= 0:
+            return 0
+        return self.prefix.evict(n_pages)
 
     def release(self, rid: int) -> None:
-        """Idempotent teardown: drop the request's pages and reservation."""
+        """Idempotent teardown: drop the request's reference on every page
+        it holds (shared pages survive for their other holders) and clear
+        its reservation. An unknown or released rid is a no-op."""
         table = self._tables.pop(rid, None)
         if table is None:
             return
         self.allocator.free(table)
         self._reserved.pop(rid, None)
+
+    def prefix_insert(self, rid: int, prompt) -> int:
+        """Index every full prompt page of a finished prefill so later
+        requests can share it. No-op without a prefix index."""
+        if self.prefix is None:
+            return 0
+        return self.prefix.insert(prompt, self._tables[rid])
 
     def blocks_held(self, rid: int) -> int:
         return len(self._tables[rid])
@@ -133,12 +428,13 @@ class PagedKVCache:
     def rollback(self, rid: int, n_keep: int) -> int:
         """Speculative-decode rollback: shrink the request back to the
         pages covering its first `n_keep` tokens. Rejected drafts within a
-        page need nothing (a later round rewrites their positions); whole
-        trailing pages are freed, each credited back to the request's
-        reservation, since a later write there allocates again, and
-        dropped from the un-drained fresh list so no step scrubs a page
-        the request no longer holds. Without a prefix cache every page has
-        one holder, so every trimmed page is freed. Returns pages freed."""
+        page need nothing (a later round rewrites their positions). Each
+        whole trailing page removed drops one reference (a page shared
+        with the index or another request survives for them) and credits
+        one page back to the request's reservation, since a later write
+        there allocates again; freed pages leave the un-drained fresh list
+        so no step scrubs a page the request no longer holds. Returns pages
+        returned to the free list."""
         table = self._tables[rid]
         keep = self.blocks_for(max(0, n_keep))
         if len(table) <= keep:
@@ -146,14 +442,15 @@ class PagedKVCache:
         tail = table[keep:]
         del table[keep:]
         self._reserved[rid] = self._reserved.get(rid, 0) + len(tail)
-        self.allocator.free(tail)
-        drop = {p + 1 for p in tail}
-        self._fresh = [d for d in self._fresh if d not in drop]
-        return len(tail)
+        freed = self.allocator.free(tail)
+        if freed and self._fresh:
+            drop = {p + 1 for p in freed}
+            self._fresh = [d for d in self._fresh if d not in drop]
+        return len(freed)
 
     # -- slot / table arrays for the device steps ----------------------------
 
-    def _alloc_page(self, rid: int) -> int:
+    def _alloc_page(self, rid: int, *, fresh: bool) -> int:
         """One lazy page against the request's reservation."""
         left = self._reserved.get(rid, 0)
         if left <= 0:
@@ -163,20 +460,53 @@ class PagedKVCache:
             )
         b = self.allocator.alloc()
         self._reserved[rid] = left - 1
-        self._fresh.append(b + 1)
+        if fresh:
+            self._fresh.append(b + 1)
         return b
 
     def write_slots(self, rid: int, start_pos: int, n: int) -> np.ndarray:
         """Flat device slot ids for positions [start_pos, start_pos + n),
-        allocating pages lazily as positions cross page boundaries."""
+        allocating pages lazily as positions cross page boundaries.
+
+        Copy-on-write: the first write into a page with other holders (a
+        shared prefix page) clones it: a new page is allocated, a (src,
+        dst) device copy is queued for the next prefill (`drain_copies`),
+        the table entry moves to the clone and this request's reference on
+        the original is dropped; the other holders keep reading the
+        original. A clone is not a fresh page: the copy initializes all of
+        it, and a scrub would erase the copied prefix."""
         table = self._tables[rid]
         bs = self.block_size
         out = np.empty(n, np.int32)
         for i, p in enumerate(range(start_pos, start_pos + n)):
             bi = p // bs
             while len(table) <= bi:
-                table.append(self._alloc_page(rid))
-            out[i] = (table[bi] + 1) * bs + p % bs
+                table.append(self._alloc_page(rid, fresh=True))
+            pg = table[bi]
+            if self.allocator.ref_count(pg) > 1:
+                dst = self._alloc_page(rid, fresh=False)
+                self._pending_copies.append((pg + 1, dst + 1))
+                self.allocator.free([pg])  # other holders remain: never freed here
+                table[bi] = pg = dst
+                self.cow_copies += 1
+            out[i] = (pg + 1) * bs + p % bs
+        return out
+
+    @property
+    def pending_copies(self) -> int:
+        return len(self._pending_copies)
+
+    def drain_copies(self, pad_to: int) -> np.ndarray:
+        """Queued copy-on-write clones as a (pad_to, 2) (src, dst) device
+        page array for the next prefill, which copies every pool plane
+        before its scrub and scatter. Padding rows are (0, 0), a null-page
+        self-copy."""
+        copies, self._pending_copies = self._pending_copies, []
+        if len(copies) > pad_to:
+            raise ValueError(f"{len(copies)} CoW copies > pad_to={pad_to}")
+        out = np.zeros((pad_to, 2), np.int32)
+        if copies:
+            out[: len(copies)] = copies
         return out
 
     def drain_fresh_rows(self, pad_to: int) -> List[np.ndarray]:

@@ -31,6 +31,8 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.device import resolve
+
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 _PARITY = 0x1BD11BDA
@@ -62,9 +64,11 @@ def threefry2x32(k0, k1, x0, x1) -> Tuple[torch.Tensor, torch.Tensor]:
     return x0, x1
 
 
-def prng_key(seed: int, device="cpu") -> torch.Tensor:
-    """`jax.random.PRNGKey(seed)`'s data: (2,) int64 uint32 words."""
-    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64, device=device)
+def prng_key(seed: int, device="cuda") -> torch.Tensor:
+    """`jax.random.PRNGKey(seed)`'s data: (2,) int64 uint32 words on
+    `device`, the card unless the caller asks for the CPU (no card raises)."""
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
+                        device=resolve(device))
 
 
 def fold_in(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:

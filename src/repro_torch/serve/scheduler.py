@@ -1,6 +1,7 @@
 """Continuous-batching scheduler over the block-paged KV cache.
 
-Counterpart of the base path of `repro/serve/scheduler.py`. A FIFO request
+Counterpart of `repro/serve/scheduler.py` without its SLA, park, host-tier
+and observability machinery (ROADMAP Queue A items 7-9). A FIFO request
 queue feeds a fixed set of `max_slots` decode slots. Each scheduling round
 the host admits queued requests into free slots while the pool has enough
 unreserved pages for a request's worst case, prefills all requests admitted
@@ -15,8 +16,16 @@ are ignored. Sampling is per request: every sampled row carries its request
 id and its output index (`sample_fn(logits, rids, steps)`, and `rids` /
 `start_steps` for the device steps), so admission order and batch
 composition never change a request's tokens; padding and inactive rows
-carry rid -1, a uint32 id no request has. With a `spec_fn` each decode launch is instead `spec_rounds`
-self-speculative draft/verify rounds (`_decode_active_spec`).
+carry rid -1, a uint32 id no request has. With a `spec_fn` each decode
+launch is instead `spec_rounds` self-speculative draft/verify rounds
+(`_decode_active_spec`).
+
+With a prefix-cached pool admission first pins the longest cached prefix
+of the prompt, so prefill starts at `Request.prefilled` instead of 0. With
+`prefill_chunk` set, the rest of the prompt runs as chunks of at most that
+many tokens, one launch a round over every mid-prefill slot, each reading
+through a length-bounded block table; a slot joins decode once its last
+chunk has sampled its first output token.
 """
 from __future__ import annotations
 
@@ -46,9 +55,15 @@ STAT_UNITS: Dict[str, str] = {
     "paged_block_steps": "pages*steps (pool pages held, summed per step)",
     "dense_block_steps": "pages*steps (what a max_len ring cache would hold)",
     "peak_blocks": "pages (max pool pages held at any step)",
-    "prefill_calls": "calls (bucketed prefill launches)",
+    "prefill_calls": "calls (bucketed prefill launches, incl. chunked)",
+    "prefill_chunk_calls": "calls (length-bounded chunked-prefill launches)",
     "prefill_token_steps": "tokens (padded token-steps launched in prefill)",
     "prefill_real_tokens": "tokens (real prompt tokens prefilled)",
+    "prefix_hit_tokens": "tokens (prompt tokens served from the prefix "
+                         "cache instead of recomputed)",
+    "cow_copies": "pages (copy-on-write clones of prefix-shared pages)",
+    "shared_pages": "pages (pages currently held by >1 holder)",
+    "prefix_cached_pages": "pages (pages the prefix index currently pins)",
     "kv_pages_read": "pages (decode-attention pages actually walked)",
     "kv_pages_read_worst": "pages (max_blocks gather worst case)",
     "mean_occupancy": "ratio (active slot-steps / max_slots*steps)",
@@ -73,7 +88,10 @@ class Request:
     eos_id: Optional[int] = None
     out: List[int] = dataclasses.field(default_factory=list)
     peak_blocks: int = 0
-    prefilled: int = 0            # prompt tokens whose KV is in the pool
+    # prompt tokens whose KV is in the pool: the prefix-cache hit at
+    # admission, then advanced by each prefill chunk; the slot is
+    # decode-ready (non-empty `out`) once it reaches len(prompt)
+    prefilled: int = 0
 
     @property
     def next_pos(self) -> int:
@@ -83,9 +101,11 @@ class Request:
 class Scheduler:
     """Request queue + admission/eviction around the device steps.
 
-    prefill_fn(tokens (B,Sp), positions (B,Sp), block_tables (B,MB),
+    prefill_fn(tokens (B,Sp), positions (B,Sp), block_tables (B,TW),
                write_slots (B,Sp), write_pos (B,Sp), fresh (F,),
-               last_idx (B,)) -> last-token logits (B, V) on the device
+               copies (B,2), last_idx (B,)) -> last-token logits (B, V)
+               on the device; TW is max_blocks for monolithic prefill and
+               a length-bounded pow2 page count for chunked prefill
     decode_chunk_fn(tokens0 (M,1), tables (M,MB), positions (C,M,1),
                     write_slots (C,M,1), write_pos (C,M,1), fresh (C,F),
                     kv_lens (C,M), rids (M,), start_steps (M,),
@@ -100,6 +120,12 @@ class Scheduler:
             -> host (out (spec_rounds*(spec_k+1), M), e_rounds (spec_rounds, M)),
             `spec_rounds` draft-`spec_k`/verify rounds; `spec_window` is the
             draft's attention window cap (0 = none), for the accounting.
+
+    `prefill_chunk` switches prefill to chunked mode: each round advances
+    every mid-prefill slot by at most that many prompt tokens in one
+    length-bounded launch, then runs a decode round for the slots that
+    already sampled their first token, so a long prompt admits at once and
+    interleaves with decode instead of stalling it.
     """
 
     def __init__(
@@ -118,9 +144,12 @@ class Scheduler:
         spec_k: int = 0,
         spec_rounds: int = 0,
         spec_window: int = 0,
+        prefill_chunk: Optional[int] = None,
     ):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if spec_fn is not None and (spec_k < 1 or spec_rounds < 1):
             raise ValueError(
                 f"spec_fn requires spec_k >= 1 and spec_rounds >= 1, got "
@@ -140,6 +169,7 @@ class Scheduler:
         self.spec_k = spec_k
         self.spec_rounds = spec_rounds
         self.spec_window = spec_window
+        self.prefill_chunk = prefill_chunk
         self.queue: collections.deque = collections.deque()
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.results: Dict[int, np.ndarray] = {}
@@ -150,8 +180,8 @@ class Scheduler:
             "decode_steps": 0, "decode_chunks": 0, "host_syncs": 0,
             "active_slot_steps": 0,
             "paged_block_steps": 0, "dense_block_steps": 0, "peak_blocks": 0,
-            "prefill_calls": 0, "prefill_token_steps": 0,
-            "prefill_real_tokens": 0, "kv_pages_read": 0,
+            "prefill_calls": 0, "prefill_chunk_calls": 0,
+            "prefill_token_steps": 0, "prefill_real_tokens": 0, "kv_pages_read": 0,
             "kv_pages_read_worst": 0, "draft_tokens": 0, "verify_calls": 0,
         }
 
@@ -196,6 +226,8 @@ class Scheduler:
     # ------------------------------------------------------------------
     def step(self) -> None:
         self._admit()
+        if self.prefill_chunk is not None:
+            self._prefill_pending()
         self._decode_active()
 
     def _kv_len(self, r: Request) -> int:
@@ -209,14 +241,14 @@ class Scheduler:
             if not self.queue:
                 break
             r = self.queue[0]
-            if not self.cache.can_admit(self._kv_len(r)):
+            if not self.cache.can_admit(self._kv_len(r), r.prompt):
                 break  # FIFO: don't let short requests starve the head
             self.queue.popleft()
-            r.prefilled = self.cache.admit(r.rid, self._kv_len(r))
+            r.prefilled = self.cache.admit(r.rid, self._kv_len(r), prompt=r.prompt)
             self.slots[slot] = r
             admitted.append((slot, r))
-        if not admitted:
-            return
+        if not admitted or self.prefill_chunk is not None:
+            return  # chunked mode prefills in _prefill_pending
         rows = [
             (slot, r, r.prefilled, len(r.prompt) - r.prefilled)
             for slot, r in admitted
@@ -230,18 +262,53 @@ class Scheduler:
             if self._finished(r):
                 self._evict(slot)
 
-    def _prefill_rows(self, rows: List[tuple], bucketed: bool = True) -> None:
+    def _prefill_pending(self) -> None:
+        """Chunked prefill: advance every mid-prefill slot by at most
+        `prefill_chunk` prompt tokens in one length-bounded launch. A slot
+        whose last chunk completes samples its first output token and joins
+        the next decode round; until then decode skips it (empty `out`).
+        The span cap is the fixed `prefill_chunk`: the reference's RoofLens
+        sizing under an SLA budget and its `prefill_shrink` rung wait for
+        ROADMAP Queue A items 7 and 8."""
+        pending = [
+            (i, r) for i, r in enumerate(self.slots)
+            if r is not None and r.prefilled < len(r.prompt)
+        ]
+        if not pending:
+            return
+        rows = [
+            (i, r, r.prefilled, min(self.prefill_chunk, len(r.prompt) - r.prefilled))
+            for i, r in pending
+        ]
+        self._prefill_rows(rows, bounded=True)
+        for i, r in pending:
+            if r.out and self._finished(r):
+                self._evict(i)
+
+    def _prefill_rows(self, rows: List[tuple], bucketed: bool = True,
+                      bounded: bool = False) -> None:
         """One prefill launch over `rows` of (slot, request, start, n): each
-        row writes prompt tokens [start, start + n) at their positions and
-        samples its first output token. The batch pads to a power of two
-        (<= max_slots) and the span to the round's max page count; padding
-        rows write to the null page under the empty-position sentinel."""
+        row writes prompt tokens [start, start + n) at their positions.
+        Monolithic admission passes start = the prefix-cache hit and n = the
+        rest of the prompt; chunked mode passes chunks. The batch pads to a
+        power of two (<= max_slots) and the span to the round's max page
+        count; padding rows write to the null page under the empty-position
+        sentinel. `bounded` (chunked prefill) narrows the block table to
+        the pow2-rounded page count of the round's furthest row, so the
+        gather reads the written prefix, not max_blocks.
+
+        Only rows that reach the end of their prompt sample a token (the
+        first output); the round's copy-on-write clones ride the launch,
+        and finished prompts enter the prefix index after their sample."""
         bs = self.cache.block_size
         nrows = len(rows)
         pages = max(math.ceil(n / bs) for _, _, _, n in rows)
         b = min(_pow2ceil(nrows), self.max_slots) if bucketed else nrows
         sp = pages * bs
         tw = self.max_blocks
+        if bounded:
+            tw = min(_pow2ceil(max(math.ceil((start + n) / bs)
+                                   for _, _, start, n in rows)), self.max_blocks)
 
         tokens = np.zeros((b, sp), np.int32)
         positions = np.broadcast_to(np.arange(sp, dtype=np.int32), (b, sp)).copy()
@@ -253,6 +320,7 @@ class Scheduler:
         last_idx = np.zeros(b, np.int32)
         rids = np.full(b, -1, np.int64)  # padding rows: the unused uint32 id
         steps0 = np.zeros(b, np.int64)
+        completing: List[tuple] = []  # (row, request) sampling their 1st token
         for row, (slot, r, start, n) in enumerate(rows):
             tokens[row, :n] = r.prompt[start:start + n]
             positions[row] = start + positions[row]
@@ -260,9 +328,12 @@ class Scheduler:
             write_slots[row, :n] = self.cache.write_slots(r.rid, start, n)
             tables[row] = self.cache.block_table_row(r.rid, tw)
             r.prefilled = start + n
-            last_idx[row] = n - 1
-            rids[row] = r.rid
-            steps0[row] = len(r.out)  # the request's first output index
+            if r.prefilled >= len(r.prompt):
+                last_idx[row] = n - 1
+                rids[row] = r.rid
+                steps0[row] = len(r.out)  # the request's first output index
+                completing.append((row, r))
+        copies = self.cache.drain_copies(b)
         fresh_rows = self.cache.drain_fresh_rows(b * pages)
         for extra in fresh_rows[1:]:
             # more recycled pages than the launch's fresh vector carries:
@@ -270,16 +341,20 @@ class Scheduler:
             self._scrub(extra)
         logits = self._prefill(
             tokens, positions, tables, write_slots, write_pos, fresh_rows[0],
-            last_idx,
+            copies, last_idx,
         )
         toks = self._sample(logits, rids, steps0)  # the round's device->host sync
-        for row, (slot, r, start, n) in enumerate(rows):
+        for row, r in completing:
             r.out.append(int(toks[row]))
+            self.cache.prefix_insert(r.rid, r.prompt)
+        for slot, r, start, n in rows:
             r.peak_blocks = max(r.peak_blocks, self.cache.blocks_held(r.rid))
 
         st = self._stats
         st["prefill_calls"] += 1
         st["host_syncs"] += 1
+        if bounded:
+            st["prefill_chunk_calls"] += 1
         st["prefill_token_steps"] += b * sp
         st["prefill_real_tokens"] += sum(n for _, _, _, n in rows)
 
@@ -289,10 +364,18 @@ class Scheduler:
     def _decode_active(self) -> None:
         """Precompute a chunk's slot/position advancement, run it on the
         device, then replay the sampled tokens against host request state
-        (the replay only decides how many of the C tokens each slot keeps)."""
-        active = [(i, r) for i, r in enumerate(self.slots) if r is not None]
+        (the replay only decides how many of the C tokens each slot keeps).
+        A slot is decode-ready once prefill sampled its first token:
+        mid-prefill slots (chunked mode, empty `out`) sit the round out as
+        inactive slots."""
+        active = [(i, r) for i, r in enumerate(self.slots) if r is not None and r.out]
         if not active:
             return
+        # CoW clones arise only from prefix-hit prompt recomputes, and the
+        # prefill launch that made them drains them: decode writing into a
+        # shared page would mean the admission plan is wrong. Nothing is
+        # ever copied inside a captured decode graph.
+        assert self.cache.pending_copies == 0, "unflushed CoW copies at decode"
         if self._spec is not None:
             self._decode_active_spec(active)
             return
@@ -544,4 +627,11 @@ class Scheduler:
             st["active_slot_steps"] / st["verify_calls"]
             if st["verify_calls"] else 0.0
         )
+        # prefix sharing: hit tokens and CoW clones are lifetime counters of
+        # the cache; shared and cached pages are occupancy now
+        occ = self.cache.occupancy()
+        st["prefix_hit_tokens"] = self.cache.prefix_hit_tokens
+        st["cow_copies"] = self.cache.cow_copies
+        st["shared_pages"] = occ["shared"]
+        st["prefix_cached_pages"] = occ["cached"]
         return st

@@ -53,11 +53,10 @@ def _record(eng, port: bool):
     prefill, chunk = sched._prefill, sched._decode_chunk
 
     def on_prefill(*a):
-        # common arguments: tokens, positions, tables, slots, wpos, fresh,
-        # last_idx (the reference also passes its copy-on-write rows)
-        args = a if port else a[:6] + a[7:]
+        # tokens, positions, tables, slots, wpos, fresh, copy-on-write
+        # rows, last_idx: the same arguments in both packages
         log.append(("prefill", [r.rid if r else -1 for r in sched.slots],
-                    [np.array(x) for x in args]))
+                    [np.array(x) for x in a]))
         return prefill(*a)
 
     def on_chunk(*a):

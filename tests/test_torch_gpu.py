@@ -543,7 +543,7 @@ def test_sampler_on_the_card_is_the_cpu_sampler(card):
     logits = torch.from_numpy((rng.standard_normal((n, v)) * 3).astype(np.float32))
     rids = torch.from_numpy(rng.integers(0, 1000, n))
     steps = torch.from_numpy(rng.integers(0, 5000, n))
-    keys = sampling.fold_in(sampling.fold_in(sampling.prng_key(4).expand(n, 2), rids), steps)
+    keys = sampling.fold_in(sampling.fold_in(sampling.prng_key(4, "cpu").expand(n, 2), rids), steps)
     assert torch.equal(sampling.random_bits(keys.to(card), v).cpu(),
                        sampling.random_bits(keys, v))
     assert torch.equal(sampling.uniform(keys.to(card), v).cpu(), sampling.uniform(keys, v))
@@ -552,7 +552,7 @@ def test_sampler_on_the_card_is_the_cpu_sampler(card):
     ulp = torch.nextafter(scale, torch.tensor(float("inf"))) - scale
     assert bool(((g_card - g_cpu).abs() <= 2 * ulp).all())
     t = torch.tensor(temp)
-    want = sampling.sample_rows_keyed(sampling.prng_key(4), rids, steps, logits, t)
+    want = sampling.sample_rows_keyed(sampling.prng_key(4, "cpu"), rids, steps, logits, t)
     got = sampling.sample_rows_keyed(sampling.prng_key(4, card), rids.to(card),
                                      steps.to(card), logits.to(card), t.to(card)).cpu()
     s = g_cpu + logits / t
@@ -609,3 +609,123 @@ def test_a_failed_capture_raises(card):
         steps([np.arange(4, dtype=np.int32)])
     assert steps.graphs == {}
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the prefix cache, copy-on-write clones and chunked prefill on the card
+# ---------------------------------------------------------------------------
+
+def _within_logit_tolerance(model, params, prompts, outs, card):
+    """Every emitted token's teacher-forced logit within 5e-2 of the
+    position's scale of its largest (PERF.md section 2)."""
+    for p, out in zip(prompts, outs):
+        seq = torch.as_tensor(np.concatenate([p, out[:-1]]), device=card)
+        rows = model.score(params, seq, block_size=8)[len(p) - 1:]
+        picked = rows.gather(1, torch.as_tensor(out, device=card).long()[:, None])[:, 0]
+        if float((rows.max(dim=1).values - picked).max()) > 5e-2 * float(rows.abs().max()):
+            return False
+    return True
+
+
+def _shared_prompts(vocab, seed=3):
+    """Two system prompts (19 tokens, and 16 = two whole pages) with mixed
+    tails; the page-aligned one comes back verbatim last (a clone)."""
+    rng = np.random.default_rng(seed)
+    a, b = rng.integers(1, vocab, 19).tolist(), rng.integers(1, vocab, 16).tolist()
+    t = [rng.integers(1, vocab, k).tolist() for k in (3, 9, 1, 5, 13)]
+    return [np.asarray(p, np.int32) for p in
+            (a + t[0], a + t[1], b, b + t[2], a + t[3], b + t[4], a, b)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+def test_cow_never_mutates_shared_pages_on_the_card(card, kind):
+    """A verbatim re-submission of a page-aligned donor recomputes its last
+    token (a one-token prefill: the GeMV) into a clone made on the card;
+    every plane of the donor's cached pages is bitwise what it was."""
+    model, params = _smoke(card)
+    rng = np.random.default_rng(5)
+    donor = rng.integers(1, 256, 16).astype(np.int32)
+    eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=1,
+                           num_blocks=24, decode_chunk=2, kv_quant=kind, device=card,
+                           prefix_cache=True)
+    eng.submit(donor, max_new_tokens=3)
+    eng.run_until_drained()
+    dev = torch.as_tensor([p + 1 for p in eng.kv.prefix.lookup(donor)], device=card)
+    assert len(dev) == 2
+    before = [{n: t[dev].clone() for n, t in layer.items()} for layer in eng.kv.pools]
+    gemv = deca_gemm.decompress_gemv.launches
+    rid = eng.submit(donor.copy(), max_new_tokens=3)
+    out = eng.run_until_drained()[rid]
+    st = eng.scheduler.stats()
+    assert st["prefix_hit_tokens"] == 15 and st["cow_copies"] == 1
+    assert deca_gemm.decompress_gemv.launches > gemv
+    for layer, old in zip(eng.kv.pools, before):
+        for name, t in layer.items():
+            assert torch.equal(t[dev], old[name]), name
+    assert _within_logit_tolerance(eng.model, params, [donor], [out], card)
+
+
+@pytest.mark.gpu
+def test_chunked_prefill_interleaves_with_replayed_decode_graphs(card):
+    """A long prompt that arrives while two requests decode prefills in
+    chunks between their replayed decode chunks: no decode graph is
+    captured while it does (mid-prefill slots ride as inactive slots), and
+    every token, chunked or not, is within the logit tolerance."""
+    model, params = _smoke(card)
+    rng = np.random.default_rng(6)
+    residents = [rng.integers(0, 256, 11).astype(np.int32) for _ in range(2)]
+    long = rng.integers(0, 256, 40).astype(np.int32)
+    outs = {}
+    for chunk in (None, 8):
+        eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=3,
+                               decode_chunk=4, kv_quant="int8", device=card,
+                               prefill_chunk=chunk)
+        sched, calls = eng.scheduler, []
+        prefill, decode = sched._prefill, sched._decode_chunk
+        sched._prefill = lambda *a: (calls.append("P"), prefill(*a))[1]
+        sched._decode_chunk = lambda *a: (calls.append("D"), decode(*a))[1]
+        rids = [eng.submit(p, max_new_tokens=24) for p in residents]
+        while sched.stats()["decode_chunks"] < 2:
+            sched.step()
+        graphs = len(eng._chunk_graphs.graphs)
+        rids.append(eng.submit(long, max_new_tokens=4))
+        req = sched.queue[-1]
+        start = len(calls)
+        while not req.out:
+            sched.step()
+        if chunk is not None:
+            assert len(eng._chunk_graphs.graphs) == graphs == 1
+            assert calls[start:].count("P") == 5 and "P" in calls[start:][-2:]
+            assert calls[start:].index("D") < len(calls[start:]) - 2  # interleaved
+        done = eng.run_until_drained()
+        outs[chunk] = [done[r] for r in rids]
+        assert len(eng._chunk_graphs.graphs) <= 4
+    st = sched.stats()
+    assert st["prefill_chunk_calls"] == 7  # 2 residents, then 5 chunks of the long one
+    for out in outs.values():
+        assert _within_logit_tolerance(model, params, residents + [long], out, card)
+
+
+@pytest.mark.gpu
+def test_prefix_cache_on_the_card_keeps_tokens_within_logit_tolerance(card):
+    """Shared and cold prefills run the matmuls at other M (GeMV or GeMM)
+    and so sum in other orders: tokens with the cache on and off are held
+    against teacher-forced logits, and the shared pages are used."""
+    model, params = _smoke(card)
+    prompts = _shared_prompts(256)
+    for kw in ({}, {"prefix_cache": True}, {"prefix_cache": True, "prefill_chunk": 5}):
+        eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                               num_blocks=24, decode_chunk=4, kv_quant="int8", device=card,
+                               **kw)
+        rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        done = eng.run_until_drained()
+        outs = [done[r] for r in rids]
+        assert all(len(o) == 4 for o in outs)
+        assert _within_logit_tolerance(eng.model, params, prompts, outs, card)
+        st, occ = eng.scheduler.stats(), eng.kv.occupancy()
+        if kw:
+            assert st["prefix_hit_tokens"] > 0 and st["cow_copies"] >= 1
+            assert occ["used"] == occ["cached"] > 0
+        else:
+            assert occ["used"] == 0

@@ -130,7 +130,7 @@ def _run_both(kind, jparams):
     )
     tlogits, tpools = make_paged_prefill_step(tm)(
         tparams, T(tokens), T(pos), tpools, T(tables), T(slots), T(wpos),
-        T(fresh), T(lens - 1),
+        T(fresh), torch.zeros((2, 2), dtype=torch.int32), T(lens - 1),
     )
     jl = np.asarray(jlogits, np.float32)
     yield "prefill", jl, tlogits.numpy(), jpools, tpools

@@ -79,7 +79,7 @@ def test_prng_key_and_fold_in_are_bitwise_jax(seed):
     """Keys of seeds 0, 1 and 2^32 - 1, folded with request ids (-1 as
     uint32 too) and every output index from 0 to 2^16."""
     jkey = jax.random.PRNGKey(seed)
-    tkey = sampling.prng_key(seed)
+    tkey = sampling.prng_key(seed, "cpu")
     assert np.array_equal(tkey.numpy().astype(np.uint32), np.asarray(jax.random.key_data(jkey)))
     steps = np.arange(2**16 + 1, dtype=np.uint32)
     fold = jax.jit(jax.vmap(lambda k, d: jax.random.key_data(jax.random.fold_in(k, d)),
@@ -96,11 +96,22 @@ def test_prng_key_and_fold_in_are_bitwise_jax(seed):
     assert torch.equal(minus, sampling.fold_in(tkey, torch.tensor(2**32 - 1)))
 
 
+def test_prng_key_defaults_to_the_card():
+    """`prng_key` is an entry point: without a device it makes its key on
+    the card, and with no card it raises instead of giving a CPU key."""
+    if torch.cuda.is_available():
+        assert sampling.prng_key(3).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        sampling.prng_key(3)
+    assert sampling.prng_key(3, "cpu").device.type == "cpu"
+
+
 @pytest.mark.parametrize("shape", [(1,), (4, 257), (4, 128256)])
 @pytest.mark.parametrize("seed", SEEDS)
 def test_random_bits_and_uniform_are_bitwise_jax(seed, shape):
     jkey = jax.random.fold_in(jax.random.PRNGKey(seed), np.uint32(3))
-    tkey = sampling.fold_in(sampling.prng_key(seed), torch.tensor(3))
+    tkey = sampling.fold_in(sampling.prng_key(seed, "cpu"), torch.tensor(3))
     n = int(np.prod(shape))
     bits = sampling.random_bits(tkey, n).numpy().reshape(shape)
     assert np.array_equal(_u32(bits), np.asarray(jax.random.bits(jkey, shape)))
@@ -116,7 +127,7 @@ def test_gumbel_within_two_ulp_of_jax(seed):
     """Not bitwise (see the module docstring): within 2 ulp at the scale
     max(|g|, 1), over half a million draws."""
     jkey = jax.random.PRNGKey(seed)
-    tkey = sampling.prng_key(seed)
+    tkey = sampling.prng_key(seed, "cpu")
     n = 4 * 128256
     want = np.asarray(jax.random.gumbel(jkey, (n,), jnp.float32))
     got = sampling.gumbel(tkey, n).numpy()
@@ -164,7 +175,7 @@ def test_sample_rows_keyed_matches_reference(vocab, temp):
     want = np.asarray(jsample_rows_keyed(key, jnp.asarray(rids, jnp.uint32),
                                          jnp.asarray(steps, jnp.uint32),
                                          jnp.asarray(logits), jnp.float32(temp)))
-    got = sampling.sample_rows_keyed(sampling.prng_key(11), torch.from_numpy(rids),
+    got = sampling.sample_rows_keyed(sampling.prng_key(11, "cpu"), torch.from_numpy(rids),
                                      torch.from_numpy(steps), torch.from_numpy(logits),
                                      torch.tensor(temp, dtype=torch.float32))
     assert got.dtype == torch.int32 and got.shape == (n,)

@@ -218,7 +218,7 @@ def _spec_round_both(kind, jparams, *, eos, window):
     )
     _, tpools = make_paged_prefill_step(tm)(
         tparams, T(tokens), T(pos), tpools, T(ptables), T(slots), T(wpos), T(pfresh),
-        T(lens - 1),
+        torch.zeros((2, 2), dtype=torch.int32), T(lens - 1),
     )
     c = _chunk_inputs()
     eos = np.asarray(eos, np.int32)

@@ -56,8 +56,9 @@ def _setup(torch):
         tables = torch.arange(1, pages + 1, dtype=torch.int32, device="cuda")[None]
         fresh = tables[0].clone()
         last = torch.tensor([PROMPT - 1], device="cuda")
+        no_copy = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
         make_paged_prefill_step(model)(params, tokens, pos, pools, tables, pos + bs, pos,
-                                       fresh, last)
+                                       fresh, no_copy, last)
 
     return params, prefill
 
