@@ -36,11 +36,22 @@ requests decode, prefilled whole and in 256-token chunks (the worst gap
 between decode chunks, the long request's time to first token, no decode
 graph captured meanwhile). Each new phase sets the launch counts to 0
 before it, reads them after, and holds every token against teacher-forced
-logits.
+logits. The last phase, `observed_serve`, installs `Observability.default()`
+(metrics, tracer, RoofLens on the H100 profile) on the serving path: the
+plain serve's traffic again, whose tokens, host syncs and launch counts
+must equal the plain serve's (and its replayed decode step prints beside
+it); a warm second serve whose RoofLens error and fitted scale per regime
+print against the expected scales; the tracer's TTFT / ITL percentiles and
+Chrome traces (chiprun_out/obs_trace*.json); an observed spec serve (draft
+and verify regimes); and chunked_prefill's arrival with its chunk span
+sized by RoofLens under a `prefill_sla_s` budget. The kernel bounds take
+their rates from the same H100 profile (`core/roofsurface.py`), whose
+Roof-Surface lines print as an analytic line at the start.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -52,8 +63,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
-BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
+# H100 SXM device memory bytes/s and dense bf16 tensor-core FLOP/s: set by
+# main() from the port's roofsurface.H100_SXM, which RoofLens prices with
+HBM_BYTES_PER_S = BF16_FLOP_PER_S = None
+H100_NAME = "NVIDIA H100 80GB HBM3"  # the card H100_SXM describes
 # llama3-8b FC shapes (K, N) and their role
 FC_SHAPES = [(4096, 4096, "q/o"), (4096, 1024, "k/v"), (4096, 14336, "gate/up"),
              (14336, 4096, "down"), (4096, 128256, "lm_head")]
@@ -781,7 +794,7 @@ def serve_spec(torch, model, params, prompts, plain_outs, report):
                       "graphs": graph_costs(eng._spec_graphs, launches_, "spec round")}
     check_replays(torch, eng, eng._spec_graphs, "spec launch", report, limit=1)
     profile_replays(torch, eng._spec_graphs, "spec launch", report)
-    return eng, launches
+    return eng, launches, outs
 
 
 def temperature_check(torch, model, params, prompts, outs, temp, seed, rids):
@@ -1073,6 +1086,83 @@ def prefix_serve(torch, model, params, report, new=64):
     report["prefix_serve"] = {"prompt_lens": [len(p) for p in prompts], "same": same, **res}
 
 
+def arrival_inputs(torch, model):
+    """chunked_prefill's traffic: three resident prompts of 64-256 tokens
+    and a 1536-token prompt that arrives while they decode."""
+    v = model.cfg.vocab_size
+    g = torch.Generator().manual_seed(8)
+    residents = [torch.randint(0, v, (int(n),), generator=g).numpy()
+                 for n in torch.randint(64, 257, (3,), generator=g)]
+    long = torch.randint(0, v, (1536,), generator=g).numpy()
+    return residents, long
+
+
+def arrival(torch, model, params, residents, long, **engine_kw):
+    """One arrival run: the residents (192 new tokens each) decode; after
+    their second decode chunk the long prompt (64 new tokens) arrives. The
+    wall gap between consecutive decode chunks of the residents, each
+    prefill call's wall and shape, the long request's time to its first
+    token, the launches of the run (counts set to 0 before it) and the
+    decode graphs captured before the arrival, at its first token and at
+    the end. Returns (run, outs, engine)."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8, **engine_kw)
+    sched = eng.scheduler
+    ends, prefills = [], []
+    inner_chunk, inner_prefill = sched._decode_chunk, sched._prefill
+
+    def decode(*a):
+        out = inner_chunk(*a)
+        torch.cuda.synchronize()
+        ends.append((time.perf_counter(), bool(a[11][:3].all())))
+        return out
+
+    def prefill(*a):
+        t = time.perf_counter()
+        out = inner_prefill(*a)
+        torch.cuda.synchronize()
+        prefills.append({"wall_s": time.perf_counter() - t, "rows": a[0].shape[0],
+                         "span": a[0].shape[1], "table": a[2].shape[1]})
+        return out
+
+    sched._decode_chunk, sched._prefill = decode, prefill
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, max_new_tokens=192) for p in residents]
+    while sched.stats()["decode_chunks"] < 2:
+        sched.step()
+    graphs = len(eng._chunk_graphs.graphs)
+    t_arrive = time.perf_counter()
+    rids.append(eng.submit(long, max_new_tokens=64))
+    req = sched.queue[-1]
+    while not req.out:
+        sched.step()
+    ttft = time.perf_counter() - t_arrive
+    graphs_at_first = len(eng._chunk_graphs.graphs)
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    outs = [done[r] for r in rids]
+    st = sched.stats()
+    live = [t for t, residents_on in ends if residents_on]
+    gaps = [b - a for a, b in zip(live, live[1:])]
+    run = {"wall_s": wall, "ttft_s": ttft, "worst_gap_s": max(gaps),
+           "median_gap_s": sorted(gaps)[len(gaps) // 2], "gaps_s": gaps,
+           "prefills": prefills, "launches": launches, "stats": st,
+           "graphs_before": graphs, "graphs_at_first_token": graphs_at_first,
+           "graphs": len(eng._chunk_graphs.graphs), "tokens": sum(map(len, outs))}
+    idle = [k for k, n in launches.items() if n == 0 and k != "deca_decompress"]
+    if idle:
+        raise AssertionError(f"kernels never launched on the arrival path: {idle}")
+    if run["graphs"] > 4:
+        raise AssertionError("more than four decode graphs")
+    return run, outs, eng
+
+
 def chunked_prefill(torch, model, params, report, chunk=256):
     """Chunked prefill at full width: three requests (prompts of 64-256
     tokens, 192 new tokens) decode; after their second decode chunk a
@@ -1083,89 +1173,312 @@ def chunked_prefill(torch, model, params, report, chunk=256):
     time to its first token. Every token of both runs is held against
     teacher-forced logits, and the chunked run captures no decode graph
     while the long prompt prefills."""
-    from repro_torch.serve.engine import GenerationEngine
-
-    v = model.cfg.vocab_size
-    g = torch.Generator().manual_seed(8)
-    residents = [torch.randint(0, v, (int(n),), generator=g).numpy()
-                 for n in torch.randint(64, 257, (3,), generator=g)]
-    long = torch.randint(0, v, (1536,), generator=g).numpy()
+    residents, long = arrival_inputs(torch, model)
     res = {}
     for name, pc in (("whole", None), ("chunked", chunk)):
-        eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
-                               max_len=2048, decode_chunk=8, prefill_chunk=pc)
-        sched = eng.scheduler
-        ends, prefills = [], []
-        inner_chunk, inner_prefill = sched._decode_chunk, sched._prefill
-
-        def decode(*a):
-            out = inner_chunk(*a)
-            torch.cuda.synchronize()
-            ends.append((time.perf_counter(), bool(a[11][:3].all())))
-            return out
-
-        def prefill(*a):
-            t = time.perf_counter()
-            out = inner_prefill(*a)
-            torch.cuda.synchronize()
-            prefills.append({"wall_s": time.perf_counter() - t, "rows": a[0].shape[0],
-                             "span": a[0].shape[1], "table": a[2].shape[1]})
-            return out
-
-        sched._decode_chunk, sched._prefill = decode, prefill
-        for fn in counters().values():
-            fn.launches = 0
-        t0 = time.perf_counter()
-        rids = [eng.submit(p, max_new_tokens=192) for p in residents]
-        while sched.stats()["decode_chunks"] < 2:
-            sched.step()
-        graphs = len(eng._chunk_graphs.graphs)
-        t_arrive = time.perf_counter()
-        rids.append(eng.submit(long, max_new_tokens=64))
-        req = sched.queue[-1]
-        while not req.out:
-            sched.step()
-        ttft = time.perf_counter() - t_arrive
-        graphs_at_first = len(eng._chunk_graphs.graphs)
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters().items()}
-        outs = [done[r] for r in rids]
-        st = sched.stats()
-        live = [t for t, residents_on in ends if residents_on]
-        gaps = [b - a for a, b in zip(live, live[1:])]
+        run, outs, eng = arrival(torch, model, params, residents, long, prefill_chunk=pc)
+        st, gaps = run["stats"], run["gaps_s"]
         calls = ", ".join(f"{c['rows']}x{c['span']} {1e3 * c['wall_s']:.1f} ms"
-                          for c in prefills)
-        run = {"wall_s": wall, "ttft_s": ttft, "worst_gap_s": max(gaps), "gaps_s": gaps,
-               "prefills": prefills, "launches": launches, "stats": st,
-               "graphs_before": graphs, "graphs_at_first_token": graphs_at_first,
-               "graphs": len(eng._chunk_graphs.graphs)}
+                          for c in run["prefills"])
         log(f"chunked_prefill {name} (prefill_chunk={pc}): long request's first token "
-            f"{1e3 * ttft:.1f} ms after it arrived; worst gap between two decode chunks of "
-            f"the residents {1e3 * max(gaps):.1f} ms (median "
-            f"{1e3 * sorted(gaps)[len(gaps) // 2]:.1f}); prefill_chunk_calls "
+            f"{1e3 * run['ttft_s']:.1f} ms after it arrived; worst gap between two decode "
+            f"chunks of the residents {1e3 * max(gaps):.1f} ms (median "
+            f"{1e3 * run['median_gap_s']:.1f}); prefill_chunk_calls "
             f"{st['prefill_chunk_calls']}; prefill calls (rows x span) {calls}; "
-            f"decode graphs {graphs} before the arrival, {graphs_at_first} at its first "
-            f"token, {run['graphs']} at the end; {sum(map(len, outs))} tokens in {wall:.2f} s; "
-            f"launches {launches}")
-        idle = [k for k, n in launches.items() if n == 0 and k != "deca_decompress"]
-        if idle:
-            raise AssertionError(f"kernels never launched on the chunked-prefill path: {idle}")
+            f"decode graphs {run['graphs_before']} before the arrival, "
+            f"{run['graphs_at_first_token']} at its first token, {run['graphs']} at the end; "
+            f"{run['tokens']} tokens in {run['wall_s']:.2f} s; launches {run['launches']}")
         if pc is not None:
             if st["prefill_chunk_calls"] == 0:
                 raise AssertionError("no chunked prefill launch")
-            if graphs_at_first != graphs:
+            if run["graphs_at_first_token"] != run["graphs_before"]:
                 raise AssertionError("a decode graph was captured while the long prompt "
                                      "prefilled in chunks")
-        if run["graphs"] > 4:
-            raise AssertionError("more than four decode graphs")
         teacher_forced(torch, eng.model, params, residents + [long], outs, report,
                        key=f"teacher_forced_{name}_prefill")
         res[name] = run
-        del eng, sched
+        del eng
         torch.cuda.empty_cache()
     report["chunked_prefill"] = {"chunk": chunk, **res}
+
+
+#: Calibrated RoofLens scale (measured wall / raw roofline time) expected
+#: per regime: the raw H100 predictions of the plain serve's traffic
+#: against the walls PERF.md records (PR 17 call 3, PR 18 call 1)
+EXPECTED_SCALE = {"decode": (7.0, 9.0), "prefill": (14.0, 18.0), "prefill_chunk": (19.0, 28.0)}
+#: observed_serve's chunked-prefill budget: a prefill launch may stall the
+#: residents' token stream by three quarters of a replayed decode chunk
+PREFILL_SLA_S = 0.075
+
+
+def serve_traffic(torch, eng, prompts):
+    """The plain serve's traffic through `eng`: `prompts` x 64 new tokens,
+    submitted at once and drained. Tokens, wall, launches (counts set to 0
+    before the drain), host syncs, and replayed decode ms a device step
+    (each chunk timed by `chunk_timer`, as in the plain serve)."""
+    sched = eng.scheduler
+    chunks, inner = [], sched._decode_chunk
+    sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, inner, chunks)
+    syncs0 = sched.stats()["host_syncs"]
+    rids = [eng.submit(p, max_new_tokens=64) for p in prompts]
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sched._decode_chunk = inner
+    later = [c for c in chunks if not c["captured"]]
+    return [done[r] for r in rids], {
+        "wall_s": wall, "launches": {k: fn.launches for k, fn in counters().items()},
+        "host_syncs": sched.stats()["host_syncs"] - syncs0,
+        "replayed_ms_per_device_step": 1e3 * sum(c["wall_s"] for c in later)
+        / max(1, sum(c["steps"] for c in later)), "chunks": chunks}
+
+
+def capture_checked_clock(torch):
+    """The observability clock, refusing to be read inside a graph capture."""
+    def clock():
+        if torch.cuda.is_current_stream_capturing():
+            raise AssertionError("an observability site ran inside a CUDA graph capture")
+        return time.perf_counter()
+    return clock
+
+
+def lens_report(lens, what, scale=None) -> dict:
+    """Log RoofLens's error report (measured over predicted, current scales)
+    for every regime and codec key, and the fitted scales; check that
+    every sample is finite and positive."""
+    bad = [s for s in lens.samples
+           if not (math.isfinite(s.raw_pred_s) and s.raw_pred_s > 0
+                   and math.isfinite(s.measured_s) and s.measured_s > 0)]
+    if bad:
+        raise AssertionError(f"RoofLens samples not finite and positive: {bad[:4]}")
+    rep = lens.error_report()
+    for key, r in rep.items():
+        log(f"  rooflens {what} {key}: n {r['n']}, measured/predicted geomean "
+            f"{r['geomean_ratio']:.3f}, p50 {r['p50_ratio']:.3f}, p90 {r['p90_ratio']:.3f}, "
+            f"worst |log2| {r['max_abs_log2']:.3f}")
+    if scale is not None:
+        def one(k, v):
+            if k not in EXPECTED_SCALE:
+                return f"{k} {v:.2f}"
+            lo, hi = EXPECTED_SCALE[k]
+            return f"{k} {v:.2f} (expected {lo:g}-{hi:g}{'' if lo <= v <= hi else ', outside'})"
+
+        log(f"  rooflens {what} fitted scale (measured / raw roofline, median): "
+            + ", ".join(one(k, v) for k, v in sorted(scale.items())))
+    return {"error_report": rep, "scale": scale}
+
+
+def observed_serve(torch, model, params, prompts, plain, spec_outs, report):
+    """The serving path with `Observability.default()` installed.
+
+    (a) the plain serve's traffic on a fresh engine: tokens, host syncs and
+    every kernel's launches must equal the plain serve's; replayed decode
+    ms a step beside the plain serve's; the host cost of the decode site.
+    (b) RoofLens warm-then-measure: calibrate on (a), serve again on the
+    same engine, report the error per regime and codec and the scales.
+    (c) the tracer's TTFT / ITL percentiles; Chrome traces to chiprun_out/.
+    (a') a control serve of the same traffic without observability on a
+    fresh engine, so the decode walls with and without it alternate.
+    (d) a spec serve with observability: draft and verify samples.
+    (e) chunked_prefill's arrival with prefill_chunk=256 and the budget
+    PREFILL_SLA_S, on a lens calibrated by a warm run: each launch's span,
+    the worst and median gap between the residents' decode chunks, the
+    long request's first token. Every token is held against the plain
+    serve's or teacher-forced logits. The observability clock raises if it
+    is read inside a graph capture."""
+    from repro_torch.core import roofsurface as rs
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import GenerationEngine, SpecConfig
+
+    res = {}
+    obs = Observability.default(clock=capture_checked_clock(torch))
+    lens = obs.rooflens
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8, obs=obs)
+    sched = eng.scheduler
+    log(f"observed_serve: RoofLens on {lens.profile.name} (mbw {lens.profile.mbw:.3g} B/s, "
+        f"peak {lens.profile.peak_flops:.3g} FLOP/s, vos {lens.profile.vos:.4g} op/s) bound to "
+        f"{lens.weight_bytes / 1e9:.3f} GB of weights, {lens.weight_elems:.4g} dense elements "
+        f"({lens.codec_key}), {lens.m_slots} slots; raw predictions: decode step at kv "
+        f"600-900 {1e3 * lens._raw_decode([600.0, 700.0, 800.0, 900.0], 1):.3f} ms, prefill "
+        f"4 x 512 {1e3 * lens._raw_prefill(4, 512):.3f} ms, prefill chunk 1 x 256 at table "
+        f"1536 {1e3 * lens._raw_prefill_chunk(1, 256, 1536):.3f} ms")
+    site_s = []
+    inner_observe = sched._observe_decode
+
+    def observe(*a):
+        t = time.perf_counter()
+        inner_observe(*a)
+        site_s.append(time.perf_counter() - t)
+
+    sched._observe_decode = observe
+
+    # (a) the plain serve's traffic, observed
+    outs, first = serve_traffic(torch, eng, prompts)
+    same = sum(list(a) == list(b) for a, b in zip(outs, plain["outs"]))
+    site_us = 1e6 * sum(site_s) / max(1, len(site_s))
+    log(f"observed_serve (a): {sum(map(len, outs))} tokens in {first['wall_s']:.2f} s; tokens "
+        f"equal to the plain serve's on {same}/{len(outs)} requests; host_syncs "
+        f"{first['host_syncs']} (plain {plain['host_syncs']}, registry "
+        f"{obs.metrics.counter('serve.host_syncs', unit='calls').value}); launches "
+        f"{first['launches']} (plain {plain['launches']}); replayed decode "
+        f"{first['replayed_ms_per_device_step']:.2f} ms a step (plain "
+        f"{plain['replayed_ms_per_device_step']:.2f}); decode site "
+        f"{site_us:.1f} us of host time a chunk over {len(site_s)} chunks")
+    if same != len(outs):
+        raise AssertionError("observed tokens differ from the plain serve's")
+    if first["host_syncs"] != plain["host_syncs"] or obs.metrics.counter(
+            "serve.host_syncs", unit="calls").value != plain["host_syncs"]:
+        raise AssertionError("observability changed the host syncs")
+    if first["launches"] != plain["launches"]:
+        raise AssertionError("observability changed the kernels' launch counts")
+    summary1 = obs.tracer.summary()
+    obs.tracer.export_chrome_trace(str(OUT / "obs_trace_first.json"))
+
+    # (b) RoofLens, warm-then-measure
+    scale1 = lens.calibrate()
+    cold = lens_report(lens, "first serve (graph captures included)", scale1)
+    lens.reset_samples()
+    obs.tracer.reset()
+    site_s.clear()
+    outs2, second = serve_traffic(torch, eng, prompts)
+    same2 = sum(list(a) == list(b) for a, b in zip(outs2, outs))
+    log(f"observed_serve (b): warm serve on the same engine, {second['wall_s']:.2f} s, "
+        f"replayed decode {second['replayed_ms_per_device_step']:.2f} ms a step, tokens "
+        f"equal to (a)'s on {same2}/{len(outs)} requests; error against the first serve's "
+        f"scales:")
+    if same2 != len(outs):
+        teacher_forced(torch, eng.model, params, prompts, outs2, report,
+                       key="teacher_forced_observed_warm")
+    warm = lens_report(lens, "warm serve, first serve's scales")
+    scale2 = lens.calibrate()
+    warm["scale"] = scale2
+    lens_report(lens, "warm serve, refitted", scale2)
+    for regime in ("prefill", "decode"):
+        if regime not in scale2:
+            raise AssertionError(f"no RoofLens samples of regime {regime}")
+
+    # (c) the tracer
+    summary2 = obs.tracer.summary()
+    obs.tracer.export_chrome_trace(str(OUT / "obs_trace.json"))
+    for name, sm in (("first serve", summary1), ("warm serve", summary2)):
+        t, i = sm["ttft_s"], sm["itl_s"]
+        log(f"observed_serve (c) tracer, {name}: {sm['n_requests']} requests, "
+            f"{sm['n_tokens']} tokens; TTFT p50 {1e3 * t['p50']:.1f} ms, p90 "
+            f"{1e3 * t['p90']:.1f}, p99 {1e3 * t['p99']:.1f}, mean {1e3 * t['mean']:.1f}; ITL "
+            f"p50 {1e3 * i['p50']:.2f} ms, p90 {1e3 * i['p90']:.2f}, p99 {1e3 * i['p99']:.2f}, "
+            f"mean {1e3 * i['mean']:.2f} (chunked decode: the tokens of a chunk land together)")
+    log(f"  Chrome traces: chiprun_out/obs_trace_first.json, chiprun_out/obs_trace.json "
+        f"({len(obs.tracer.spans)} scheduler spans in the warm serve)")
+    del eng, sched
+    torch.cuda.empty_cache()
+
+    # (a') control: the same traffic on a fresh engine without observability,
+    # so that the decode walls with and without it alternate in this run
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8)
+    outs3, control = serve_traffic(torch, eng, prompts)
+    same3 = sum(list(a) == list(b) for a, b in zip(outs3, plain["outs"]))
+    log(f"observed_serve (a') control without observability on a fresh engine: replayed "
+        f"decode {control['replayed_ms_per_device_step']:.2f} ms a step; in turns: plain "
+        f"{plain['replayed_ms_per_device_step']:.2f}, observed "
+        f"{first['replayed_ms_per_device_step']:.2f}, observed warm "
+        f"{second['replayed_ms_per_device_step']:.2f}, plain again "
+        f"{control['replayed_ms_per_device_step']:.2f} (the chunk walls exclude the sites, "
+        f"which run after the token copy); tokens equal to the plain serve's on "
+        f"{same3}/{len(outs3)}")
+    if same3 != len(outs3):
+        raise AssertionError("the control serve's tokens differ from the plain serve's")
+    res["plain"] = {"first": {k: v for k, v in first.items() if k != "chunks"},
+                    "warm": {k: v for k, v in second.items() if k != "chunks"},
+                    "control": {k: v for k, v in control.items() if k != "chunks"},
+                    "decode_site_us_per_chunk": site_us, "cold": cold, "warm_lens": warm,
+                    "tracer_first": summary1, "tracer_warm": summary2}
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) spec regimes
+    obs_d = Observability.default(clock=capture_checked_clock(torch))
+    for fn in counters().values():
+        fn.launches = 0
+    spec_eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                                max_len=2048, decode_chunk=8, obs=obs_d,
+                                spec_decode=SpecConfig(k=SPEC_K, draft_codec=DRAFT_CODEC))
+    rids = [spec_eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts[:4]]
+    done = spec_eng.run_until_drained()
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters().items()}
+    souts = [done[r] for r in rids]
+    same = sum(list(a) == list(b) for a, b in zip(souts, spec_outs))
+    lens_d = obs_d.rooflens
+    kv, rounds = [600.0, 700.0, 800.0, 900.0], spec_eng.spec_rounds
+    log(f"observed_serve (d): spec serve (k={SPEC_K}, {DRAFT_CODEC} draft, draft tree "
+        f"{lens_d.draft_weight_bytes / 1e9:.3f} GB) with observability: tokens equal to the "
+        f"spec serve's on {same}/{len(souts)} requests; launches {launches}; raw predictions "
+        f"of a launch of {rounds} rounds at kv 600-900: draft "
+        f"{1e3 * lens_d._raw_draft(kv, SPEC_K, rounds):.3f} ms, verify "
+        f"{1e3 * lens_d._raw_verify(kv, SPEC_K, rounds):.3f} ms")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched on the observed spec path: {idle}")
+    teacher_forced(torch, spec_eng.model, params, prompts[:4], souts, report,
+                   key="teacher_forced_observed_spec")
+    scale_d = lens_d.calibrate()
+    spec_rep = lens_report(lens_d, "spec serve", scale_d)
+    for regime in ("draft", "verify"):
+        if regime not in scale_d:
+            raise AssertionError(f"no RoofLens samples of regime {regime}")
+    res["spec"] = {"same_as_spec_serve": same, "launches": launches, **spec_rep}
+    del spec_eng
+    torch.cuda.empty_cache()
+
+    # (e) SLA-sized chunked prefill on a lens calibrated by a warm run
+    residents, long = arrival_inputs(torch, model)
+    obs_e = Observability.default(clock=capture_checked_clock(torch))
+    warm_run, _, eng = arrival(torch, model, params, residents, long, prefill_chunk=256,
+                               obs=obs_e)
+    del eng
+    lens_e = obs_e.rooflens
+    scale_e = lens_e.calibrate()
+    warm_rep = lens_report(lens_e, "arrival warm run (prefill_chunk=256)", scale_e)
+    if "prefill_chunk" not in scale_e:
+        raise AssertionError("no RoofLens samples of regime prefill_chunk")
+    ladder = {n: 1e3 * lens_e.predict_prefill_chunk(1, n, 1536) for n in (32, 64, 128, 256)}
+    log(f"observed_serve (e): prefill_sla_s {PREFILL_SLA_S} s; calibrated predictions of a "
+        f"1-row chunk at table 1536: " + ", ".join(f"{n} tokens {ms:.1f} ms"
+                                                  for n, ms in ladder.items()))
+    lens_e.reset_samples()
+    obs_e.tracer.reset()
+    torch.cuda.empty_cache()
+    run, outs, eng = arrival(torch, model, params, residents, long, prefill_chunk=256,
+                             obs=obs_e, prefill_sla_s=PREFILL_SLA_S)
+    spans = [(s.args["batch_rows"], s.args["span"], s.t1 - s.t0)
+             for s in obs_e.tracer.spans if s.name == "prefill"]
+    ref = report["chunked_prefill"]["chunked"]
+    log(f"observed_serve (e) SLA run: prefill launches (rows x span, wall) " + ", ".join(
+        f"{b}x{sp} {1e3 * w:.1f} ms" for b, sp, w in spans))
+    log(f"  long request's first token {1e3 * run['ttft_s']:.1f} ms after it arrived (fixed "
+        f"256-token chunks: {1e3 * ref['ttft_s']:.1f}); worst gap between the residents' "
+        f"decode chunks {1e3 * run['worst_gap_s']:.1f} ms (256: {1e3 * ref['worst_gap_s']:.1f}),"
+        f" median {1e3 * run['median_gap_s']:.1f} (256: {1e3 * ref['median_gap_s']:.1f}); "
+        f"prefill_chunk_calls {run['stats']['prefill_chunk_calls']}; launches "
+        f"{run['launches']}; decode graphs {run['graphs_before']} before the arrival, "
+        f"{run['graphs_at_first_token']} at its first token")
+    if run["graphs_at_first_token"] != run["graphs_before"]:
+        raise AssertionError("a decode graph was captured while the long prompt prefilled")
+    if any(sp > 256 for _, sp, _ in spans):
+        raise AssertionError("a chunked-prefill launch exceeded prefill_chunk")
+    sla_rep = lens_report(lens_e, "SLA run, warm run's scales")
+    teacher_forced(torch, eng.model, params, residents + [long], outs, report,
+                   key="teacher_forced_sla_prefill")
+    res["sla"] = {"prefill_sla_s": PREFILL_SLA_S, "warm_run": warm_run, "warm_lens": warm_rep,
+                  "ladder_ms": ladder, "run": run, "spans": spans, "sla_lens": sla_rep}
+    del eng
+    torch.cuda.empty_cache()
+    report["observed_serve"] = res
 
 
 def main() -> int:
@@ -1179,6 +1492,11 @@ def main() -> int:
               "not found)", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BYTES_PER_S, BF16_FLOP_PER_S
+    from repro_torch.core import roofsurface as rs
+
+    # the kernel bounds and RoofLens read one set of constants
+    HBM_BYTES_PER_S, BF16_FLOP_PER_S = rs.H100_SXM.mbw, rs.H100_SXM.peak_flops
     from repro_torch.configs.base import get_config
     from repro_torch.core.decompress import compressed_bytes
     from repro_torch.core.formats import get_spec
@@ -1198,10 +1516,23 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    if smi.split(",")[0].strip() != H100_NAME:
+        log(f"warning: the card is not an {H100_NAME}; the roofline bounds and RoofLens "
+            f"use the H100 SXM profile ({rs.H100_SXM}), which is not this card's")
     kind = torch.cuda.get_device_name(0)
     log(f"device {kind}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"python {sys.version.split()[0]}")
     report["card"] = {"nvidia_smi": smi, "name": kind}
+    served = get_spec(SERVED_SPEC)
+    bord = rs.bord_regions(rs.H100_SXM)
+    points = {"software": rs.evaluate(served, rs.H100_SXM),
+              "deca_32_8": rs.evaluate(served, rs.H100_SXM, ai_xv=rs.deca_ai_xv(served))}
+    log(f"analytic, not measured (Roof-Surface on {rs.H100_SXM.name}): BORD lines " + ", ".join(
+        f"{k} {v:.4g}" for k, v in bord.items()) + f"; {SERVED_SPEC} weights at batch 4: " +
+        "; ".join(f"{k} AI_XM {p.ai_xm:.4g}, AI_XV {p.ai_xv:.4g}, {p.bound}-bound, "
+                  f"{p.flops / 1e12:.2f} TFLOP/s" for k, p in points.items()))
+    report["analytic"] = {"bord_regions": bord, "served_spec": {
+        k: dataclasses.asdict(p) for k, p in points.items()}}
 
     # 2. build every kernel of the path, one nvcc per source, all at once
     t0 = time.perf_counter()
@@ -1327,9 +1658,12 @@ def main() -> int:
 
     # 6. self-speculative decode on the same weights
     plain_outs = [done[r] for r in rids[:4]]
+    plain = {"outs": [done[r] for r in rids], "launches": dict(launches),
+             "host_syncs": st["host_syncs"], "replayed_ms_per_device_step": replay_ms}
     del eng, sched, done, x
     torch.cuda.empty_cache()
-    spec_eng, spec_launches = serve_spec(torch, model, params, prompts[:4], plain_outs, report)
+    spec_eng, spec_launches, spec_outs = serve_spec(torch, model, params, prompts[:4],
+                                                    plain_outs, report)
     profile_serving(torch, spec_eng, [p[:512] for p in prompts[:4]], report, "spec_profile")
     del spec_eng
     torch.cuda.empty_cache()
@@ -1343,6 +1677,9 @@ def main() -> int:
 
     # 9. a long prompt prefilled whole and in chunks while others decode
     chunked_prefill(torch, model, params, report)
+
+    # 10. the serving path observed: metrics, tracer, RoofLens, SLA-sized chunks
+    observed_serve(torch, model, params, prompts, plain, spec_outs, report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")

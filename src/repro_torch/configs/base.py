@@ -54,6 +54,14 @@ class ModelConfig:
     remat: str = "full"             # none | full (activation checkpointing)
     scan_layers: bool = True        # lax.scan over stacked layer params
 
+    @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, self.d_model // 16)
+
     def layer_kinds(self) -> Tuple[str, ...]:
         """Per-layer block kind, length n_layers."""
         if self.family == "ssm":
@@ -66,6 +74,51 @@ class ModelConfig:
                 "attn_local" if i % 2 == 0 else "attn" for i in range(self.n_layers)
             )
         return ("attn",) * self.n_layers
+
+    def param_count(self) -> int:
+        """Analytical parameter count (embeddings + blocks).
+
+        A layer = mixer (attention / ssm / rec) + FFN-if-d_ff>0.
+        MoE replaces the dense FFN with n_experts expert FFNs + a router.
+        """
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        total = v * d  # embeddings
+        if not self.tie_embeddings:
+            total += v * d
+        if self.pos_emb == "learned":
+            total += self.pos_table * d
+        glu = self.mlp_act in ("swiglu", "geglu")
+        ffn = (3 * d * f if glu else 2 * d * f) if f else 0
+        for kind in self.layer_kinds():
+            total += 2 * d  # pre-norms
+            if kind in ("attn", "attn_local"):
+                hq, hkv, dh = self.n_heads, self.n_kv_heads, self.d_head
+                total += d * hq * dh + 2 * d * hkv * dh + hq * dh * d
+            elif kind == "ssm":
+                di, st, dr = self.d_inner, self.ssm_state, self.dt_rank
+                total += (
+                    d * 2 * di + di * self.ssm_conv + di
+                    + di * (dr + 2 * st) + dr * di + di
+                    + di * st + di + di * d
+                )
+            elif kind == "rec":
+                r = self.lru_width or d
+                total += d * r * 2 + r * self.ssm_conv + 2 * r * r + 2 * r + r + r * d
+            if f and kind != "ssm":  # mamba blocks have no separate FFN
+                if self.n_experts:
+                    total += d * self.n_experts + self.n_experts * ffn
+                else:
+                    total += ffn
+        return total
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: only routed experts)."""
+        if not self.n_experts:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        per_expert = 3 * d * f if self.mlp_act in ("swiglu", "geglu") else 2 * d * f
+        inactive = (self.n_experts - self.experts_per_token) * per_expert
+        return self.param_count() - self.n_layers * inactive
 
 
 _MODULES = {

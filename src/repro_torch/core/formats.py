@@ -96,6 +96,20 @@ class CompressionSpec:
         return code_bytes + mask_bytes + scale_bytes
 
 
+# The paper's evaluated scheme grid (§8 "Compression Schemes").
+PAPER_SCHEMES = [
+    CompressionSpec("bf16", 1.0),    # uncompressed baseline
+    CompressionSpec("bf16", 0.5),
+    CompressionSpec("bf16", 0.3),
+    CompressionSpec("bf16", 0.1),
+    CompressionSpec("bf8", 1.0),
+    CompressionSpec("bf8", 0.5),
+    CompressionSpec("bf8", 0.2),
+    CompressionSpec("bf8", 0.05),
+    CompressionSpec("mxfp4", 1.0),
+]
+
+
 def get_spec(name: str) -> CompressionSpec:
     """Parse 'bf8_50' style names (density percent suffix optional)."""
     if "_" in name:

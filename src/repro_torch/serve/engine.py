@@ -17,7 +17,10 @@ non-speculative engine's.
 
 On the card each decode chunk and each spec launch is one CUDA graph
 replay (`serve/graphs.py`), captured per input shape; on the CPU the same
-step functions run eagerly.
+step functions run eagerly. `obs=Observability.default()` installs the
+metrics registry, the request tracer and RoofLens (`repro_torch.obs`); the
+scheduler's sites read the host clock around its device calls and nothing
+else.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.decompress import make_draft_tree
+from repro_torch.core.compression import CompressedTensor
+from repro_torch.core.decompress import _leaves, compressed_bytes, make_draft_tree
 from repro_torch.core.formats import get_spec
 from repro_torch.device import resolve
 from repro_torch.models.model import Model
@@ -185,6 +189,14 @@ class GenerationEngine:
     chunks interleaved with decode rounds, each through a length-bounded
     block table. `None` keeps monolithic prefill. Neither changes a token
     on the CPU; both compose with `spec_decode`.
+
+    `obs` installs a `repro_torch.obs.Observability` bundle: the scheduler
+    feeds its metrics registry, tracer and RoofLens at each prefill call
+    and decode launch, and the engine binds RoofLens to its traffic shape.
+    With `obs=None` (the default) no site reads a clock or allocates.
+    `prefill_sla_s` (with `prefill_chunk` and a RoofLens in `obs`) sizes
+    each chunked-prefill launch: the largest page-aligned power-of-two span
+    whose calibrated predicted wall fits the budget.
     """
 
     def __init__(
@@ -204,6 +216,8 @@ class GenerationEngine:
         spec_decode: Optional[SpecConfig] = None,
         prefix_cache: bool = False,
         prefill_chunk: Optional[int] = None,
+        obs=None,
+        prefill_sla_s: Optional[float] = None,
         paged: bool = True,
         device="cuda",
     ):
@@ -243,6 +257,7 @@ class GenerationEngine:
         self._paged_prefill = make_paged_prefill_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
         self.draft_params = None
+        self.spec = spec_decode
         self.spec_rounds = 0
         if spec_decode is not None:
             self.draft_params = make_draft_tree(
@@ -256,6 +271,9 @@ class GenerationEngine:
                 model, k=spec_decode.k, rounds=self.spec_rounds,
                 draft_window=spec_decode.draft_window, block_size=block_size,
             )
+        self.obs = obs
+        if obs is not None and obs.rooflens is not None:
+            self._bind_rooflens(obs.rooflens, max_slots)
         self._chunk_graphs = self._spec_graphs = None
         if self.device.type == "cuda":
             self._chunk_graphs = StepGraphs(self._chunk_device, device=self.device,
@@ -278,6 +296,32 @@ class GenerationEngine:
             spec_rounds=self.spec_rounds,
             spec_window=spec_decode.draft_window if spec_decode is not None else 0,
             prefill_chunk=prefill_chunk,
+            obs=obs,
+            prefill_sla_s=prefill_sla_s,
+        )
+
+    def _bind_rooflens(self, lens, max_slots: int) -> None:
+        """Bind RoofLens to this engine's traffic shape: the stored bytes of
+        every leaf (compressed leaves count their packed planes), the dense
+        elements behind the compressed leaves (the decompression vector-op
+        term), the weight and KV codecs, the decode batch rows, and the
+        draft tree's stored bytes, depth and window on a spec engine."""
+        compressed = [l for l in _leaves(self.params) if isinstance(l, CompressedTensor)]
+        spec = self.spec
+        lens.bind(
+            cfg=self.cfg,
+            weight_bytes=compressed_bytes(self.params),
+            weight_elems=sum(math.prod(ct.shape) for ct in compressed),
+            weight_spec=compressed[0].spec.name if compressed else None,
+            kv_quant=self.kv_quant,
+            m_slots=max_slots,
+            n_chips=1,
+            draft_weight_bytes=(
+                compressed_bytes(self.draft_params)
+                if self.draft_params is not None else None
+            ),
+            spec_k=spec.k if spec is not None else 0,
+            draft_window=spec.draft_window if spec is not None else 0,
         )
 
     def _t(self, a) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """Continuous-batching scheduler over the block-paged KV cache.
 
-Counterpart of `repro/serve/scheduler.py` without its SLA, park, host-tier
-and observability machinery (ROADMAP Queue A items 7-9). A FIFO request
+Counterpart of `repro/serve/scheduler.py` without its SLA gates, park and
+host-tier machinery (ROADMAP Queue A items 8-9). A FIFO request
 queue feeds a fixed set of `max_slots` decode slots. Each scheduling round
 the host admits queued requests into free slots while the pool has enough
 unreserved pages for a request's worst case, prefills all requests admitted
@@ -26,6 +26,16 @@ of the prompt, so prefill starts at `Request.prefilled` instead of 0. With
 many tokens, one launch a round over every mid-prefill slot, each reading
 through a length-bounded block table; a slot joins decode once its last
 chunk has sampled its first output token.
+
+With an `obs` bundle (`repro_torch.obs.Observability`) the scheduler feeds
+its collectors at the reference's sites: request lifecycle to the tracer,
+each prefill call and decode launch to RoofLens and the metrics registry.
+Each site reads the host clock just before a device call and just after
+the host copy of its tokens, which already waits for the card: no site
+adds a synchronization, a device op or a copy, and none runs inside a
+graph capture (the capture happens within the device call). With
+`prefill_sla_s` and a bound RoofLens the chunked-prefill span follows the
+budget (`_prefill_span_cap`).
 """
 from __future__ import annotations
 
@@ -145,6 +155,8 @@ class Scheduler:
         spec_rounds: int = 0,
         spec_window: int = 0,
         prefill_chunk: Optional[int] = None,
+        obs=None,
+        prefill_sla_s: Optional[float] = None,
     ):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -170,6 +182,7 @@ class Scheduler:
         self.spec_rounds = spec_rounds
         self.spec_window = spec_window
         self.prefill_chunk = prefill_chunk
+        self.prefill_sla_s = prefill_sla_s
         self.queue: collections.deque = collections.deque()
         self.slots: List[Optional[Request]] = [None] * max_slots
         self.results: Dict[int, np.ndarray] = {}
@@ -184,6 +197,15 @@ class Scheduler:
             "prefill_token_steps": 0, "prefill_real_tokens": 0, "kv_pages_read": 0,
             "kv_pages_read_worst": 0, "draft_tokens": 0, "verify_calls": 0,
         }
+        # observability: every site below is guarded on the collector it
+        # feeds; with obs=None the serving loop reads no clock and
+        # allocates nothing for it
+        self._obs_metrics = obs.metrics if obs is not None else None
+        self._obs_tracer = obs.tracer if obs is not None else None
+        self._obs_rooflens = obs.rooflens if obs is not None else None
+        self._obs_clock = obs.clock if obs is not None else None
+        self._observing = any(c is not None for c in (
+            self._obs_metrics, self._obs_tracer, self._obs_rooflens))
 
     # ------------------------------------------------------------------
     # request API
@@ -212,7 +234,17 @@ class Scheduler:
             )
         rid = self._next_rid
         self._next_rid += 1
+        if self._obs_tracer is not None:
+            self._obs_tracer.on_submit(rid, len(prompt), max_new_tokens)
+        if self._obs_metrics is not None:
+            self._obs_metrics.counter(
+                "serve.requests.submitted", unit="requests"
+            ).inc()
         self.queue.append(Request(rid, prompt, max_new_tokens, eos_id))
+        if self._obs_metrics is not None:
+            self._obs_metrics.gauge(
+                "serve.queue_depth", unit="requests"
+            ).set(len(self.queue))
         return rid
 
     def run_until_drained(self) -> Dict[int, np.ndarray]:
@@ -234,6 +266,7 @@ class Scheduler:
         return len(r.prompt) + r.max_new_tokens - 1
 
     def _admit(self) -> None:
+        t0 = self._obs_clock() if self._obs_tracer is not None else 0.0
         admitted: List[tuple] = []
         for slot in range(self.max_slots):
             if self.slots[slot] is not None:
@@ -247,6 +280,16 @@ class Scheduler:
             r.prefilled = self.cache.admit(r.rid, self._kv_len(r), prompt=r.prompt)
             self.slots[slot] = r
             admitted.append((slot, r))
+        if self._obs_tracer is not None and admitted:
+            t1 = self._obs_clock()
+            for slot, r in admitted:
+                self._obs_tracer.on_admit(r.rid, slot)
+            self._obs_tracer.on_admit_round(t0, t1, len(admitted), len(self.queue))
+        if self._obs_metrics is not None and admitted:
+            self._obs_metrics.counter(
+                "serve.requests.admitted", unit="requests"
+            ).inc(len(admitted))
+            self._publish_gauges()
         if not admitted or self.prefill_chunk is not None:
             return  # chunked mode prefills in _prefill_pending
         rows = [
@@ -267,23 +310,55 @@ class Scheduler:
         `prefill_chunk` prompt tokens in one length-bounded launch. A slot
         whose last chunk completes samples its first output token and joins
         the next decode round; until then decode skips it (empty `out`).
-        The span cap is the fixed `prefill_chunk`: the reference's RoofLens
-        sizing under an SLA budget and its `prefill_shrink` rung wait for
-        ROADMAP Queue A items 7 and 8."""
+        The span per row is `_prefill_span_cap`; the reference's
+        `prefill_shrink` degradation rung waits for ROADMAP Queue A item 8."""
         pending = [
             (i, r) for i, r in enumerate(self.slots)
             if r is not None and r.prefilled < len(r.prompt)
         ]
         if not pending:
             return
+        span_cap = self._prefill_span_cap(pending)
         rows = [
-            (i, r, r.prefilled, min(self.prefill_chunk, len(r.prompt) - r.prefilled))
+            (i, r, r.prefilled, min(span_cap, len(r.prompt) - r.prefilled))
             for i, r in pending
         ]
         self._prefill_rows(rows, bounded=True)
         for i, r in pending:
             if r.out and self._finished(r):
                 self._evict(i)
+
+    def _prefill_span_cap(self, pending) -> int:
+        """Tokens one chunked-prefill launch may process per request. The
+        fixed `prefill_chunk` unless an SLA budget *and* a bound RoofLens
+        are installed; then the cap is the largest page-aligned pow2 ladder
+        step whose *predicted* launch time fits `prefill_sla_s`. A round
+        whose gather term grows with the written prefix then takes smaller
+        bites than a cold one: constant predicted stall on the interleaved
+        decode stream instead of a constant token count. Never less than
+        one page, so prefill progresses even over budget."""
+        if (
+            self.prefill_sla_s is None
+            or self._obs_rooflens is None
+            or not getattr(self._obs_rooflens, "_bound", False)
+        ):
+            return self.prefill_chunk
+        bs = self.cache.block_size
+        rows = len(pending)
+        best = min(bs, self.prefill_chunk)
+        n = bs
+        while n <= self.prefill_chunk:
+            table = max(
+                math.ceil(min(r.prefilled + n, len(r.prompt)) / bs)
+                for _, r in pending
+            ) * bs
+            if self._obs_rooflens.predict_prefill_chunk(
+                rows, n, table
+            ) > self.prefill_sla_s:
+                break
+            best = n
+            n *= 2
+        return best
 
     def _prefill_rows(self, rows: List[tuple], bucketed: bool = True,
                       bounded: bool = False) -> None:
@@ -339,11 +414,14 @@ class Scheduler:
             # more recycled pages than the launch's fresh vector carries:
             # scrub the overflow before the launch that writes into them
             self._scrub(extra)
+        t0 = self._obs_clock() if self._observing else 0.0
         logits = self._prefill(
             tokens, positions, tables, write_slots, write_pos, fresh_rows[0],
             copies, last_idx,
         )
         toks = self._sample(logits, rids, steps0)  # the round's device->host sync
+        # `toks` is on the host: t1 - t0 is the prefill wall, sampling included
+        t1 = self._obs_clock() if self._observing else 0.0
         for row, r in completing:
             r.out.append(int(toks[row]))
             self.cache.prefix_insert(r.rid, r.prompt)
@@ -357,6 +435,17 @@ class Scheduler:
             st["prefill_chunk_calls"] += 1
         st["prefill_token_steps"] += b * sp
         st["prefill_real_tokens"] += sum(n for _, _, _, n in rows)
+        if self._obs_tracer is not None:
+            # a request's first token is visible at the completing call's sync
+            self._obs_tracer.on_prefill(t0, t1, [r.rid for _, r in completing], b, sp)
+        if self._obs_rooflens is not None:
+            if bounded:
+                self._obs_rooflens.observe_prefill_chunk(b, sp, tw * bs, t1 - t0)
+            else:
+                self._obs_rooflens.observe_prefill(b, sp, t1 - t0)
+        if self._obs_metrics is not None:
+            self._obs_metrics.histogram("serve.prefill.wall_s", unit="s").record(t1 - t0)
+            self._obs_metrics.counter("serve.host_syncs", unit="calls").inc()
 
     # ------------------------------------------------------------------
     # decode: device-resident chunk
@@ -425,10 +514,12 @@ class Scheduler:
         fresh = np.zeros((c, f), np.int32)
         fresh[0] = self.cache.drain_fresh(f)
 
+        t0 = self._obs_clock() if self._observing else 0.0
         toks = self._decode_chunk(
             tokens0, tables, positions, write_slots, write_pos, fresh,
             kv_lens, rids, start_steps, max_steps, eos, act,
         )  # (c, m) host tokens: the chunk's one device->host sync
+        t1 = self._obs_clock() if self._observing else 0.0
 
         steps_taken: Dict[int, int] = {}
         for i, r in active:
@@ -441,6 +532,13 @@ class Scheduler:
             r.peak_blocks = max(r.peak_blocks, self.cache.blocks_held(r.rid))
 
         self._account_decode_chunk(active, steps_taken, used0, held0, p0s, c)
+        if self._observing:
+            # the fixed-shape step always runs all c steps, so the roofline
+            # prediction is over c; the tracer gets only the kept tokens
+            self._observe_decode(
+                t0, t1, c, {r.rid: steps_taken[i] for i, r in active},
+                [p0s[i] + 1 for i, _ in active],
+            )
         for i, r in active:
             if self._finished(r):
                 self._evict(i)
@@ -522,8 +620,10 @@ class Scheduler:
             tables[i] = self.cache.block_table_row(r.rid, tw)
         fresh = self.cache.drain_fresh(m * ((cap + bs - 1) // bs + 1))
 
+        t0 = self._obs_clock() if self._observing else 0.0
         out, e_rounds = self._spec(tokens0, tables, p0, fresh, rids, start_steps,
                                    max_steps, eos, act)
+        t1 = self._obs_clock() if self._observing else 0.0
 
         for i, r in active:
             emitted = 0
@@ -537,6 +637,8 @@ class Scheduler:
             self.cache.rollback(r.rid, r.next_pos - 1)
 
         self._account_decode_spec(active, e_rounds, p0s, held0, used0, tw)
+        if self._observing:
+            self._observe_spec(t0, t1, active, e_rounds, p0s)
         for i, r in active:
             if self._finished(r):
                 self._evict(i)
@@ -586,6 +688,59 @@ class Scheduler:
                 if i in live and cum[i] == total[i] and self._finished(r):
                     used -= held0[i] + grown[i]
 
+    def _observe_decode(self, t0: float, t1: float, steps: int,
+                        kept: Dict[int, int], kv_lens: List[int]) -> None:
+        """Feed one decode chunk to whichever collectors are installed.
+        `steps` is the device steps launched, `kept` the tokens each request
+        keeps, `kv_lens` the active slots' context lengths at chunk start."""
+        if self._obs_tracer is not None:
+            self._obs_tracer.on_decode_chunk(t0, t1, steps, kept)
+        if self._obs_rooflens is not None:
+            self._obs_rooflens.observe_decode(kv_lens, steps, t1 - t0)
+        if self._obs_metrics is not None:
+            self._record_decode_metrics(t1 - t0, kept)
+
+    def _observe_spec(self, t0: float, t1: float, active, e_rounds: np.ndarray,
+                      p0s: Dict[int, int]) -> None:
+        """Feed one spec launch to the collectors: each request keeps the
+        tokens its rounds emitted, the tracer counts the live rounds as
+        steps, and RoofLens splits the wall between the draft and verify
+        regimes (`RoofLens.observe_spec`) at the slots' context lengths at
+        launch start."""
+        kept = {r.rid: int(np.sum(e_rounds[:, i])) for i, r in active}
+        kv_lens = [p0s[i] + 1 for i, _ in active]
+        live_rounds = int(np.sum(np.any(np.asarray(e_rounds) > 0, axis=1)))
+        if self._obs_tracer is not None:
+            self._obs_tracer.on_decode_chunk(t0, t1, live_rounds, kept)
+        if self._obs_rooflens is not None:
+            self._obs_rooflens.observe_spec(
+                kv_lens, self.spec_k, max(1, live_rounds), t1 - t0
+            )
+        if self._obs_metrics is not None:
+            self._record_decode_metrics(t1 - t0, kept)
+
+    def _record_decode_metrics(self, wall_s: float, kept: Dict[int, int]) -> None:
+        m = self._obs_metrics
+        m.histogram("serve.decode.chunk_wall_s", unit="s").record(wall_s)
+        m.counter("serve.host_syncs", unit="calls").inc()
+        m.counter("serve.decode.tokens", unit="tokens").inc(sum(kept.values()))
+        self._publish_gauges()
+
+    def _publish_gauges(self) -> None:
+        """Pool / queue occupancy gauges (metrics registry installed)."""
+        m = self._obs_metrics
+        m.gauge("serve.queue_depth", unit="requests").set(len(self.queue))
+        occ = self.cache.occupancy()
+        m.gauge("serve.pool.used_pages", unit="pages").set(occ["used"])
+        m.gauge("serve.pool.free_pages", unit="pages").set(occ["free"])
+        m.gauge("serve.pool.reserved_pages", unit="pages").set(occ["reserved"])
+        m.gauge("serve.pool.admittable_pages", unit="pages").set(occ["admittable"])
+        m.gauge("serve.pool.shared_pages", unit="pages").set(occ["shared"])
+        m.gauge("serve.pool.prefix_cached_pages", unit="pages").set(occ["cached"])
+        m.gauge("serve.slots.active", unit="slots").set(
+            sum(1 for r in self.slots if r is not None)
+        )
+
     def _finished(self, r: Request) -> bool:
         return len(r.out) >= r.max_new_tokens or (
             r.eos_id is not None and bool(r.out) and r.out[-1] == r.eos_id
@@ -600,13 +755,26 @@ class Scheduler:
         self.request_peaks[r.rid] = r.peak_blocks
         self.cache.release(r.rid)
         self.slots[slot] = None
+        if self._obs_tracer is not None:
+            reason = (
+                "eos" if r.eos_id is not None and r.out
+                and r.out[-1] == r.eos_id else "length"
+            )
+            self._obs_tracer.on_finish(r.rid, reason)
+        if self._obs_metrics is not None:
+            self._obs_metrics.counter(
+                "serve.requests.finished", unit="requests"
+            ).inc()
+            self._publish_gauges()
 
     # ------------------------------------------------------------------
     # occupancy / padding-waste report
     # ------------------------------------------------------------------
     def stats(self) -> Dict[str, float]:
         """A fresh snapshot of the serving counters plus derived ratios;
-        every key's unit is in `STAT_UNITS`."""
+        every key's unit is in `STAT_UNITS`. With a metrics registry
+        installed the snapshot is also folded into it as `serve.stats.*`
+        gauges."""
         st = dict(self._stats)
         steps = max(1, st["decode_steps"])
         st["mean_occupancy"] = st["active_slot_steps"] / (steps * self.max_slots)
@@ -634,4 +802,6 @@ class Scheduler:
         st["cow_copies"] = self.cache.cow_copies
         st["shared_pages"] = occ["shared"]
         st["prefix_cached_pages"] = occ["cached"]
+        if self._obs_metrics is not None:
+            self._obs_metrics.ingest("serve.stats", st, units=STAT_UNITS)
         return st
