@@ -44,9 +44,20 @@ it); a warm second serve whose RoofLens error and fitted scale per regime
 print against the expected scales; the tracer's TTFT / ITL percentiles and
 Chrome traces (chiprun_out/obs_trace*.json); an observed spec serve (draft
 and verify regimes); and chunked_prefill's arrival with its chunk span
-sized by RoofLens under a `prefill_sla_s` budget. The kernel bounds take
-their rates from the same H100 profile (`core/roofsurface.py`), whose
-Roof-Surface lines print as an analytic line at the start.
+sized by RoofLens under a `prefill_sla_s` budget. Last, `overload_serve`
+drives overload resilience and the host KV tier: (a) a spec engine with
+the prefix cache, chunked prefill, a host tier and a bounded queue, on a
+pool too small for its traffic, climbs the degradation ladder down to
+parking residents and resumes them (every request OK, the ladder relaxed
+at drain, tier pages spilled and restored, the page audit clean); (b) the
+chaos harness: a poisoned prefill, an exhausted pool, a corrupted tier
+payload and a slow round against a clean serve (one request FAILED, every
+fault fired, the slow round flagged, survivors equal up to a near tie);
+(c) the TTFT and ITL gates on RoofLens's calibrated prices (what they
+shed, defer and expire, and how many admitted requests met each
+objective). The kernel bounds take their rates from the same H100 profile
+(`core/roofsurface.py`), whose Roof-Surface lines print as an analytic
+line at the start.
 """
 from __future__ import annotations
 
@@ -1481,6 +1492,493 @@ def observed_serve(torch, model, params, prompts, plain, spec_outs, report):
     report["observed_serve"] = res
 
 
+# ---------------------------------------------------------------------------
+# overload_serve: SLO gates, the degradation ladder, park/resume, chaos and
+# the host KV tier at full width
+# ---------------------------------------------------------------------------
+
+def ladder_traffic(torch, vocab):
+    """(a)'s traffic, seeded: wave 0 (two tenants behind a 512-token system
+    prompt), four residents of 384-512 tokens (16 new tokens for the first,
+    64 for the others, so a slot frees while three still decode), two
+    1024-token arrivals and, last, a tenant behind the system prompt
+    again."""
+    g = torch.Generator().manual_seed(9)
+    rand = lambda n: torch.randint(0, vocab, (int(n),), generator=g)
+    system = rand(512)
+    wave0 = [torch.cat([system, rand(n)]).numpy() for n in (40, 70)]
+    residents = [rand(n).numpy() for n in torch.randint(384, 513, (4,), generator=g)]
+    arrivals = [rand(1024).numpy() for _ in range(2)]
+    wave2 = torch.cat([system, rand(100)]).numpy()
+    return wave0, residents, [16, 64, 64, 64], arrivals, wave2
+
+
+def ladder_pages(residents, new, block=32, arrival=(1024, 64)) -> int:
+    """The pool of (a): the arrival is blocked while the three long
+    residents hold their pages (P < need + their pages) and fits once the
+    youngest has parked (P >= need + the other two's): every rung must
+    apply before it is admitted."""
+    foot = [math.ceil((len(p) + n - 1) / block) for p, n in zip(residents, new)]
+    need = math.ceil((arrival[0] + arrival[1] - 1) / block)
+    return need + foot[1] + foot[2] + foot[3] // 2
+
+
+class Recorder:
+    """Wraps a scheduler's device steps and the host tier's functions and
+    records, round by round, what the overload phase prints."""
+
+    def __init__(self, torch, eng, graphs=True):
+        from repro_torch.serve import paged_cache
+
+        self.torch, self.eng, self.sched = torch, eng, eng.scheduler
+        self.rungs, self.prefills, self.decodes, self.tier = [], [], [], {}
+        sched = self.sched
+        inner_degrade, inner_prefill, inner_rows = (sched._degrade, sched._prefill,
+                                                    sched._prefill_rows)
+        inner_chunk, inner_spec = sched._decode_chunk, sched._spec
+
+        def degrade():
+            lvl, n = sched.degradation_level, sched._stats["degradations"]
+            inner_degrade()
+            self.rungs.append({"round": sched._round, "from": lvl,
+                               "to": sched.degradation_level,
+                               "applied": sched._stats["degradations"] > n})
+
+        def prefill(*a):
+            t = time.perf_counter()
+            out = inner_prefill(*a)
+            torch.cuda.synchronize()
+            self.prefills.append({"round": sched._round, "rows": a[0].shape[0],
+                                  "span": a[0].shape[1], "wall_s": time.perf_counter() - t,
+                                  "shrunk": sched._span_shrunk, "resumed": self._resumed,
+                                  "rows_rids": self._rids})
+            return out
+
+        def rows(rows_, **kw):
+            # the requests of this launch that are re-prefilling after a park
+            self._resumed = [(r.rid, start, n) for _, r, start, n in rows_ if r.parks]
+            self._rids = [r.rid for _, r, _, _ in rows_]
+            inner_rows(rows_, **kw)
+
+        def timed_decode(fn, graphs_, kind):
+            def run(*a):
+                n = len(graphs_.graphs) if graphs_ is not None else 0
+                t = time.perf_counter()
+                out = fn(*a)
+                torch.cuda.synchronize()
+                self.decodes.append({"round": sched._round, "kind": kind,
+                                     "wall_s": time.perf_counter() - t,
+                                     "captured": graphs_ is not None
+                                     and len(graphs_.graphs) > n})
+                return out
+            return run
+
+        self._resumed, self._rids = [], []
+        sched._degrade, sched._prefill, sched._prefill_rows = degrade, prefill, rows
+        sched._decode_chunk = timed_decode(inner_chunk, eng._chunk_graphs, "plain")
+        if inner_spec is not None:
+            sched._spec = timed_decode(inner_spec, eng._spec_graphs, "spec")
+        # the host tier's steps, per page: gather + copy, pack (CRC
+        # included), unpack (CRC included), upload
+        self._saved = {n: getattr(paged_cache, n)
+                       for n in ("extract_page_planes", "pack_payload", "unpack_payload")}
+        for name, fn in self._saved.items():
+            setattr(paged_cache, name, self._timed(name, fn))
+        inner_restore = sched._tier_restore
+        if inner_restore is not None:
+            def restore(pages, planes):
+                t = time.perf_counter()
+                inner_restore(pages, planes)
+                torch.cuda.synchronize()
+                self.tier.setdefault("upload", []).append(
+                    (time.perf_counter() - t) / max(1, len(pages)))
+            sched._tier_restore = restore
+
+    def _timed(self, name, fn):
+        def run(*a, **kw):
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            self.tier.setdefault(name, []).append(time.perf_counter() - t)
+            return out
+        return run
+
+    def close(self):
+        from repro_torch.serve import paged_cache
+
+        for name, fn in self._saved.items():
+            setattr(paged_cache, name, fn)
+
+    def applied(self):
+        from repro_torch.serve.slo import LADDER
+
+        return [(r["round"], LADDER[r["to"] - 1]) for r in self.rungs if r["applied"]]
+
+    def tier_ms(self) -> dict:
+        return {k: {"n": len(v), "median_ms": 1e3 * sorted(v)[len(v) // 2],
+                    "max_ms": 1e3 * max(v)} for k, v in self.tier.items() if v}
+
+
+def ladder_serve(torch, model, params, report):
+    """(a) the degradation ladder on a self-speculative engine with the
+    prefix cache, 256-token chunked prefill, a host tier, a bounded queue
+    and observability, on a pool sized by `ladder_pages`."""
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import GenerationEngine, SpecConfig
+    from repro_torch.serve.slo import RequestStatus, SLAPolicy
+
+    wave0, residents, res_new, arrivals, wave2 = ladder_traffic(torch, model.cfg.vocab_size)
+    pages = ladder_pages(residents, res_new)
+    obs = Observability.default(clock=capture_checked_clock(torch))
+    t0 = time.perf_counter()
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8, num_blocks=pages,
+                           spec_decode=SpecConfig(k=SPEC_K, draft_codec=DRAFT_CODEC),
+                           prefix_cache=True, prefill_chunk=256, host_tier=True,
+                           sla=SLAPolicy(max_queue=16), obs=obs)
+    build_s = time.perf_counter() - t0
+    page_mb = eng.kv.bytes_per_token() * 32 / 1e6
+    log(f"overload_serve (a): spec engine (k={SPEC_K}, {DRAFT_CODEC} draft) built in "
+        f"{build_s:.2f} s; pool {pages} pages of {page_mb:.3f} MB = {pages * page_mb:.1f} MB; "
+        f"residents {[len(p) for p in residents]} tokens x {res_new} new, arrivals "
+        f"2 x 1024 x 64 new at priority 1")
+    rec = Recorder(torch, eng)
+    sched = eng.scheduler
+    try:
+        w0 = [eng.submit(p, max_new_tokens=16) for p in wave0]
+        done = eng.run_until_drained()
+        w1 = [eng.submit(p, max_new_tokens=n, priority=0) for p, n in zip(residents, res_new)]
+        n = len(rec.decodes)
+        while len(rec.decodes) == n:  # until wave 1's first decode launch
+            sched.step()
+        spec_graphs_before = len(eng._spec_graphs.graphs)
+        t_arrive = time.perf_counter()
+        arr = [eng.submit(p, max_new_tokens=64, priority=1) for p in arrivals]
+        w2 = eng.submit(wave2, max_new_tokens=16, priority=1)
+        done.update(eng.run_until_drained())
+        wall = time.perf_counter() - t_arrive
+    finally:
+        rec.close()
+    torch.cuda.synchronize()
+    st, occ = sched.stats(), sched.check_invariants()
+    rids = w0 + w1 + arr + [w2]
+    prompts = wave0 + residents + arrivals + [wave2]
+    outs = [done[r] for r in rids]
+    traces = obs.tracer.requests
+    resumes = {}
+    for p in rec.prefills:
+        for rid, start, n in p["resumed"]:
+            resumes.setdefault(rid, []).append((start, n, p["wall_s"]))
+    parked = [i for i, r in enumerate(w1) if r in resumes]
+    # the parked residents again, unpressured (the arrivals gone), on the
+    # same engine: token for token, up to a near tie
+    again = [eng.submit(residents[i], max_new_tokens=res_new[i]) for i in parked]
+    redone = eng.run_until_drained()
+    calm = [redone[r] for r in again]
+    differ = {w1[i]: next((j for j, (a, b) in enumerate(zip(done[w1[i]], c)) if a != b), None)
+              for i, c in zip(parked, calm)}
+    applied = rec.applied()
+    order = [r for i, (_, r) in enumerate(applied)
+             if r != "spill" and r not in [x for _, x in applied[:i]]]
+    plain = [d for d in rec.decodes if d["kind"] == "plain"]
+    captured = [d for d in plain if d["captured"]]
+    graph = next(iter(eng._chunk_graphs.graphs.values()), None)
+    shrunk = [p for p in rec.prefills if p["shrunk"]]
+    scale = obs.rooflens.calibrate()
+    log(f"  rungs applied (round, rung): {applied}; first occurrences {order}; rounds "
+        f"{sched._round}; {len(rec.rungs)} blocked rounds; level at drain "
+        f"{sched.degradation_level}, spec on {sched._spec_enabled}")
+    if captured:
+        log(f"  the plain decode graph was captured in round {captured[0]['round']} (spec "
+            f"off): that round's decode {1e3 * captured[0]['wall_s']:.1f} ms (uncaptured run "
+            f"+ capture), capture {graph.capture_s:.3f} s, {graph.graph_bytes / 1e6:.1f} MB; "
+            f"{len(plain)} plain chunks, replayed mean "
+            f"{1e3 * sum(d['wall_s'] for d in plain[1:]) / max(1, len(plain) - 1):.1f} ms; "
+            f"spec graphs {spec_graphs_before} before the arrivals, "
+            f"{len(eng._spec_graphs.graphs)} at drain")
+    log(f"  shrunk (one-page) prefill launches: {len(shrunk)}, walls "
+        + ", ".join(f"{p['rows']}x{p['span']} {1e3 * p['wall_s']:.0f}" for p in shrunk[:40])
+        + (" ..." if len(shrunk) > 40 else "") + " ms")
+    for rid in arr:
+        t = traces[rid]
+        log(f"  arrival {rid}: first token {1e3 * t.ttft:.0f} ms after submit, "
+            f"{1e3 * (t.token_times[0] - t.admit_t):.0f} ms after admission, prefill in "
+            f"{sum(1 for p in rec.prefills for q in p['rows_rids'] if q == rid)} launches")
+    log(f"  parked residents served again unpressured: {len(parked)}; first differing token "
+        f"by request {differ} (None: equal token for token; both runs held against "
+        f"teacher-forced logits, so a divergence is a near tie)")
+    for rid, calls in resumes.items():
+        log(f"  resume of request {rid}: re-prefill from token {calls[0][0]} (prefix hit) in "
+            f"{len(calls)} launches, {sum(c[2] for c in calls):.3f} s "
+            f"({', '.join(f'{c[1]} tokens {1e3 * c[2]:.0f} ms' for c in calls[:8])})")
+    tier = rec.tier_ms()
+    log(f"  host tier per page (median / max ms): " + "; ".join(
+        f"{k} {v['median_ms']:.2f} / {v['max_ms']:.2f} over {v['n']}" for k, v in tier.items())
+        + f"; tier_spilled_pages {st['tier_spilled_pages']}, tier_restored_pages "
+        f"{st['tier_restored_pages']}, tier_hit_tokens {st['tier_hit_tokens']}, tier_bytes "
+        f"{st['tier_bytes']}")
+    log(f"  RoofLens scales: " + ", ".join(f"{k} {v:.3g}" for k, v in sorted(scale.items()))
+        + f"; parked {st['parked_requests']}, resumed {st['resumed_requests']}, "
+        f"degradations {st['degradations']}, prefix_hit_tokens {st['prefix_hit_tokens']}; "
+        f"statuses {sorted(set(s.value for s in eng.statuses.values()))}; occupancy {occ}; "
+        f"{sum(map(len, outs))} tokens in {wall:.2f} s after the arrivals")
+    if order != ["prefix_evict", "spec_off", "prefill_shrink", "park"]:
+        raise AssertionError(f"the ladder applied {applied}, not prefix_evict, spec_off, "
+                             "prefill_shrink, park in order")
+    if st["parked_requests"] < 1 or st["resumed_requests"] < 1:
+        raise AssertionError("no resident parked and resumed")
+    if any(eng.statuses[r] != RequestStatus.OK for r in rids):
+        raise AssertionError(f"a request did not end OK: {eng.statuses}")
+    if sched.degradation_level != 0 or not sched._spec_enabled:
+        raise AssertionError("the ladder did not relax at drain")
+    if st["tier_spilled_pages"] == 0 or st["tier_restored_pages"] == 0:
+        raise AssertionError("the host tier spilled or restored nothing")
+    if not captured:
+        raise AssertionError("spec_off ran no plain decode chunk")
+    if any(len(o) != n for o, n in zip(outs, [16, 16] + res_new + [64, 64, 16])):
+        raise AssertionError("a request did not emit its tokens")
+    teacher_forced(torch, eng.model, params, prompts + [residents[i] for i in parked],
+                   outs + calm, report, key="teacher_forced_ladder")
+    res = {"pages": pages, "page_mb": page_mb, "applied": applied, "rungs": rec.rungs,
+           "prefills": rec.prefills, "decodes": rec.decodes, "tier_ms": tier, "scale": scale,
+           "stats": st, "occupancy": occ, "resumes": resumes, "wall_s": wall,
+           "unpressured_first_difference": differ,
+           "arrival_ttft_s": [traces[r].ttft for r in arr],
+           "plain_capture": {"round": captured[0]["round"], "wall_s": captured[0]["wall_s"],
+                             "capture_s": graph.capture_s, "graph_bytes": graph.graph_bytes}}
+    del eng, sched, rec
+    torch.cuda.empty_cache()
+    return res
+
+
+def chaos_traffic(torch, vocab):
+    """(b)'s traffic, seeded: a 256-token system prompt S behind four
+    warm-up prompts, four fresh prompts of 64-512 tokens and four more
+    behind S (257-512 tokens)."""
+    g = torch.Generator().manual_seed(10)
+    rand = lambda n: torch.randint(0, vocab, (int(n),), generator=g)
+    system = rand(256)
+    warm = [torch.cat([system, rand(n)]).numpy() for n in (5, 9, 13, 17)]
+    fresh = [rand(n).numpy() for n in torch.randint(64, 513, (4,), generator=g)]
+    behind = [torch.cat([system, rand(n)]).numpy() for n in torch.randint(1, 257, (4,),
+                                                                          generator=g)]
+    return warm, fresh + behind
+
+
+def chaos_engine(torch, model, params, warm, injector, watchdog):
+    """A plain engine with the prefix cache and a host tier, warmed: each
+    decode graph shape (chunks of 8, 4, 2, 1) captured, then the warm-up
+    prompts' cached pages (S's 8) spilled to the tier."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8, prefix_cache=True, host_tier=True,
+                           injector=injector, watchdog=watchdog)
+    for p, n in zip(warm, (9, 5, 3, 2)):
+        eng.submit(p, max_new_tokens=n)
+        eng.run_until_drained()
+    eng.kv.spill_all()
+    return eng
+
+
+def drive(torch, eng, prompts, new):
+    """Submit `prompts` at once and step to drain, recording each round's
+    wall, admissions and finishes."""
+    sched = eng.scheduler
+    admits, inner = [], eng.kv.admit
+
+    def admit(rid, *a, **kw):
+        admits.append(sched._round)
+        return inner(rid, *a, **kw)
+
+    eng.kv.admit = admit
+    rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
+    rounds = []
+    while sched.queue or any(r is not None for r in sched.slots):
+        r, n0, a0 = sched._round, len(sched.statuses), len(admits)
+        t = time.perf_counter()
+        sched.step()
+        torch.cuda.synchronize()
+        rounds.append({"round": r, "wall_s": time.perf_counter() - t,
+                       "admitted": len(admits) - a0, "ended": len(sched.statuses) - n0})
+    done = sched.run_until_drained()
+    eng.kv.admit = inner
+    return rids, [done[i] for i in rids], rounds
+
+
+def chaos_serve(torch, model, params, report):
+    """(b) the serving chaos harness at full width: a poisoned prefill, an
+    exhausted pool, a slow round and a corrupted tier payload on separate
+    rounds of one serve, against a clean serve of the same traffic."""
+    from repro_torch.dist.fault import FaultInjector, StragglerWatchdog
+    from repro_torch.serve.slo import RequestStatus
+
+    warm, prompts = chaos_traffic(torch, model.cfg.vocab_size)
+    clean = chaos_engine(torch, model, params, warm, None, None)
+    base = clean.scheduler._round
+    crids, couts, crounds = drive(torch, clean, prompts, 32)
+    cst = clean.scheduler.stats()
+    clean.scheduler.check_invariants()
+    del clean
+    torch.cuda.empty_cache()
+    # the slow round sleeps four times the clean serve's slowest round of
+    # the first four, so it clears the watchdog's 3x the mean of the three
+    # rounds before it whatever their prefills cost
+    slow_s = 4 * max(r["wall_s"] for r in crounds[:4])
+    inj, wd = FaultInjector(slow_s=slow_s), StragglerWatchdog()
+    eng = chaos_engine(torch, model, params, warm, inj, wd)
+    if eng.scheduler._round != base:
+        raise AssertionError("the warm-ups took different rounds")
+    wd.durations.clear()  # the baseline restarts after the warm-up's captures
+    wd.events.clear()
+    plan = {base: "poison_prefill", base + 1: "exhaust_pool", base + 2: "corrupt_tier_page",
+            base + 3: "slow"}
+    inj.plan.update(plan)
+    rids, outs, rounds = drive(torch, eng, prompts, 32)
+    st, occ = eng.scheduler.stats(), eng.scheduler.check_invariants()
+    statuses = [eng.statuses[r] for r in rids]
+    exhausted = next(r for r in rounds if r["round"] == base + 1)
+    indexed = eng.kv.prefix.lookup_chain(prompts[0])
+    differ = [i for i in range(1, len(prompts)) if list(outs[i]) != list(couts[i])]
+    first = {i: next(j for j, (a, b) in enumerate(zip(outs[i], couts[i])) if a != b)
+             for i in differ}
+    log(f"overload_serve (b): plan {plan} (slow_s {slow_s:.3f} s = 4 x the clean serve's "
+        f"slowest of its first four rounds); fired {sorted(inj.fired)}; statuses "
+        f"{[s.value for s in statuses]}; watchdog {wd.report()}")
+    log(f"  rounds (round, wall ms, admitted, ended): " + ", ".join(
+        f"({r['round']}, {1e3 * r['wall_s']:.0f}, {r['admitted']}, {r['ended']})"
+        for r in rounds) + f"; clean serve: " + ", ".join(
+        f"({r['round']}, {1e3 * r['wall_s']:.0f}, {r['admitted']}, {r['ended']})"
+        for r in crounds))
+    log(f"  tier_corrupt {st['tier_corrupt']}, tier_fallback_recompute "
+        f"{st['tier_fallback_recompute']}, tier_restored_pages {st['tier_restored_pages']} "
+        f"(clean {cst['tier_restored_pages']}); failed_requests {st['failed_requests']}; "
+        f"survivors equal to the clean serve token for token on "
+        f"{len(prompts) - 1 - len(differ)}/{len(prompts) - 1}; first differing token "
+        f"{first} (both serves held against teacher-forced logits: a divergence is a near "
+        f"tie); occupancy {occ}")
+    if statuses != [RequestStatus.FAILED] + [RequestStatus.OK] * (len(prompts) - 1):
+        raise AssertionError(f"chaos statuses {statuses}")
+    if len(outs[0]) or indexed != ([], []):
+        raise AssertionError("the poisoned request emitted a token or seeded the index")
+    if inj.fired != set(plan.items()):
+        raise AssertionError(f"planned faults did not fire: {inj.fired}")
+    if base + 3 not in wd.events:
+        raise AssertionError(f"the slow round was not flagged: {wd.report()}")
+    if exhausted["admitted"] or exhausted["ended"]:
+        raise AssertionError(f"the exhausted round admitted or ended a request: {exhausted}")
+    if st["tier_corrupt"] != 1 or st["tier_fallback_recompute"] != 1:
+        raise AssertionError("the corrupted payload did not fall back to one recompute")
+    teacher_forced(torch, eng.model, params, prompts[1:], outs[1:], report,
+                   key="teacher_forced_chaos")
+    teacher_forced(torch, eng.model, params, prompts[1:], couts[1:], report,
+                   key="teacher_forced_chaos_clean")
+    res = {"plan": {str(k): v for k, v in plan.items()}, "slow_s": slow_s,
+           "watchdog": wd.report(), "rounds": rounds, "clean_rounds": crounds, "stats": st,
+           "differ": first, "occupancy": occ}
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def gated_serve(torch, model, params, prompts, report):
+    """(c) the SLO gates on RoofLens's prices for this card: calibrate on
+    a serve of the plain traffic, then serve twelve requests at once under
+    a bounded queue, a TTFT objective of 1.5x that serve's TTFT p50 and an
+    ITL objective of 1.25x its replayed decode step, two of them with a
+    deadline of half the TTFT objective."""
+    from repro_torch.obs import Observability
+    from repro_torch.serve.engine import GenerationEngine
+    from repro_torch.serve.slo import RequestStatus, SLAPolicy
+
+    obs = Observability.default(clock=capture_checked_clock(torch))
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=8, obs=obs, sla=SLAPolicy())
+    _, warm = serve_traffic(torch, eng, prompts)
+    scale = obs.rooflens.calibrate()
+    summary = obs.tracer.summary()
+    ttft = 1.5 * summary["ttft_s"]["p50"]
+    itl = 1.25 * warm["replayed_ms_per_device_step"] / 1e3
+    obs.tracer.reset()
+    obs.rooflens.reset_samples()
+    g = torch.Generator().manual_seed(11)
+    extra = [torch.randint(0, model.cfg.vocab_size, (int(n),), generator=g).numpy()
+             for n in torch.randint(64, 1025, (4,), generator=g)]
+    reqs = list(prompts) + extra
+    eng.scheduler.sla = SLAPolicy(max_queue=8, ttft_slo_s=ttft, itl_slo_s=itl)
+    deadlines = {6: 0.5 * ttft, 7: 0.5 * ttft}
+    rids = [eng.submit(p, max_new_tokens=64, deadline_s=deadlines.get(i))
+            for i, p in enumerate(reqs)]
+    done = eng.run_until_drained()
+    st = eng.scheduler.stats()
+    statuses = {r: eng.statuses[r] for r in rids}
+    at_submit = sum(statuses[r] == RequestStatus.SHED for r in rids[8:])
+    served = [r for r in rids if statuses[r] == RequestStatus.OK]
+    rows = []
+    for r in served:
+        t = obs.tracer.requests[r]
+        gaps = t.itl
+        rows.append({"rid": r, "ttft_s": t.ttft, "itl_mean_s": sum(gaps) / max(1, len(gaps)),
+                     "itl_max_s": max(gaps, default=0.0)})
+    met_ttft = sum(x["ttft_s"] <= ttft for x in rows)
+    met_itl = sum(x["itl_mean_s"] <= itl for x in rows)
+    log(f"overload_serve (c): calibrated on the plain traffic (TTFT p50 "
+        f"{1e3 * summary['ttft_s']['p50']:.1f} ms, replayed decode "
+        f"{warm['replayed_ms_per_device_step']:.2f} ms a step; scales "
+        + ", ".join(f"{k} {v:.3g}" for k, v in sorted(scale.items()))
+        + f"): T = {1e3 * ttft:.1f} ms, I = {1e3 * itl:.2f} ms; deadlines {0.5e3 * ttft:.1f} "
+        f"ms on requests {rids[6]} and {rids[7]}")
+    log(f"  shed at submit {at_submit} (4 expected), shed by the TTFT gate "
+        f"{st['shed_requests'] - at_submit}, expired {st['expired_requests']}, itl_deferrals "
+        f"{st['itl_deferrals']}; statuses {[s.value for s in statuses.values()]}")
+    for x in rows:
+        log(f"  request {x['rid']}: TTFT {1e3 * x['ttft_s']:.1f} ms ({'meets' if x['ttft_s'] <= ttft else 'misses'} T), "
+            f"ITL mean {1e3 * x['itl_mean_s']:.2f} ms ({'meets' if x['itl_mean_s'] <= itl else 'misses'} I), "
+            f"max gap {1e3 * x['itl_max_s']:.1f} ms")
+    log(f"  admitted {len(rows)}: TTFT met by {met_ttft}/{len(rows)}, ITL (mean a token) met "
+        f"by {met_itl}/{len(rows)}")
+    if at_submit != 4:
+        raise AssertionError(f"{at_submit} requests shed at submit, not 4")
+    if not rows:
+        raise AssertionError("the gates admitted nothing")
+    teacher_forced(torch, eng.model, params, [reqs[rids.index(r)] for r in served],
+                   [done[r] for r in served], report, key="teacher_forced_gated")
+    res = {"ttft_slo_s": ttft, "itl_slo_s": itl, "scale": scale, "stats": st,
+           "statuses": {str(r): s.value for r, s in statuses.items()}, "requests": rows,
+           "shed_at_submit": at_submit, "met_ttft": met_ttft, "met_itl": met_itl}
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def overload_serve(torch, model, params, prompts, report):
+    """Overload resilience and the host KV tier at full width: (a) the
+    degradation ladder down to park, (b) the chaos harness, (c) the SLO
+    gates on RoofLens's prices. Launch counts are set to 0 before (a) and
+    read after (c)."""
+    t0 = time.perf_counter()
+    launches = dict.fromkeys(counters(), 0)
+
+    def bank():  # (c)'s serve_traffic sets the counts to 0 itself
+        for k, fn in counters().items():
+            launches[k] += fn.launches
+            fn.launches = 0
+
+    bank()
+    launches = dict.fromkeys(counters(), 0)
+    res = {"ladder": ladder_serve(torch, model, params, report)}
+    bank()
+    res["chaos"] = chaos_serve(torch, model, params, report)
+    bank()
+    res["gates"] = gated_serve(torch, model, params, prompts, report)
+    bank()
+    res["launches"], res["seconds"] = launches, time.perf_counter() - t0
+    log(f"overload_serve: launches {launches}; {res['seconds']:.1f} s")
+    idle = [k for k, n in launches.items() if n == 0]
+    if idle:
+        raise AssertionError(f"kernels never launched in overload_serve: {idle}")
+    report["overload_serve"] = res
+
+
 def main() -> int:
     import torch
 
@@ -1680,6 +2178,9 @@ def main() -> int:
 
     # 10. the serving path observed: metrics, tracer, RoofLens, SLA-sized chunks
     observed_serve(torch, model, params, prompts, plain, spec_outs, report)
+
+    # 11. overload: the ladder down to park, chaos, the SLO gates, the host tier
+    overload_serve(torch, model, params, prompts, report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")

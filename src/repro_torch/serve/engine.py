@@ -20,7 +20,8 @@ replay (`serve/graphs.py`), captured per input shape; on the CPU the same
 step functions run eagerly. `obs=Observability.default()` installs the
 metrics registry, the request tracer and RoofLens (`repro_torch.obs`); the
 scheduler's sites read the host clock around its device calls and nothing
-else.
+else. `sla`, `injector`, `watchdog` and `host_tier` install overload
+resilience and the host KV tier (see `GenerationEngine`).
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.device import resolve
 from repro_torch.models.model import Model
 from repro_torch.serve import sampling
 from repro_torch.serve.graphs import StepGraphs
+from repro_torch.serve.host_tier import HostTier, apply_page_planes
 from repro_torch.serve.paged_cache import PagedKVCache
 from repro_torch.serve.scheduler import Scheduler
 
@@ -197,6 +199,26 @@ class GenerationEngine:
     `prefill_sla_s` (with `prefill_chunk` and a RoofLens in `obs`) sizes
     each chunked-prefill launch: the largest page-aligned power-of-two span
     whose calibrated predicted wall fits the budget.
+
+    `sla` installs a `repro_torch.serve.slo.SLAPolicy`: a bounded queue,
+    TTFT shedding, RoofLens-driven ITL admission deferral, and the
+    degradation ladder (evict index pages, spec off, one-page prefill
+    chunks, spill to the host tier, park the lowest-priority resident and
+    resume it later through the prefix cache). `injector` and `watchdog`
+    hook a `repro_torch.dist.fault.FaultInjector` and `StragglerWatchdog`
+    into the scheduler's round loop (the serving chaos harness). With
+    either of `sla` and `injector`, a prefill whose logits are not finite
+    fails only its request; the check rides the sampler's one copy to the
+    host. `statuses` maps every finished rid to its `RequestStatus`.
+
+    `host_tier` (True for an unbounded tier, or a configured `HostTier`;
+    needs `prefix_cache=True`) installs a host-memory KV tier under the
+    prefix cache: pool pressure spills cold cached pages (the KV codec's
+    packed planes with a CRC32C) instead of dropping them, admission
+    restores tier-resident prefix hits with a verified upload before the
+    prefill launch, written into the pools in place so captured decode
+    graphs keep replaying, and the ladder gains its `spill` rung. Snapshots
+    of the tier wait for ROADMAP Queue A item 9b.
     """
 
     def __init__(
@@ -218,6 +240,10 @@ class GenerationEngine:
         prefill_chunk: Optional[int] = None,
         obs=None,
         prefill_sla_s: Optional[float] = None,
+        sla=None,
+        injector=None,
+        watchdog=None,
+        host_tier=None,
         paged: bool = True,
         device="cuda",
     ):
@@ -250,9 +276,12 @@ class GenerationEngine:
         self.max_blocks = math.ceil(max_len / block_size)
         if num_blocks is None:
             num_blocks = max_slots * self.max_blocks
+        self.tier: Optional[HostTier] = None
+        if host_tier:
+            self.tier = host_tier if isinstance(host_tier, HostTier) else HostTier()
         self.kv = PagedKVCache(
             model, num_blocks=num_blocks, block_size=block_size,
-            device=self.device, prefix_cache=prefix_cache,
+            device=self.device, prefix_cache=prefix_cache, tier=self.tier,
         )
         self._paged_prefill = make_paged_prefill_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
@@ -298,6 +327,10 @@ class GenerationEngine:
             prefill_chunk=prefill_chunk,
             obs=obs,
             prefill_sla_s=prefill_sla_s,
+            sla=sla,
+            injector=injector,
+            watchdog=watchdog,
+            tier_restore_fn=self._run_tier_restore if self.tier is not None else None,
         )
 
     def _bind_rooflens(self, lens, max_slots: int) -> None:
@@ -329,16 +362,22 @@ class GenerationEngine:
         0 / 1, uint32 words as their two's complement)."""
         return torch.as_tensor(np.asarray(a).astype(np.int32), device=self.device)
 
-    def _sample_rows(self, logits: torch.Tensor, rids, steps) -> np.ndarray:
+    def _sample_rows(self, logits: torch.Tensor, rids, steps, guard: bool = False):
         """Tokens of logits (N, V) on the device, row n keyed on (rids[n],
-        steps[n]); only the (N,) ids cross to host."""
+        steps[n]); only the (N,) ids cross to host. With `guard`, each row's
+        all-finite flag is computed on the device beside its token and
+        both cross in the same copy: (tokens, flags)."""
         if self.greedy:
             toks = argmax_tokens(logits)
         else:
             toks = sampling.sample_rows_keyed(
                 self._key, sampling.as_u32(self._t(rids)),
                 sampling.as_u32(self._t(steps)), logits, self._temp)
-        return toks.cpu().numpy()
+        if not guard:
+            return toks.cpu().numpy()
+        finite = torch.isfinite(logits).all(dim=-1).to(torch.int32)
+        both = torch.stack([toks.to(torch.int32), finite]).cpu().numpy()
+        return both[0], both[1].astype(bool)
 
     def _run_paged_prefill(self, tokens, positions, tables, slots, wpos, fresh,
                            copies, last_idx):
@@ -351,6 +390,12 @@ class GenerationEngine:
 
     def _run_paged_scrub(self, pages):
         self.kv.pools = self.model.paged_scrub(self.kv.pools, self._t(pages))
+
+    def _run_tier_restore(self, dev_pages, planes_list):
+        """Upload verified tier payloads into their device pages, in place,
+        before the prefill launch that reads them: the pools keep their
+        addresses, so the decode graphs captured on them replay unchanged."""
+        apply_page_planes(self.kv.pools, dev_pages, planes_list)
 
     def _chunk_device(self, tokens0, tables, positions, wslots, wpos, fresh,
                       kv_lens, rids, start_steps, max_steps, eos, active):
@@ -396,11 +441,23 @@ class GenerationEngine:
         return both[:cap], both[cap:]
 
     def submit(self, prompt: np.ndarray, *, max_new_tokens: int,
-               eos_id: Optional[int] = None) -> int:
-        """Enqueue one request; returns its id (key into run_until_drained)."""
+               eos_id: Optional[int] = None, deadline_s: Optional[float] = None,
+               priority: int = 0) -> int:
+        """Enqueue one request; returns its id (key into run_until_drained).
+        `deadline_s` drops the request (EXPIRED, or PREEMPTED once parked)
+        when it can no longer be served in time; `priority` orders
+        park-victim selection under pool pressure."""
         return self.scheduler.submit(
-            prompt, max_new_tokens=max_new_tokens, eos_id=eos_id
+            prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
+            deadline_s=deadline_s, priority=priority,
         )
+
+    @property
+    def statuses(self) -> Dict[int, Any]:
+        """rid -> terminal `RequestStatus` of every finished request. Unlike
+        results, statuses are not drained: they accumulate for the engine's
+        life."""
+        return dict(self.scheduler.statuses)
 
     def run_until_drained(self) -> Dict[int, np.ndarray]:
         """Step the scheduler until every submitted request completes."""

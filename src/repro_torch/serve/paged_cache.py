@@ -2,8 +2,8 @@
 prefix index, and per-request block tables over the device pools built by
 `Model.init_paged_cache`.
 
-Counterpart of `repro/serve/paged_cache.py` without its host tier, park and
-window freeing (ROADMAP Queue A items 9, 8 and 10). Layout:
+Counterpart of `repro/serve/paged_cache.py` without its window freeing
+(ROADMAP Queue A item 10). Layout:
 per attention layer one (num_blocks+1, block_size, Hkv, W) pool for K and V
 plus a (num_blocks+1, block_size) position plane. Device page 0 is the null
 page: pad and inactive-slot writes land there with the empty-position
@@ -14,10 +14,16 @@ sentinel. Allocator page `a` is device page `a + 1`.
   PrefixIndex     radix tree over `block_size`-token prompt chunks mapping
                   shared prompt prefixes to pages; it holds one reference
                   on every page it caches, and LRU leaf eviction reclaims
-                  index-only pages when admission needs headroom
+                  index-only pages when admission needs headroom. With a
+                  host tier installed a node may instead be tiered: its
+                  page spilled to host memory as a checksummed payload
+                  under the node's content key; admission restores tiered
+                  hits into fresh device pages before the prefill launch
   PagedKVCache    block tables, lazy page allocation, admission
-                  reservations, copy-on-write, and the flat write-slot /
-                  block-table / fresh-page / copy arrays the device steps take
+                  reservations, copy-on-write, park, and the flat
+                  write-slot / block-table / fresh-page / copy arrays the
+                  device steps take; owns the device pools and routes
+                  index-eviction victims into the host tier
 
 A request at length `len` holds exactly ceil(len / block_size) pages; with
 the prefix index on, pages holding a prompt prefix another request already
@@ -29,19 +35,19 @@ and raises.
 """
 from __future__ import annotations
 
-import hashlib
 import math
 from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-
-def chain_key(parent_key: bytes, chunk: bytes) -> bytes:
-    """Content address of a radix-index node: a hash of its parent's key
-    and its own token-chunk bytes (the reference's `host_tier.chain_key`;
-    the root's key is b"")."""
-    return hashlib.blake2b(parent_key + chunk, digest_size=16).digest()
+from repro_torch.serve.host_tier import (
+    HostTier,
+    chain_key,
+    extract_page_planes,
+    pack_payload,
+    unpack_payload,
+)
 
 
 class BlockAllocator:
@@ -118,6 +124,12 @@ class _RadixNode:
         self.tick = tick
         self.key = key  # content address: chain_key over the root path
 
+    @property
+    def tiered(self) -> bool:
+        """True when this node's page lives in the host tier, not on the
+        device (the root, the only other page-less node, has no parent)."""
+        return self.page is None and self.parent is not None
+
 
 class PrefixIndex:
     """Radix tree keyed on `block_size`-token prompt chunks (int32 bytes).
@@ -126,16 +138,22 @@ class PrefixIndex:
     KV; a root-to-node path is a cached prompt prefix. The index increfs
     every page it caches, so a request's release never drops a cached
     prefix: pages leave the index only through `evict` (oldest-touched
-    leaves first, and only while no request shares them) or `drop_subtree`.
-    The reference's tier members (tiered nodes, restore, spill) belong to
-    ROADMAP Queue A item 9 and are not ported: every node here holds its
-    page in device memory."""
+    frontier first, and only while no request shares them) or `spill`.
+
+    With a host tier attached (`self.tier`) a node can be tiered: its page
+    spilled to host memory as a checksummed payload under the node's
+    content key, `node.page` set to None. A resident node never sits below
+    a tiered one: spilling walks leaf-first and restoring walks top-down
+    along the hit chain, so every root-to-node prefix is a resident run
+    followed by a tiered run."""
 
     def __init__(self, block_size: int, allocator: BlockAllocator):
         self.block_size = block_size
         self.allocator = allocator
+        self.tier: Optional[HostTier] = None  # set by PagedKVCache
         self._root = _RadixNode(b"", None, None, 0)
         self._pages = 0
+        self._tiered = 0
         self._tick = 0
 
     def _chunks(self, prompt) -> Iterator[bytes]:
@@ -146,33 +164,83 @@ class PrefixIndex:
 
     @property
     def pages(self) -> int:
-        """Pages the index pins (one reference each)."""
+        """Device pages the index pins (one reference each)."""
         return self._pages
 
+    @property
+    def tiered_count(self) -> int:
+        """Nodes whose page lives in the host tier."""
+        return self._tiered
+
     def lookup(self, prompt) -> List[int]:
-        """Longest cached full-page prefix of `prompt` -> its page ids in
-        position order. Touches the matched chain's LRU ticks."""
+        """Longest device-resident cached full-page prefix of `prompt` ->
+        its page ids in position order. Touches the matched chain's LRU
+        ticks; tiered continuations are `lookup_chain`'s."""
+        return self.lookup_chain(prompt)[0]
+
+    def lookup_chain(self, prompt) -> Tuple[List[int], List[_RadixNode]]:
+        """Longest cached full-page prefix of `prompt`, split into its
+        resident run (page ids, position order) and the tiered run behind
+        it (nodes whose payloads the tier can restore). Touches the matched
+        chain's LRU ticks."""
         self._tick += 1
-        node, pages = self._root, []
+        node, pages, tiered = self._root, [], []
         for key in self._chunks(prompt):
             child = node.children.get(key)
             if child is None:
                 break
             child.tick = self._tick
-            pages.append(child.page)
+            if child.tiered:
+                tiered.append(child)
+            elif tiered:
+                raise RuntimeError(
+                    "prefix-index corruption: resident node below a tiered "
+                    "node (spill must walk leaf-first)"
+                )
+            else:
+                pages.append(child.page)
             node = child
-        return pages
+        return pages, tiered
+
+    def tiered_hit_pages(self, prompt) -> int:
+        """Restorable tiered pages `lookup_chain(prompt)` would return,
+        without touching LRU ticks: the TTFT gate prices the restore with
+        it before committing to admit."""
+        node, n = self._root, 0
+        for key in self._chunks(prompt):
+            child = node.children.get(key)
+            if child is None:
+                break
+            if child.tiered:
+                n += 1
+            node = child
+        return n
 
     def insert(self, prompt, table: List[int]) -> int:
         """Cache every full page of a finished prefill: chunks already
         indexed are kept (first writer wins: the later request's identical
         page stays private), new chunks pin the request's page with one
-        index reference. Returns pages newly pinned."""
+        index reference. A tiered node on the path is re-adopted instead:
+        the writer's page holds the same content (same chunk path, causal
+        attention), so the node goes resident on it and its tier payload is
+        dropped, which keeps resident nodes above tiered ones. Returns
+        pages newly pinned."""
         self._tick += 1
         node, added = self._root, 0
         for i, key in enumerate(self._chunks(prompt)):
             child = node.children.get(key)
-            if child is None:
+            if child is not None and child.tiered:
+                if i >= len(table):
+                    break
+                child.page = table[i]
+                self.allocator.incref(table[i])
+                self._pages += 1
+                self._tiered -= 1
+                if self.tier is not None:
+                    self.tier.pop(child.key)
+                child.tick = self._tick
+                added += 1
+            elif child is None:
                 if i >= len(table):
                     break
                 child = _RadixNode(key, table[i], node, self._tick,
@@ -187,16 +255,17 @@ class PrefixIndex:
         return added
 
     def evictable_count(self) -> int:
-        """Pages reclaimable now: nodes whose whole subtree the index alone
-        holds (count 1), which evict leaf-first without breaking a chain a
-        request still shares."""
+        """Pages reclaimable now: resident nodes whose whole subtree the
+        index alone holds (count 1), which evict or spill leaf-first
+        without breaking a chain a request still shares. Tiered nodes hold
+        no device page and never block an ancestor."""
         def walk(n: _RadixNode) -> Tuple[int, bool]:
             total, all_free = 0, True
             for c in n.children.values():
                 t, a = walk(c)
                 total += t
                 all_free = all_free and a
-            if n.page is None:  # the root
+            if n.page is None:  # the root or a tiered node: nothing to reclaim
                 return total, all_free
             if all_free and self.allocator.ref_count(n.page) == 1:
                 return total + 1, True
@@ -204,21 +273,81 @@ class PrefixIndex:
 
         return walk(self._root)[0]
 
-    def _frontier(self) -> List[_RadixNode]:
-        """Eviction candidates: index-only (count 1) leaves."""
-        out, stack = [], [self._root]
+    def _drop_tiered_subtree(self, node: _RadixNode) -> None:
+        """Remove every (tiered) descendant of `node` and its tier payload.
+        Called only where the subtree is all tiered: below an eviction or
+        spill frontier node, or on a corrupt payload."""
+        stack = list(node.children.values())
+        node.children.clear()
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
-            if (n.page is not None and not n.children
+            self._tiered -= 1
+            if self.tier is not None:
+                self.tier.pop(n.key)
+
+    def drop_subtree(self, node: _RadixNode) -> None:
+        """Unlink tiered `node` and its (all-tiered) subtree: the fallback
+        for a corrupt or missing payload, whose chain the admission then
+        recomputes."""
+        if not node.tiered:
+            raise ValueError("drop_subtree is the tiered-fallback path only")
+        self._drop_tiered_subtree(node)
+        self._tiered -= 1
+        if self.tier is not None:
+            self.tier.pop(node.key)
+        del node.parent.children[node.chunk]
+
+    def drop_key(self, key: bytes) -> None:
+        """Capacity-drop hook (`HostTier.on_drop`): the tier evicted this
+        payload, so unlink the tiered node holding `key` and its subtree,
+        which keeps nodes and payloads one-to-one."""
+        found = None
+        stack = [self._root]
+        while stack and found is None:
+            n = stack.pop()
+            for c in n.children.values():
+                if c.tiered and c.key == key:
+                    found = c
+                    break
+                stack.append(c)
+        if found is not None:
+            self._drop_tiered_subtree(found)
+            self._tiered -= 1
+            del found.parent.children[found.chunk]
+
+    def restore_node(self, node: _RadixNode, page: int) -> None:
+        """Point a tiered node at a freshly allocated device page (the caller
+        pops the payload and schedules the upload). Restores run top-down
+        along a hit chain, so resident nodes stay above tiered ones."""
+        if not node.tiered:
+            raise ValueError("restore_node on a resident node")
+        node.page = page
+        self._pages += 1
+        self._tiered -= 1
+
+    def _frontier(self) -> List[_RadixNode]:
+        """Reclaim candidates: resident, index-only (count 1) nodes with no
+        resident child, so evicting or spilling one never breaks a chain
+        above a page someone still reads from the device."""
+        out, stack = [], [self._root]
+        while stack:
+            n = stack.pop()
+            resident_kids = False
+            for c in n.children.values():
+                if not c.tiered:
+                    resident_kids = True
+                    stack.append(c)
+            if (n.page is not None and not resident_kids
                     and self.allocator.ref_count(n.page) == 1):
                 out.append(n)
         return out
 
     def evict(self, n_pages: int) -> int:
-        """Reclaim up to `n_pages` index-only pages, LRU leaves first
-        (evicting a leaf may expose its parent as the next candidate).
-        Returns pages returned to the free list."""
+        """Reclaim up to `n_pages` index-only pages by dropping them, LRU
+        frontier first (evicting a node may expose its parent). A dropped
+        node takes its tiered subtree's payloads with it: the chain below
+        would be unreachable. Returns pages returned to the free list."""
         freed = 0
         while freed < n_pages:
             frontier = self._frontier()
@@ -228,47 +357,61 @@ class PrefixIndex:
             for node in frontier:
                 if freed >= n_pages:
                     break
+                if any(not c.tiered for c in node.children.values()):
+                    continue  # a sibling pass may have changed the frontier
+                self._drop_tiered_subtree(node)
                 del node.parent.children[node.chunk]
                 self._pages -= 1
                 freed += len(self.allocator.free([node.page]))
         return freed
 
-    def drop_subtree(self, node: _RadixNode) -> int:
-        """Unlink `node` and everything below it, dropping the index's
-        reference on each of their pages (a request sharing one keeps its
-        own). Returns pages returned to the free list."""
-        if node.parent is None:
-            raise ValueError("the root cannot be dropped")
-        del node.parent.children[node.chunk]
-        pages, stack = [], [node]
-        while stack:
-            n = stack.pop()
-            stack.extend(n.children.values())
-            pages.append(n.page)
-        self._pages -= len(pages)
-        return len(self.allocator.free(pages))
-
-    def drop_key(self, key: bytes) -> int:
-        """`drop_subtree` of the node whose content address is `key`;
-        0 when no node has it."""
-        stack = [self._root]
-        while stack:
-            n = stack.pop()
-            for c in n.children.values():
-                if c.key == key:
-                    return self.drop_subtree(c)
-                stack.append(c)
-        return 0
+    def spill(self, n_pages: int, extract_fn) -> int:
+        """Reclaim up to `n_pages` index-only pages by spilling them to the
+        host tier instead of dropping them: `extract_fn(page)` packs the
+        page's planes into a checksummed payload, stored under the node's
+        content key; the device page returns to the free list and the node
+        stays, tiered. Same LRU frontier order as `evict`. Returns pages
+        returned to the free list."""
+        if self.tier is None:
+            raise RuntimeError("spill without a host tier installed")
+        freed = 0
+        while freed < n_pages:
+            frontier = self._frontier()
+            if not frontier:
+                break
+            frontier.sort(key=lambda n: n.tick)
+            for node in frontier:
+                if freed >= n_pages:
+                    break
+                if any(not c.tiered for c in node.children.values()):
+                    continue
+                self.tier.put(node.key, extract_fn(node.page))
+                page, node.page = node.page, None
+                self._pages -= 1
+                self._tiered += 1
+                freed += len(self.allocator.free([page]))
+        return freed
 
     def page_multiset(self) -> List[int]:
-        """Every page the index holds a reference on, one entry per node
-        (the audit hook of the reference's `check_invariants`)."""
+        """Every page the index holds a reference on, one entry per
+        resident node (the audit hook of `Scheduler.check_invariants`)."""
         out, stack = [], [self._root]
         while stack:
             n = stack.pop()
             stack.extend(n.children.values())
             if n.page is not None:
                 out.append(n.page)
+        return out
+
+    def tier_keys(self) -> List[bytes]:
+        """Content keys of every tiered node: `check_invariants` matches
+        them one-to-one against the tier's payload keys."""
+        out, stack = [], [self._root]
+        while stack:
+            n = stack.pop()
+            stack.extend(n.children.values())
+            if n.tiered:
+                out.append(n.key)
         return out
 
 
@@ -284,6 +427,7 @@ class PagedKVCache:
         device="cuda",
         dtype=torch.bfloat16,
         prefix_cache: bool = False,
+        tier: Optional[HostTier] = None,
     ):
         self.block_size = block_size
         self.num_blocks = num_blocks
@@ -292,16 +436,28 @@ class PagedKVCache:
         self.pools = model.init_paged_cache(
             num_blocks, block_size, device=device, dtype=dtype
         )
+        if tier is not None and not prefix_cache:
+            raise ValueError(
+                "a host tier requires prefix_cache=True (tiered pages live "
+                "under the prefix index's content keys)"
+            )
         self.prefix: Optional[PrefixIndex] = (
             PrefixIndex(block_size, self.allocator) if prefix_cache else None
         )
+        self.tier = tier
+        if tier is not None:
+            self.prefix.tier = tier
+            tier.on_drop = self.prefix.drop_key
         self._tables: Dict[int, List[int]] = {}
         self._reserved: Dict[int, int] = {}
         self._fresh: List[int] = []  # device pages allocated since last drain
         self._pending_copies: List[Tuple[int, int]] = []  # (src, dst) device ids
+        # verified tier payloads awaiting upload: (device page, planes)
+        self._pending_restores: List[Tuple[int, Dict[str, torch.Tensor]]] = []
         # lifetime counters (Scheduler.stats() reports them)
         self.prefix_hit_tokens = 0
         self.cow_copies = 0
+        self.tier_hit_tokens = 0
 
     # -- admission accounting ------------------------------------------------
 
@@ -329,7 +485,9 @@ class PagedKVCache:
         """Pool occupancy now, in pages: used (distinct pages held by
         requests and the index), free, reserved, admittable (free minus
         reserved), shared (more than one holder), cached (pinned by the
-        index), total, and the number of request tables."""
+        index), tiered (spilled to the host tier: the fourth conservation
+        class, whose device pages are free and whose content lives on as
+        host payloads), total, and the number of request tables."""
         used = self.allocator.used_count
         free = self.allocator.free_count
         reserved = self.reserved_blocks
@@ -340,70 +498,160 @@ class PagedKVCache:
             "admittable": free - reserved,
             "shared": self.allocator.shared_count,
             "cached": self.prefix.pages if self.prefix is not None else 0,
+            "tiered": self.tier.pages if self.tier is not None else 0,
             "total": self.num_blocks,
             "tables": len(self._tables),
         }
 
-    def _hit_arithmetic(self, kv_len: int, prompt, n_hit: int) -> Tuple[int, int]:
-        """(hit tokens, pages to reserve) for a hit of `n_hit` pages. The
-        hit is capped at len(prompt) - 1 tokens: the last prompt token is
-        always recomputed (its logits give the first sample), and when the
-        cached pages cover the whole prompt its KV write lands in a shared
-        page, so one more page is reserved for the copy-on-write clone."""
+    def _hit_arithmetic(self, kv_len: int, prompt, n_resident: int,
+                        n_tiered: int) -> Tuple[int, int]:
+        """(hit tokens, pages to reserve) for a hit of `n_resident`
+        resident and `n_tiered` restorable pages. The hit is capped at
+        len(prompt) - 1 tokens: the last prompt token is always recomputed
+        (its logits give the first sample), and when the cached pages cover
+        the whole prompt its KV write lands in a shared page, so one more
+        page is reserved for the copy-on-write clone."""
+        total = n_resident + n_tiered
         hit_tokens = clone = 0
-        if prompt is not None and len(prompt) > 1 and n_hit:
-            hit_tokens = min(n_hit * self.block_size, len(prompt) - 1)
-            clone = int(n_hit * self.block_size >= len(prompt))
-        return hit_tokens, self.blocks_for(kv_len) - n_hit + clone
+        if prompt is not None and len(prompt) > 1 and total:
+            hit_tokens = min(total * self.block_size, len(prompt) - 1)
+            clone = int(total * self.block_size >= len(prompt))
+        return hit_tokens, self.blocks_for(kv_len) - total + clone
 
-    def _plan(self, kv_len: int, prompt) -> Tuple[List[int], int, int]:
-        """Admission plan: (hit pages, hit tokens, pages to reserve). The
-        reference's tiered half (restorable host-tier hits) is ROADMAP Queue
-        A item 9."""
+    def _plan(self, kv_len: int, prompt) -> Tuple[List[int], List[_RadixNode], int, int]:
+        """Admission plan: (resident hit pages, restorable tiered nodes,
+        hit tokens, pages to reserve). Tiered hits are immediate
+        allocations on top of the reservation: admission restores their
+        payloads into fresh device pages before the first prefill launch."""
         hit_pages: List[int] = []
+        tiered: List[_RadixNode] = []
         if self.prefix is not None and prompt is not None and len(prompt) > 1:
-            hit_pages = self.prefix.lookup(prompt)
-        hit_tokens, need = self._hit_arithmetic(kv_len, prompt, len(hit_pages))
-        return hit_pages, hit_tokens, need
+            if self.tier is not None:
+                hit_pages, chain = self.prefix.lookup_chain(prompt)
+                for node in chain:  # the contiguous run of present payloads
+                    if node.key not in self.tier:
+                        break
+                    tiered.append(node)
+            else:
+                hit_pages = self.prefix.lookup(prompt)
+        hit_tokens, need = self._hit_arithmetic(kv_len, prompt, len(hit_pages),
+                                                len(tiered))
+        return hit_pages, tiered, hit_tokens, need
 
     def can_admit(self, kv_len: int, prompt=None) -> bool:
-        hit_pages, _, need = self._plan(kv_len, prompt)
+        hit_pages, tiered, _, need = self._plan(kv_len, prompt)
         headroom = self.free_blocks - self.reserved_blocks
         if self.prefix is not None:
             # index-only pages are reclaimable headroom, minus the hit
             # pages themselves, which admission pins instead of evicting
             hit_idx_only = sum(1 for p in hit_pages if self.allocator.ref_count(p) == 1)
             headroom += self.prefix.evictable_count() - hit_idx_only
-        return headroom >= need
+        return headroom >= need + len(tiered)
 
     def admit(self, rid: int, kv_len: int, prompt=None) -> int:
         """Admit a request: pin its longest cached prompt prefix (with a
-        prefix index and a `prompt`), reclaim index-only pages if the
-        reservation needs them, and reserve pages for the rest of its worst
-        case. Returns the prompt tokens the request shares instead of
-        computing (0 without an index)."""
+        prefix index and a `prompt`), restore the tier-resident rest of
+        that prefix into fresh device pages (checksum-verified on the host
+        first; a corrupt or missing payload truncates the hit and drops the
+        damaged subtree, and the prompt tail is recomputed), reclaim
+        index-only pages if the reservation needs them, and reserve pages
+        for the rest of its worst case. Returns the prompt tokens the
+        request shares or restores instead of computing (0 without an
+        index)."""
         if rid in self._tables:
             raise ValueError(f"request {rid} already admitted")
-        hit_pages, hit_tokens, need = self._plan(kv_len, prompt)
+        hit_pages, tiered, hit_tokens, need = self._plan(kv_len, prompt)
+        # verify payloads before touching any allocator state: the chain is
+        # restorable only up to its first damaged payload
+        verified: List[Tuple[_RadixNode, Dict[str, torch.Tensor]]] = []
+        for node in tiered:
+            payload = self.tier.get(node.key)
+            planes = None if payload is None else unpack_payload(payload)
+            if planes is None:
+                if payload is not None:
+                    self.tier.corrupt_pages += 1
+                self.tier.fallback_recomputes += 1
+                self.prefix.drop_subtree(node)
+                hit_tokens, need = self._hit_arithmetic(kv_len, prompt, len(hit_pages),
+                                                        len(verified))
+                break
+            verified.append((node, planes))
         for p in hit_pages:
             self.allocator.incref(p)
+        want = need + len(verified)
         headroom = self.free_blocks - self.reserved_blocks
-        if need > headroom and self.prefix is not None:
-            headroom += self.reclaim_index_pages(need - headroom)
-        if need > headroom:
+        if want > headroom and self.prefix is not None:
+            headroom += self.reclaim_index_pages(want - headroom)
+        if want > headroom:
             self.allocator.free(hit_pages)  # roll the pins back
             raise RuntimeError(f"admitting request {rid} would oversubscribe the pool")
-        self._tables[rid] = list(hit_pages)
+        restored: List[int] = []
+        for node, planes in verified:
+            b = self.allocator.alloc()  # the index's reference
+            self.tier.pop(node.key)
+            self.prefix.restore_node(node, b)
+            self.allocator.incref(b)  # the request's reference
+            self._pending_restores.append((b + 1, planes))
+            self.tier.restored_pages += 1
+            restored.append(b)
+        self._tables[rid] = list(hit_pages) + restored
         self._reserved[rid] = need
         self.prefix_hit_tokens += hit_tokens
+        if restored:
+            self.tier_hit_tokens += min(
+                len(restored) * self.block_size,
+                max(0, hit_tokens - len(hit_pages) * self.block_size),
+            )
         return hit_tokens
 
+    # -- host-tier spill / restore -------------------------------------------
+
+    def _extract_payload(self, page: int):
+        """Allocator page `page`'s planes (device page `page + 1`) as a
+        checksummed tier payload."""
+        return pack_payload(extract_page_planes(self.pools, page + 1), self.kv_quant)
+
     def reclaim_index_pages(self, n_pages: int) -> int:
-        """Evict up to `n_pages` index-only pages for admission headroom.
+        """Reclaim up to `n_pages` index-only pages for admission headroom.
+        With a host tier the victims spill (their content survives as host
+        payloads a later hit restores); without one they are dropped.
         Returns pages returned to the free list."""
         if self.prefix is None or n_pages <= 0:
             return 0
+        if self.tier is not None:
+            return self.prefix.spill(n_pages, self._extract_payload)
         return self.prefix.evict(n_pages)
+
+    def spill_all(self) -> int:
+        """Flush every reclaimable index page to the host tier: the
+        degradation ladder's `spill` rung, the most admission headroom
+        short of dropping a cached prefix or parking anyone. Returns pages
+        returned to the free list."""
+        if self.prefix is None or self.tier is None:
+            return 0
+        return self.prefix.spill(self.num_blocks, self._extract_payload)
+
+    @property
+    def pending_restores(self) -> int:
+        return len(self._pending_restores)
+
+    def drain_restores(self) -> Optional[Tuple[np.ndarray, List[Dict[str, torch.Tensor]]]]:
+        """Verified payloads staged by `admit`, as (device page ids,
+        per-page plane dicts) for the engine's upload, which must run before
+        the device step that reads (or clones) those pages; the scheduler
+        drains this ahead of each prefill launch. None when nothing waits."""
+        if not self._pending_restores:
+            return None
+        pending, self._pending_restores = self._pending_restores, []
+        dev_pages = np.asarray([d for d, _ in pending], np.int32)
+        return dev_pages, [planes for _, planes in pending]
+
+    def tiered_hit_pages(self, prompt) -> int:
+        """Restorable tiered pages an admission of `prompt` would upload
+        (the TTFT gate prices them; no LRU side effects)."""
+        if self.tier is None or self.prefix is None or prompt is None:
+            return 0
+        return self.prefix.tiered_hit_pages(prompt)
 
     def release(self, rid: int) -> None:
         """Idempotent teardown: drop the request's reference on every page
@@ -447,6 +695,39 @@ class PagedKVCache:
             drop = {p + 1 for p in freed}
             self._fresh = [d for d in self._fresh if d not in drop]
         return len(freed)
+
+    def park(self, rid: int, tokens=None) -> int:
+        """Preempt a resident: drop every page the request holds and its
+        remaining reservation, so the pool can serve someone else; the
+        scheduler keeps the request's emitted tokens and re-admits it later
+        by prefilling them again.
+
+        With a prefix index and `tokens` (the request's written history,
+        prompt and committed output), the full pages holding it are indexed
+        before the release: the index's reference keeps them, so the
+        re-admission hits them and recomputes only the last partial page.
+        Without an index, or once pressure evicts those pages, the resume
+        prefills everything: correct either way. Shared pages drop only this
+        request's reference; freed pages leave the un-drained fresh list.
+        Returns pages returned to the free list. Parking an unknown or
+        already parked rid raises: park is driven only by the scheduler's
+        preemption, and a second park would index a table that is gone."""
+        if rid not in self._tables:
+            raise ValueError(f"park of unknown or already-parked request {rid}")
+        if tokens is not None and self.prefix is not None:
+            self.prefix.insert(tokens, self._tables[rid])
+        table = self._tables.pop(rid)
+        self._reserved.pop(rid, None)
+        freed = self.allocator.free(table)
+        if freed and self._fresh:
+            drop = {p + 1 for p in freed}
+            self._fresh = [d for d in self._fresh if d not in drop]
+        return len(freed)
+
+    def held_pages(self, rid: int) -> List[int]:
+        """The request's page ids, one entry per table reference (the audit
+        hook of `check_invariants`); [] for a request without a table."""
+        return list(self._tables.get(rid, []))
 
     # -- slot / table arrays for the device steps ----------------------------
 

@@ -1,7 +1,8 @@
 """Continuous-batching scheduler over the block-paged KV cache.
 
-Counterpart of `repro/serve/scheduler.py` without its SLA gates, park and
-host-tier machinery (ROADMAP Queue A items 8-9). A FIFO request
+Counterpart of `repro/serve/scheduler.py` (without its window freeing,
+ROADMAP Queue A item 10, and its single-step decode: a chunk of one step
+serves it). A FIFO request
 queue feeds a fixed set of `max_slots` decode slots. Each scheduling round
 the host admits queued requests into free slots while the pool has enough
 unreserved pages for a request's worst case, prefills all requests admitted
@@ -36,19 +37,38 @@ adds a synchronization, a device op or a copy, and none runs inside a
 graph capture (the capture happens within the device call). With
 `prefill_sla_s` and a bound RoofLens the chunked-prefill span follows the
 budget (`_prefill_span_cap`).
+
+Overload resilience: an `SLAPolicy` bounds the queue, sheds candidates
+that can no longer meet the TTFT objective, defers admission while RoofLens
+predicts an ITL breach, and climbs the degradation ladder (`slo.LADDER`),
+down to parking the lowest-priority resident through `PagedKVCache.park`,
+when the pool blocks the queue head. Per-request deadlines drop expired
+queued work at admission. Every request ends in exactly one
+`RequestStatus` (`Scheduler.statuses`). A `dist.fault.FaultInjector` hooks
+the round loop (pool exhaustion, straggler rounds, poisoned prefills,
+corrupted host-tier payloads), and the non-finite guard fails only a
+poisoned request: its per-row finite flags are computed on the device next
+to the sampled tokens and cross in the same copy, so the guard adds no
+host sync.
+
+With a `HostTier` on the cache the ladder gains its `spill` rung, admission
+restores tier-resident prefix hits through checksum-verified uploads
+drained just before the prefill launch (`tier_restore_fn`), and
+`check_invariants` audits the tiered pages as a fourth conservation class.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import math
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
 from repro_torch.kernels.ref import CACHE_EMPTY_POS
 from repro_torch.serve.paged_cache import PagedKVCache
-from repro_torch.serve.slo import RequestStatus
+from repro_torch.serve.slo import LADDER, RequestStatus, SLAPolicy
 
 
 def _pow2ceil(x: int) -> int:
@@ -85,8 +105,32 @@ STAT_UNITS: Dict[str, str] = {
     "kv_read_bytes_per_token_worst": "bytes (max_blocks gather per token)",
     "draft_tokens": "tokens (draft proposals computed on the speculative path)",
     "verify_calls": "calls (per-slot verify passes on the speculative path)",
+    "shed_requests": "requests (rejected by the SLA policy: bounded queue "
+                     "at submit or predicted TTFT breach at admission)",
+    "expired_requests": "requests (deadline passed while queued, dropped "
+                        "at admission time)",
+    "preempted_requests": "requests (parked under pool pressure and "
+                          "expired before resume; partial output kept)",
+    "parked_requests": "events (residents preempted via PagedKVCache.park; "
+                       "a request can park more than once)",
+    "resumed_requests": "events (parked requests re-admitted through the "
+                        "prefix cache)",
+    "failed_requests": "requests (non-finite logits at the host sync; "
+                       "pages reclaimed, co-batched survivors unaffected)",
+    "degradations": "events (graceful-degradation ladder escalations)",
+    "itl_deferrals": "events (admissions deferred by the predicted-ITL gate)",
     "accepted_tokens_per_step": "tokens/call (tokens emitted per verify pass; "
                                 ">1 is the speculative-decode win)",
+    "tier_spilled_pages": "pages (pages spilled into the host tier, lifetime)",
+    "tier_restored_pages": "pages (verified tier payloads uploaded back "
+                           "into HBM pages, lifetime)",
+    "tier_pages": "pages (payloads resident in the host tier right now)",
+    "tier_bytes": "bytes (packed payload bytes resident in the host tier)",
+    "tier_corrupt": "pages (payloads that failed checksum verification)",
+    "tier_fallback_recompute": "events (admissions that recomputed a prefix "
+                               "because a tier payload was corrupt/missing)",
+    "tier_hit_tokens": "tokens (prompt tokens served from tier-restored "
+                       "pages instead of recomputed)",
 }
 
 
@@ -102,10 +146,31 @@ class Request:
     # admission, then advanced by each prefill chunk; the slot is
     # decode-ready (non-empty `out`) once it reaches len(prompt)
     prefilled: int = 0
+    # resilience state
+    priority: int = 0             # park-victim ordering; the queue stays FIFO
+    deadline_t: Optional[float] = None  # absolute clock seconds, or None
+    submit_t: float = 0.0         # clock stamp for the TTFT admission gate
+    # tokens emitted before a park: park folds `out` into `prompt` (the
+    # resume prefills them again) and banks them here; results and sampling
+    # keys stay indexed by the global output position, so a resumed
+    # request's tokens are an uninterrupted run's
+    done_tokens: List[int] = dataclasses.field(default_factory=list)
+    parks: int = 0                # times this request has been parked
+    was_parked: bool = False      # pending-resume marker (resume counter)
 
     @property
     def next_pos(self) -> int:
         return len(self.prompt) + len(self.out)
+
+    @property
+    def emitted(self) -> int:
+        """Tokens emitted over the request's whole life: the sampling-key
+        step index and the length-cap meter, both park/resume invariant."""
+        return len(self.done_tokens) + len(self.out)
+
+    @property
+    def all_out(self) -> List[int]:
+        return self.done_tokens + self.out
 
 
 class Scheduler:
@@ -122,20 +187,33 @@ class Scheduler:
                     max_steps (M,), eos (M,), active (M,))
                     -> host tokens (C, M); step j of slot i is output
                     index start_steps[i] + j of request rids[i]
-    sample_fn(logits (N,V) on the device, rids (N,), steps (N,))
-              -> host tokens (N,)
+    sample_fn(logits (N,V) on the device, rids (N,), steps (N,), guard=False)
+              -> host tokens (N,); with guard=True -> (host tokens (N,),
+              host finite flags (N,)), both from one device->host copy
     scrub_fn(pages (F,)) scrubs overflow fresh pages out of step.
     spec_fn(tokens0 (M,1), tables (M,TW), p0 (M,), fresh (F,), rids (M,),
             start_steps (M,), max_steps (M,), eos (M,), active (M,))
             -> host (out (spec_rounds*(spec_k+1), M), e_rounds (spec_rounds, M)),
             `spec_rounds` draft-`spec_k`/verify rounds; `spec_window` is the
             draft's attention window cap (0 = none), for the accounting.
+    tier_restore_fn(dev_pages (P,), planes_list) uploads verified host-tier
+            payloads into their device pages before the prefill launch that
+            reads them.
 
     `prefill_chunk` switches prefill to chunked mode: each round advances
     every mid-prefill slot by at most that many prompt tokens in one
     length-bounded launch, then runs a decode round for the slots that
     already sampled their first token, so a long prompt admits at once and
     interleaves with decode instead of stalling it.
+
+    `sla` installs an `SLAPolicy`: bounded queue, TTFT shedding,
+    predicted-ITL admission deferral and the degradation ladder under pool
+    pressure. `injector` hooks a `dist.fault.FaultInjector` into the round
+    loop (plan steps index scheduler rounds); `watchdog` feeds a
+    `StragglerWatchdog` each round's wall time. The non-finite guard at the
+    prefill's token copy is armed whenever `sla` or `injector` is set.
+    Terminal statuses land in `self.statuses` (rid -> RequestStatus) beside
+    `self.results`.
     """
 
     def __init__(
@@ -157,6 +235,10 @@ class Scheduler:
         prefill_chunk: Optional[int] = None,
         obs=None,
         prefill_sla_s: Optional[float] = None,
+        sla: Optional[SLAPolicy] = None,
+        injector=None,
+        watchdog=None,
+        tier_restore_fn: Optional[Callable] = None,
     ):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
@@ -175,6 +257,7 @@ class Scheduler:
         self._decode_chunk = decode_chunk_fn
         self._sample = sample_fn
         self._scrub = scrub_fn
+        self._tier_restore = tier_restore_fn
         self.chunk = chunk
         self.prefill_batch = prefill_batch
         self._spec = spec_fn
@@ -189,6 +272,16 @@ class Scheduler:
         self.statuses: Dict[int, RequestStatus] = {}
         self.request_peaks: Dict[int, int] = {}
         self._next_rid = 0
+        # resilience state
+        self.sla = sla
+        self._injector = injector
+        self._watchdog = watchdog
+        self._round = 0  # scheduler rounds: the injector plan's step index
+        self.degradation_level = 0  # rungs of slo.LADDER applied now
+        self._spec_enabled = True
+        self._span_shrunk = False
+        self._poison_pending = False
+        self._guard_nonfinite = sla is not None or injector is not None
         self._stats = {
             "decode_steps": 0, "decode_chunks": 0, "host_syncs": 0,
             "active_slot_steps": 0,
@@ -196,30 +289,45 @@ class Scheduler:
             "prefill_calls": 0, "prefill_chunk_calls": 0,
             "prefill_token_steps": 0, "prefill_real_tokens": 0, "kv_pages_read": 0,
             "kv_pages_read_worst": 0, "draft_tokens": 0, "verify_calls": 0,
+            "shed_requests": 0, "expired_requests": 0, "preempted_requests": 0,
+            "parked_requests": 0, "resumed_requests": 0, "failed_requests": 0,
+            "degradations": 0, "itl_deferrals": 0,
         }
         # observability: every site below is guarded on the collector it
-        # feeds; with obs=None the serving loop reads no clock and
-        # allocates nothing for it
+        # feeds; with obs=None the serving loop reads no clock for it and
+        # allocates nothing
         self._obs_metrics = obs.metrics if obs is not None else None
         self._obs_tracer = obs.tracer if obs is not None else None
         self._obs_rooflens = obs.rooflens if obs is not None else None
         self._obs_clock = obs.clock if obs is not None else None
         self._observing = any(c is not None for c in (
             self._obs_metrics, self._obs_tracer, self._obs_rooflens))
+        # deadlines and the TTFT gate need a clock even without
+        # observability; the obs clock when installed, so stamps line up
+        self._clock = self._obs_clock or time.monotonic
 
     # ------------------------------------------------------------------
     # request API
     # ------------------------------------------------------------------
     def submit(
         self, prompt: np.ndarray, *, max_new_tokens: int,
-        eos_id: Optional[int] = None,
+        eos_id: Optional[int] = None, deadline_s: Optional[float] = None,
+        priority: int = 0,
     ) -> int:
-        """Enqueue one request; returns its id."""
+        """Enqueue one request; returns its id. `deadline_s` is a relative
+        budget: a request still queued (or parked) when it runs out is
+        dropped at admission with status EXPIRED (PREEMPTED once parked).
+        `priority` orders park-victim selection under pool pressure (lower
+        parks first); the queue itself stays FIFO. A submit past the SLA
+        policy's `max_queue` is SHED at once: its rid still comes back, with
+        an empty result and a terminal status."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         if len(prompt) < 1:
             raise ValueError("prompt must contain at least one token")
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if deadline_s is not None and deadline_s < 0:
+            raise ValueError(f"deadline_s must be >= 0, got {deadline_s}")
         # KV footprint: prompt + every fed-back token except the last sample
         kv_len = len(prompt) + max_new_tokens - 1
         if kv_len > self.max_len:
@@ -234,17 +342,21 @@ class Scheduler:
             )
         rid = self._next_rid
         self._next_rid += 1
+        now = self._clock()
+        r = Request(rid, prompt, max_new_tokens, eos_id, priority=priority,
+                    deadline_t=None if deadline_s is None else now + deadline_s,
+                    submit_t=now)
         if self._obs_tracer is not None:
             self._obs_tracer.on_submit(rid, len(prompt), max_new_tokens)
         if self._obs_metrics is not None:
             self._obs_metrics.counter(
                 "serve.requests.submitted", unit="requests"
             ).inc()
-        self.queue.append(Request(rid, prompt, max_new_tokens, eos_id))
-        if self._obs_metrics is not None:
-            self._obs_metrics.gauge(
-                "serve.queue_depth", unit="requests"
-            ).set(len(self.queue))
+        if self.sla is not None and self.sla.queue_full(len(self.queue)):
+            self._terminate(r, RequestStatus.SHED)
+            return rid
+        self.queue.append(r)
+        self._set_queue_gauge()
         return rid
 
     def run_until_drained(self) -> Dict[int, np.ndarray]:
@@ -257,29 +369,79 @@ class Scheduler:
     # one scheduling round: admission -> batched prefill -> chunked decode
     # ------------------------------------------------------------------
     def step(self) -> None:
-        self._admit()
-        if self.prefill_chunk is not None:
-            self._prefill_pending()
-        self._decode_active()
+        t0 = time.monotonic() if self._watchdog is not None else 0.0
+        chaos_pages: List[int] = []
+        if self._injector is not None:
+            inj = self._injector
+            if inj.take(self._round, "slow"):
+                # straggler round: the sleep lies inside the watchdog's
+                # timed window, so the round must be flagged
+                time.sleep(inj.slow_s)
+            if inj.take(self._round, "poison_prefill"):
+                # the next prefill launch NaNs one real row's logits; the
+                # guard must fail exactly that request
+                self._poison_pending = True
+            if inj.take(self._round, "corrupt_tier_page"):
+                # flip bytes in one stored payload: the next restore of
+                # that prefix detects it and recomputes
+                if self.cache.tier is not None:
+                    self.cache.tier.corrupt_one()
+            if inj.take(self._round, "exhaust_pool"):
+                # transient exhaustion for this round: grab only the
+                # unreserved headroom, so residents' lazy allocations stay
+                # backed while admission sees no admittable page
+                n = self.cache.free_blocks - self.cache.reserved_blocks
+                chaos_pages = [self.cache.allocator.alloc() for _ in range(max(0, n))]
+        try:
+            self._admit()
+            if self.prefill_chunk is not None:
+                self._prefill_pending()
+            self._decode_active()
+        finally:
+            if chaos_pages:
+                # never written: a later tenant scrubs them as fresh pages
+                self.cache.allocator.free(chaos_pages)
+            if self._watchdog is not None:
+                self._watchdog.observe(self._round, time.monotonic() - t0)
+            self._round += 1
 
     def _kv_len(self, r: Request) -> int:
-        return len(r.prompt) + r.max_new_tokens - 1
+        # park/resume: `prompt` absorbs the emitted tokens, so they leave
+        # the output budget; the total stays len(P0) + max_new - 1
+        return len(r.prompt) + (r.max_new_tokens - len(r.done_tokens)) - 1
 
     def _admit(self) -> None:
         t0 = self._obs_clock() if self._obs_tracer is not None else 0.0
+        self._expire_queued()
         admitted: List[tuple] = []
+        blocked = False  # pool pressure (not an SLO deferral) stalled the head
         for slot in range(self.max_slots):
             if self.slots[slot] is not None:
                 continue
-            if not self.queue:
+            r = self._next_candidate()
+            if r is None:
                 break
-            r = self.queue[0]
+            if self._itl_defer(r):
+                break
             if not self.cache.can_admit(self._kv_len(r), r.prompt):
+                blocked = True
                 break  # FIFO: don't let short requests starve the head
             self.queue.popleft()
             r.prefilled = self.cache.admit(r.rid, self._kv_len(r), prompt=r.prompt)
+            if r.was_parked:
+                r.was_parked = False
+                self._stats["resumed_requests"] += 1
+                if self._obs_metrics is not None:
+                    self._obs_metrics.counter(
+                        "serve.requests.resumed", unit="events"
+                    ).inc()
             self.slots[slot] = r
             admitted.append((slot, r))
+        if self.sla is not None:
+            if blocked and self.queue:
+                self._degrade()
+            elif not self.queue and self.degradation_level:
+                self._relax()  # backlog drained: full capability again
         if self._obs_tracer is not None and admitted:
             t1 = self._obs_clock()
             for slot, r in admitted:
@@ -305,13 +467,268 @@ class Scheduler:
             if self._finished(r):
                 self._evict(slot)
 
+    # ------------------------------------------------------------------
+    # overload resilience: deadlines, SLO gates, the degradation ladder,
+    # park/resume and the page-conservation audit
+    # ------------------------------------------------------------------
+    def _set_queue_gauge(self) -> None:
+        if self._obs_metrics is not None:
+            self._obs_metrics.gauge("serve.queue_depth", unit="requests").set(
+                len(self.queue))
+
+    def _terminate(self, r: Request, status: RequestStatus) -> None:
+        """Terminal bookkeeping for a request that ends off-slot (shed,
+        expired, preempted for good, failed): its tokens so far become the
+        result, exactly one status is recorded, and the collectors see a
+        finish with the status as its reason."""
+        self.results[r.rid] = np.asarray(r.all_out, np.int32)
+        self.statuses[r.rid] = status
+        self.request_peaks[r.rid] = r.peak_blocks
+        self._stats[f"{status.value}_requests"] += 1
+        if self._obs_tracer is not None:
+            self._obs_tracer.on_finish(r.rid, status.value)
+        if self._obs_metrics is not None:
+            self._obs_metrics.counter(
+                f"serve.requests.{status.value}", unit="requests"
+            ).inc()
+
+    def _expire_queued(self) -> None:
+        """Drop queued requests whose deadline has passed, before they take
+        pool pages: a request never admitted expires empty (EXPIRED), a
+        parked one keeps the tokens it emitted (PREEMPTED)."""
+        if not any(r.deadline_t is not None for r in self.queue):
+            return
+        now = self._clock()
+        alive: collections.deque = collections.deque()
+        dropped = 0
+        for r in self.queue:
+            if r.deadline_t is not None and now >= r.deadline_t:
+                self._terminate(r, RequestStatus.PREEMPTED if r.parks
+                                else RequestStatus.EXPIRED)
+                dropped += 1
+            else:
+                alive.append(r)
+        if dropped:
+            self.queue = alive
+            self._set_queue_gauge()
+
+    def _next_candidate(self) -> Optional[Request]:
+        """The queue head, after shedding heads that can no longer meet the
+        TTFT objective: waited time plus the predicted prefill wall (with a
+        bound RoofLens; a tier-resident hit adds its predicted restore)
+        past `ttft_slo_s` would only spend pages on a certain miss. Resumed
+        requests already delivered their first token and are exempt."""
+        shed_gate = self.sla is not None and self.sla.ttft_slo_s is not None
+        while self.queue:
+            r = self.queue[0]
+            if not shed_gate or r.done_tokens:
+                return r
+            pred = 0.0
+            lens = self._obs_rooflens
+            if lens is not None and getattr(lens, "_bound", False):
+                bs = self.cache.block_size
+                span = math.ceil(max(1, len(r.prompt)) / bs) * bs
+                pred = lens.predict_prefill(1, span)
+                n_tiered = self.cache.tiered_hit_pages(r.prompt)
+                if n_tiered:
+                    pred += lens.predict_tier_restore(
+                        n_tiered, self.cache.bytes_per_token() * bs
+                    )
+            if not self.sla.ttft_breached(self._clock() - r.submit_t, pred):
+                return r
+            self.queue.popleft()
+            self._terminate(r, RequestStatus.SHED)
+            self._set_queue_gauge()
+        return None
+
+    def _itl_defer(self, cand: Request) -> bool:
+        """RoofLens admission gate: defer the candidate while the predicted
+        per-token time of one decode chunk over (residents + candidate)
+        breaches the ITL objective. Inert without a bound RoofLens, and
+        never defers onto an idle batch: a lone request always progresses."""
+        if self.sla is None or self.sla.itl_slo_s is None:
+            return False
+        lens = self._obs_rooflens
+        if lens is None or not getattr(lens, "_bound", False):
+            return False
+        resident = [float(r.next_pos) for r in self.slots if r is not None and r.out]
+        if not resident:
+            return False
+        steps = max(1, self.chunk)
+        pred = lens.predict_decode_chunk(resident + [float(len(cand.prompt) + 1)], steps)
+        if not self.sla.itl_breached(pred, steps):
+            return False
+        self._stats["itl_deferrals"] += 1
+        if self._obs_metrics is not None:
+            self._obs_metrics.counter(
+                "serve.admission.itl_deferrals", unit="events"
+            ).inc()
+        return True
+
+    def _degrade(self) -> None:
+        """Escalate one applicable rung of `slo.LADDER`, strictly in order,
+        in a round where the pool blocked the queue head. Rungs this build
+        lacks (no prefix index, no spec decode, monolithic prefill, no host
+        tier) are skipped within the same call; the last rung (park the
+        lowest-priority resident) may repeat on later blocked rounds."""
+        head = self.queue[0]
+        applied = None
+        while self.degradation_level < len(LADDER) and applied is None:
+            rung = LADDER[self.degradation_level]
+            self.degradation_level += 1
+            if rung == "prefix_evict":
+                if self.cache.prefix is not None:
+                    need = self.cache.blocks_for(self._kv_len(head))
+                    # with a host tier the reclaim spills instead of dropping
+                    if self.cache.reclaim_index_pages(need) > 0:
+                        applied = rung
+            elif rung == "spill":
+                if self.cache.tier is not None and self.cache.spill_all() > 0:
+                    applied = rung
+            elif rung == "spec_off":
+                if self._spec is not None and self._spec_enabled:
+                    applied = rung
+                self._spec_enabled = False
+            elif rung == "prefill_shrink":
+                if self.prefill_chunk is not None and not self._span_shrunk:
+                    applied = rung
+                self._span_shrunk = True
+            elif self._park_lowest(head):
+                applied = rung
+        if applied is None and self.degradation_level >= len(LADDER):
+            if self._park_lowest(head):
+                applied = LADDER[-1]
+        if applied is not None:
+            self._stats["degradations"] += 1
+            if self._obs_metrics is not None:
+                self._obs_metrics.counter("serve.degradations", unit="events").inc()
+                self._obs_metrics.gauge("serve.degradation_level", unit="rungs").set(
+                    self.degradation_level)
+
+    def _relax(self) -> None:
+        """Undo the whole ladder once the queue drains: spec rounds and the
+        full prefill span come back (parked requests have re-queued
+        themselves; evicted index pages are simply gone)."""
+        self.degradation_level = 0
+        self._spec_enabled = True
+        self._span_shrunk = False
+        if self._obs_metrics is not None:
+            self._obs_metrics.gauge("serve.degradation_level", unit="rungs").set(0)
+
+    def _park_lowest(self, cand: Request) -> bool:
+        """Park the lowest-priority resident strictly below the blocked
+        head's priority (ties: youngest first, so the oldest keeps its
+        progress). False when no resident may be preempted for this head."""
+        victims = [(i, r) for i, r in enumerate(self.slots)
+                   if r is not None and r.priority < cand.priority]
+        if not victims:
+            return False
+        slot, _ = min(victims, key=lambda t: (t[1].priority, -t[1].rid))
+        self._park(slot)
+        return True
+
+    def _park(self, slot: int) -> None:
+        """Preempt one resident: index its written history (with a prefix
+        cache), release its pages and reservation through
+        `PagedKVCache.park`, fold its emitted tokens into the prompt and
+        re-queue it at the tail. Sampling keys ride the global output index
+        (`Request.emitted`), so the resume prefill's sample is its next
+        output token and the rest follow as in an uninterrupted run."""
+        r = self.slots[slot]
+        if r.out:
+            # the pool holds positions [0, next_pos - 1): the prompt and
+            # every emitted token but the last (which the decode step that
+            # feeds it back writes)
+            written = np.concatenate([r.prompt, np.asarray(r.out[:-1], np.int32)])
+        else:
+            written = r.prompt[:r.prefilled]  # a mid-prefill victim
+        self.cache.park(r.rid, written)
+        if r.out:
+            r.done_tokens += r.out
+            r.prompt = np.concatenate([r.prompt, np.asarray(r.out, np.int32)])
+            r.out = []
+        r.prefilled = 0
+        r.parks += 1
+        r.was_parked = True
+        self.slots[slot] = None
+        self.queue.append(r)
+        self._stats["parked_requests"] += 1
+        if self._obs_metrics is not None:
+            self._obs_metrics.counter("serve.requests.parked", unit="events").inc()
+            self._publish_gauges()
+
+    def _fail(self, slot: int, r: Request) -> None:
+        """Fail exactly one request at the guard: reclaim its pages, clear
+        its slot, record FAILED. Its pages never enter the prefix index
+        (the guard runs before `prefix_insert`)."""
+        self.cache.release(r.rid)
+        self.slots[slot] = None
+        self._terminate(r, RequestStatus.FAILED)
+        if self._obs_metrics is not None:
+            self._publish_gauges()
+
+    def check_invariants(self) -> Dict[str, int]:
+        """Page-conservation audit: every allocator page is free or held;
+        every held page's count equals its block-table references plus its
+        prefix-index pin; reservations never exceed the free list; with a
+        host tier, every tiered index node has exactly one payload under
+        its content key and the other way round. Raises RuntimeError on a
+        violation; returns the occupancy."""
+        alloc = self.cache.allocator
+        if alloc.free_count + alloc.used_count != self.cache.num_blocks:
+            raise RuntimeError(
+                f"page leak: free {alloc.free_count} + used "
+                f"{alloc.used_count} != pool {self.cache.num_blocks}"
+            )
+        holders: Dict[int, int] = {}
+        for r in self.slots:
+            if r is None:
+                continue
+            for p in self.cache.held_pages(r.rid):
+                holders[p] = holders.get(p, 0) + 1
+        if self.cache.prefix is not None:
+            for p in self.cache.prefix.page_multiset():
+                holders[p] = holders.get(p, 0) + 1
+        if alloc.used_count != len(holders):
+            raise RuntimeError(
+                f"orphaned pages: allocator holds {alloc.used_count} unique "
+                f"pages but residents + prefix index account for {len(holders)}"
+            )
+        for p, c in holders.items():
+            if alloc.ref_count(p) != c:
+                raise RuntimeError(
+                    f"refcount drift on page {p}: allocator says "
+                    f"{alloc.ref_count(p)}, holders say {c}"
+                )
+        if self.cache.reserved_blocks > alloc.free_count:
+            raise RuntimeError(
+                f"reservations ({self.cache.reserved_blocks}) exceed the "
+                f"free list ({alloc.free_count})"
+            )
+        if self.cache.tier is not None:
+            # the fourth class: a drift either way means a page was lost
+            # (an unresumable prefix) or leaked (an unreachable payload)
+            idx_keys = sorted(self.cache.prefix.tier_keys())
+            tier_keys = sorted(self.cache.tier.keys())
+            if idx_keys != tier_keys:
+                raise RuntimeError(
+                    f"tiered-page drift: index holds {len(idx_keys)} tiered "
+                    f"nodes but the tier stores {len(tier_keys)} payloads"
+                )
+            if self.cache.prefix.tiered_count != self.cache.tier.pages:
+                raise RuntimeError(
+                    f"tiered-count drift: index says "
+                    f"{self.cache.prefix.tiered_count}, tier says "
+                    f"{self.cache.tier.pages}"
+                )
+        return self.cache.occupancy()
+
     def _prefill_pending(self) -> None:
         """Chunked prefill: advance every mid-prefill slot by at most
         `prefill_chunk` prompt tokens in one length-bounded launch. A slot
         whose last chunk completes samples its first output token and joins
         the next decode round; until then decode skips it (empty `out`).
-        The span per row is `_prefill_span_cap`; the reference's
-        `prefill_shrink` degradation rung waits for ROADMAP Queue A item 8."""
+        The span per row is `_prefill_span_cap`."""
         pending = [
             (i, r) for i, r in enumerate(self.slots)
             if r is not None and r.prefilled < len(r.prompt)
@@ -336,7 +753,11 @@ class Scheduler:
         whose gather term grows with the written prefix then takes smaller
         bites than a cold one: constant predicted stall on the interleaved
         decode stream instead of a constant token count. Never less than
-        one page, so prefill progresses even over budget."""
+        one page, so prefill progresses even over budget. Under the ladder's
+        `prefill_shrink` rung the span is one page: prefill still
+        progresses, and stops competing with the blocked head for pages."""
+        if self._span_shrunk:
+            return min(self.prefill_chunk, self.cache.block_size)
         if (
             self.prefill_sla_s is None
             or self._obs_rooflens is None
@@ -374,7 +795,10 @@ class Scheduler:
 
         Only rows that reach the end of their prompt sample a token (the
         first output); the round's copy-on-write clones ride the launch,
-        and finished prompts enter the prefix index after their sample."""
+        tier restores are uploaded before it, and finished prompts enter
+        the prefix index after their sample. With the guard armed, a
+        completing row whose logits are not all finite fails its request
+        (before its token or its pages reach anyone)."""
         bs = self.cache.block_size
         nrows = len(rows)
         pages = max(math.ceil(n / bs) for _, _, _, n in rows)
@@ -395,7 +819,7 @@ class Scheduler:
         last_idx = np.zeros(b, np.int32)
         rids = np.full(b, -1, np.int64)  # padding rows: the unused uint32 id
         steps0 = np.zeros(b, np.int64)
-        completing: List[tuple] = []  # (row, request) sampling their 1st token
+        completing: List[tuple] = []  # (row, slot, request) sampling a 1st token
         for row, (slot, r, start, n) in enumerate(rows):
             tokens[row, :n] = r.prompt[start:start + n]
             positions[row] = start + positions[row]
@@ -406,26 +830,63 @@ class Scheduler:
             if r.prefilled >= len(r.prompt):
                 last_idx[row] = n - 1
                 rids[row] = r.rid
-                steps0[row] = len(r.out)  # the request's first output index
-                completing.append((row, r))
+                # a resume's sample is the request's next global output
+                # token: it keys on the banked count
+                steps0[row] = len(r.done_tokens)
+                completing.append((row, slot, r))
         copies = self.cache.drain_copies(b)
         fresh_rows = self.cache.drain_fresh_rows(b * pages)
         for extra in fresh_rows[1:]:
             # more recycled pages than the launch's fresh vector carries:
             # scrub the overflow before the launch that writes into them
             self._scrub(extra)
+        restores = self.cache.drain_restores()
+        if restores is not None:
+            # tier-restored pages: the upload is each page's whole
+            # initialization (codes, scales, positions), so it needs no
+            # scrub, and it lands before the launch that reads the pages
+            if self._tier_restore is None:
+                raise ValueError(f"{len(restores[0])} pending tier restores and no "
+                                 "tier_restore_fn installed")
+            rt0 = self._clock()
+            self._tier_restore(*restores)
+            rt1 = self._clock()
+            if self._obs_rooflens is not None:
+                self._obs_rooflens.observe_tier_restore(
+                    len(restores[0]), self.cache.bytes_per_token() * bs, rt1 - rt0)
+            if self._obs_metrics is not None:
+                self._obs_metrics.histogram("serve.tier.restore_wall_s", unit="s").record(
+                    rt1 - rt0)
         t0 = self._obs_clock() if self._observing else 0.0
         logits = self._prefill(
             tokens, positions, tables, write_slots, write_pos, fresh_rows[0],
             copies, last_idx,
         )
-        toks = self._sample(logits, rids, steps0)  # the round's device->host sync
+        if self._poison_pending and completing:
+            # chaos "poison_prefill": NaN one real row's logits on the
+            # device before sampling; the guard must fail exactly that row
+            self._poison_pending = False
+            logits[completing[0][0]] = float("nan")
+        failed_rows: set = set()
+        if self._guard_nonfinite and completing:
+            # the finite flags cross in the sampler's one copy
+            toks, finite = self._sample(logits, rids, steps0, guard=True)
+            failed_rows = {row for row, _, _ in completing if not bool(finite[row])}
+        else:
+            toks = self._sample(logits, rids, steps0)  # the round's device->host sync
         # `toks` is on the host: t1 - t0 is the prefill wall, sampling included
         t1 = self._obs_clock() if self._observing else 0.0
-        for row, r in completing:
+        for row, slot, r in completing:
+            if row in failed_rows:
+                # before out and prefix_insert: a poisoned request never
+                # emits a token and never seeds the prefix index
+                self._fail(slot, r)
+                continue
             r.out.append(int(toks[row]))
             self.cache.prefix_insert(r.rid, r.prompt)
-        for slot, r, start, n in rows:
+        for row, (slot, r, start, n) in enumerate(rows):
+            if row in failed_rows:
+                continue  # released: its pages are already reclaimed
             r.peak_blocks = max(r.peak_blocks, self.cache.blocks_held(r.rid))
 
         st = self._stats
@@ -437,7 +898,9 @@ class Scheduler:
         st["prefill_real_tokens"] += sum(n for _, _, _, n in rows)
         if self._obs_tracer is not None:
             # a request's first token is visible at the completing call's sync
-            self._obs_tracer.on_prefill(t0, t1, [r.rid for _, r in completing], b, sp)
+            self._obs_tracer.on_prefill(
+                t0, t1, [r.rid for row, _, r in completing if row not in failed_rows],
+                b, sp)
         if self._obs_rooflens is not None:
             if bounded:
                 self._obs_rooflens.observe_prefill_chunk(b, sp, tw * bs, t1 - t0)
@@ -465,11 +928,14 @@ class Scheduler:
         # shared page would mean the admission plan is wrong. Nothing is
         # ever copied inside a captured decode graph.
         assert self.cache.pending_copies == 0, "unflushed CoW copies at decode"
-        if self._spec is not None:
+        # tier restores arise only at admission, and the prefill launch that
+        # follows every admission drains them
+        assert self.cache.pending_restores == 0, "unflushed tier restores at decode"
+        if self._spec is not None and self._spec_enabled:
             self._decode_active_spec(active)
             return
         m, mb, bs = self.max_slots, self.max_blocks, self.cache.block_size
-        rem = {i: r.max_new_tokens - len(r.out) for i, r in active}
+        rem = {i: r.max_new_tokens - r.emitted for i, r in active}
         c = min(self.chunk, _pow2ceil(max(rem.values())))
         f = m * ((c + bs - 1) // bs + 1)  # fresh-page bound for the chunk
 
@@ -495,7 +961,7 @@ class Scheduler:
             si = min(c, rem[i])
             tokens0[i, 0] = r.out[-1]
             rids[i] = r.rid
-            start_steps[i] = len(r.out)
+            start_steps[i] = r.emitted  # sampling keys ride the global index
             max_steps[i] = si
             act[i] = True
             if r.eos_id is not None:
@@ -585,7 +1051,7 @@ class Scheduler:
         m, bs = self.max_slots, self.cache.block_size
         k, rounds = self.spec_k, self.spec_rounds
         cap = rounds * (k + 1)
-        rem = {i: r.max_new_tokens - len(r.out) for i, r in active}
+        rem = {i: r.max_new_tokens - r.emitted for i, r in active}
 
         used0 = self.cache.allocator.used_count
         held0 = {i: self.cache.blocks_held(r.rid) for i, r in active}
@@ -604,7 +1070,7 @@ class Scheduler:
             si = sis[i] = min(cap, rem[i])
             tokens0[i, 0] = r.out[-1]
             rids[i] = r.rid
-            start_steps[i] = len(r.out)  # sampling keys ride the global index
+            start_steps[i] = r.emitted  # sampling keys ride the global index
             p0[i] = pos0
             max_steps[i] = si
             act[i] = True
@@ -737,12 +1203,15 @@ class Scheduler:
         m.gauge("serve.pool.admittable_pages", unit="pages").set(occ["admittable"])
         m.gauge("serve.pool.shared_pages", unit="pages").set(occ["shared"])
         m.gauge("serve.pool.prefix_cached_pages", unit="pages").set(occ["cached"])
+        m.gauge("serve.pool.tiered_pages", unit="pages").set(occ["tiered"])
         m.gauge("serve.slots.active", unit="slots").set(
             sum(1 for r in self.slots if r is not None)
         )
 
     def _finished(self, r: Request) -> bool:
-        return len(r.out) >= r.max_new_tokens or (
+        # `emitted` counts banked pre-park tokens too: a resumed request's
+        # length cap is unchanged by the interruption
+        return r.emitted >= r.max_new_tokens or (
             r.eos_id is not None and bool(r.out) and r.out[-1] == r.eos_id
         )
 
@@ -750,7 +1219,7 @@ class Scheduler:
         r = self.slots[slot]
         if r is None:
             return
-        self.results[r.rid] = np.asarray(r.out, np.int32)
+        self.results[r.rid] = np.asarray(r.all_out, np.int32)
         self.statuses[r.rid] = RequestStatus.OK
         self.request_peaks[r.rid] = r.peak_blocks
         self.cache.release(r.rid)
@@ -802,6 +1271,16 @@ class Scheduler:
         st["cow_copies"] = self.cache.cow_copies
         st["shared_pages"] = occ["shared"]
         st["prefix_cached_pages"] = occ["cached"]
+        # host tier: lifetime spill / restore / corruption counters and
+        # residency now; all 0 without a tier
+        tier = self.cache.tier
+        st["tier_spilled_pages"] = tier.spilled_pages if tier else 0
+        st["tier_restored_pages"] = tier.restored_pages if tier else 0
+        st["tier_pages"] = tier.pages if tier else 0
+        st["tier_bytes"] = tier.payload_bytes if tier else 0
+        st["tier_corrupt"] = tier.corrupt_pages if tier else 0
+        st["tier_fallback_recompute"] = tier.fallback_recomputes if tier else 0
+        st["tier_hit_tokens"] = self.cache.tier_hit_tokens
         if self._obs_metrics is not None:
             self._obs_metrics.ingest("serve.stats", st, units=STAT_UNITS)
         return st

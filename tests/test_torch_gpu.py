@@ -729,3 +729,148 @@ def test_prefix_cache_on_the_card_keeps_tokens_within_logit_tolerance(card):
             assert occ["used"] == occ["cached"] > 0
         else:
             assert occ["used"] == 0
+
+
+# ---------------------------------------------------------------------------
+# overload resilience and the host tier on the card
+# ---------------------------------------------------------------------------
+
+def _host_copy_counter():
+    """A dispatch mode counting the aten ops that bring a CUDA tensor's
+    data to the host: copies to the CPU and scalar reads."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Copies(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = func.overloadpacket.__name__
+            ins = [a for a in args if isinstance(a, torch.Tensor)]
+            if name == "_local_scalar_dense" and ins[0].is_cuda:
+                self.n += 1
+            elif name == "_to_copy" and ins[0].is_cuda and not out.is_cuda:
+                self.n += 1
+            elif name == "copy_" and not ins[0].is_cuda and ins[1].is_cuda:
+                self.n += 1
+            return out
+
+    return Copies()
+
+
+@pytest.mark.gpu
+def test_guarded_prefill_makes_one_host_copy_like_an_unguarded_one(card):
+    """With the SLA policy armed, each prefill's finite flags ride the
+    sampled tokens' copy: one device-to-host copy a prefill call, as
+    without the guard, the same host_syncs and the same tokens."""
+    from repro_torch.serve.slo import SLAPolicy
+
+    model, params = _smoke(card)
+    prompts = _shared_prompts(256)[:4]
+    seen = {}
+    for name, kw in (("plain", {}), ("guarded", {"sla": SLAPolicy(max_queue=8)})):
+        eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                               decode_chunk=4, kv_quant="int8", device=card, **kw)
+        sched, copies = eng.scheduler, []
+        inner = sched._prefill_rows
+
+        def counted(*a, _inner=inner, _copies=copies, **k):
+            with _host_copy_counter() as mode:
+                _inner(*a, **k)
+            _copies.append(mode.n)
+
+        sched._prefill_rows = counted
+        rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        done = eng.run_until_drained()
+        seen[name] = ([done[r].tolist() for r in rids], copies,
+                      sched.stats()["host_syncs"])
+    assert sched._guard_nonfinite
+    assert seen["guarded"] == seen["plain"]
+    assert seen["plain"][1] and set(seen["plain"][1]) == {1}
+
+
+@pytest.mark.gpu
+def test_poison_prefill_fails_exactly_its_row_on_the_card(card):
+    """The chaos fault NaNs one completing row's logits on the card: that
+    request ends FAILED with no token and no index entry; its batch-mates
+    finish within logit tolerance."""
+    from repro_torch.dist.fault import FaultInjector
+    from repro_torch.serve.slo import RequestStatus
+
+    model, params = _smoke(card)
+    prompts = [np.arange(200, 217, dtype=np.int32)] + _shared_prompts(256)[:3]
+    inj = FaultInjector({0: "poison_prefill"})
+    eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                           decode_chunk=4, kv_quant="int8", device=card, prefix_cache=True,
+                           injector=inj)
+    rids = [eng.submit(p, max_new_tokens=4) for p in prompts]
+    done = eng.run_until_drained()
+    assert [eng.statuses[r] for r in rids] == [RequestStatus.FAILED] + [RequestStatus.OK] * 3
+    assert len(done[rids[0]]) == 0 and inj.fired == {(0, "poison_prefill")}
+    assert eng.kv.prefix.lookup(prompts[0]) == []
+    assert _within_logit_tolerance(model, params, prompts[1:], [done[r] for r in rids[1:]],
+                                   card)
+    eng.scheduler.check_invariants()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4"])
+def test_page_planes_round_trip_bitwise_on_the_card(card, kind):
+    """`extract_page_planes` gathers a page on the card in one copy (the
+    CPU's result bitwise), and `apply_page_planes` writes it back into
+    other pages bitwise, in place."""
+    from repro_torch.serve.host_tier import apply_page_planes, extract_page_planes
+
+    model, params = _smoke(card)
+    eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                           num_blocks=8, decode_chunk=4, kv_quant=kind, device=card)
+    eng.submit(np.arange(1, 18, dtype=np.int32), max_new_tokens=3)
+    eng.run_until_drained()
+    pools = eng.kv.pools
+    planes = extract_page_planes(pools, 1)
+    on_cpu = extract_page_planes([{n: t.cpu() for n, t in layer.items()} for layer in pools], 1)
+    assert all(torch.equal(planes[n], on_cpu[n]) for n in planes)
+    ptrs = [t.data_ptr() for layer in pools for t in layer.values()]
+    apply_page_planes(pools, np.asarray([4, 7]), [planes, planes])
+    torch.cuda.synchronize()
+    assert ptrs == [t.data_ptr() for layer in pools for t in layer.values()]
+    for layer in pools:
+        for t in layer.values():
+            assert torch.equal(t[4], t[1]) and torch.equal(t[7], t[1])
+
+
+@pytest.mark.gpu
+def test_tier_restore_keeps_pool_addresses_and_graphs_replay_bitwise(card):
+    """Spill every cached page and serve the same prompt again: the restore
+    writes into the pools in place (their addresses do not move, so the
+    captured decode graphs replay without a new capture), the tokens are
+    those of a resident prefix hit, and every graph replays bitwise
+    against the uncaptured chunk."""
+    from repro_torch.serve.graphs import replay_check
+
+    model, params = _smoke(card)
+    prompt = np.arange(1, 26, dtype=np.int32)
+    outs = {}
+    for tier in (False, True):
+        eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                               num_blocks=16, decode_chunk=4, kv_quant="int8", device=card,
+                               prefix_cache=True, host_tier=tier)
+        first = eng.submit(prompt, max_new_tokens=6)
+        done = eng.run_until_drained()
+        ptrs = [t.data_ptr() for layer in eng.kv.pools for t in layer.values()]
+        graphs = set(eng._chunk_graphs.graphs)
+        if tier:
+            assert eng.kv.spill_all() == 3
+        second = eng.submit(prompt, max_new_tokens=6)
+        done.update(eng.run_until_drained())
+        outs[tier] = [done[first].tolist(), done[second].tolist()]
+        assert ptrs == [t.data_ptr() for layer in eng.kv.pools for t in layer.values()]
+        assert set(eng._chunk_graphs.graphs) == graphs
+        st = eng.scheduler.stats()
+        assert st["prefix_hit_tokens"] == 24
+        if tier:
+            assert st["tier_restored_pages"] == 3 and st["tier_hit_tokens"] == 24
+        for key in eng._chunk_graphs.graphs:
+            assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
+        eng.scheduler.check_invariants()
+    assert outs[True] == outs[False]

@@ -15,6 +15,8 @@ the stats and every pool plane are the reference's; and port against
 port in this process, where sharing and chunking change no token.
 """
 
+import dataclasses
+
 import jax
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from repro.core.decompress import compress_tree as jcompress_tree
 from repro.core.formats import get_spec as jget_spec
 from repro.models.model import Model as JModel
 from repro.serve.engine import GenerationEngine as JEngine
+from repro.serve.host_tier import HostTier as JHostTier
 from repro.serve.paged_cache import BlockAllocator as JAllocator
 from repro.serve.paged_cache import PagedKVCache as JCache
 from repro.serve.scheduler import Request as JRequest
@@ -34,6 +37,7 @@ from repro_torch.configs.base import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import GenerationEngine, SpecConfig
+from repro_torch.serve.host_tier import HostTier
 from repro_torch.serve.paged_cache import BlockAllocator, PagedKVCache, chain_key
 from repro_torch.serve.scheduler import STAT_UNITS, Request, Scheduler
 from test_torch_engine import _logs_equal, _record
@@ -78,7 +82,14 @@ def _index_state(index):
         for c in n.children.values():
             nodes.append((c.key, parent, c.chunk, c.page, c.tick))
             stack.append((c, c.key))
-    return sorted(nodes), index.pages, index._tick
+    return sorted(nodes), index.pages, index.tiered_count, index._tick
+
+
+def _tier_state(t):
+    if t is None:
+        return None
+    return (sorted(t.keys()), t.spilled_pages, t.restored_pages, t.corrupt_pages,
+            t.dropped_pages, t.fallback_recomputes)
 
 
 def _state(c):
@@ -90,17 +101,14 @@ def _state(c):
         "reserved": dict(c._reserved), "fresh": list(c._fresh),
         "copies": list(c._pending_copies), "hit": c.prefix_hit_tokens,
         "cow": c.cow_copies, "index": _index_state(c.prefix),
+        "tier": _tier_state(c.tier), "tier_hit": c.tier_hit_tokens,
+        "restores": [d for d, _ in c._pending_restores],
     }
 
 
-def _occ(occupancy):
-    """The reference's occupancy without its host-tier count (ROADMAP Queue
-    A item 9), which must be 0 here."""
-    assert occupancy.pop("tiered", 0) == 0
-    return occupancy
-
-
 def _same(a, b) -> bool:
+    if hasattr(a, "blob") and hasattr(b, "blob"):  # tier payloads of the two packages
+        return _same(dataclasses.astuple(a), dataclasses.astuple(b))
     if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
         return np.array_equal(np.asarray(a), np.asarray(b)) and (
             np.asarray(a).dtype == np.asarray(b).dtype)
@@ -128,7 +136,7 @@ class Twin:
 
     def __getattr__(self, name):
         ref, port = (getattr(x, name) for x in self._pair)
-        if name in ("prefix", "allocator"):
+        if name in ("prefix", "allocator", "tier"):
             return Twin(ref, port, self._root)
         if not callable(ref):
             assert _same(ref, port), (name, ref, port)
@@ -142,8 +150,6 @@ class Twin:
                 except (ValueError, RuntimeError) as e:
                     outs.append((e, None))
             (re_, rv), (pe, pv) = outs
-            if name == "occupancy":
-                rv = _occ(rv)
             assert (type(re_), str(re_)) == (type(pe), str(pe)), (name, re_, pe)
             assert _same(rv, pv), (name, rv, pv)
             self._root.check()
@@ -154,11 +160,11 @@ class Twin:
         return call
 
 
-def _cache(num_blocks=24, block_size=4, prefix=True):
+def _cache(num_blocks=24, block_size=4, prefix=True, tier=False):
     t = Twin(JCache(_RefStub(), num_blocks=num_blocks, block_size=block_size,
-                    prefix_cache=prefix),
+                    prefix_cache=prefix, tier=JHostTier() if tier else None),
              PagedKVCache(_PortStub(), num_blocks=num_blocks, block_size=block_size,
-                          prefix_cache=prefix))
+                          prefix_cache=prefix, tier=HostTier() if tier else None))
     t.check()
     return t
 
@@ -407,29 +413,37 @@ def test_rollback_on_shared_pages_only_drops_this_requests_ref():
 
 
 def test_index_keys_drop_and_page_multiset():
-    """Node keys are the reference's content addresses; `drop_key` and
-    `drop_subtree` unlink a chain and drop only the index's references."""
+    """Node keys are the reference's content addresses. `drop_subtree` and
+    `drop_key` unlink tiered chains only (the corrupt-payload fallback and
+    the tier's capacity hook), as in the reference: a resident node is
+    refused or left alone, in both packages."""
     bs = 4
-    c = _cache(num_blocks=12, block_size=bs)
+    c = _cache(num_blocks=12, block_size=bs, tier=True)
     prompt = np.arange(3 * bs, dtype=np.int32)
     c.admit(0, 3 * bs + 1, prompt=prompt)
     c.write_slots(0, 0, 3 * bs)
     c.prefix_insert(0, prompt)
-    port = c._pair[1]
+    ref, port = c._pair
     assert sorted(port.prefix.page_multiset()) == sorted(port._tables[0])
     k0 = chain_key(b"", prompt[:bs].tobytes())
     k1 = chain_key(k0, prompt[bs:2 * bs].tobytes())
     root = port.prefix._root
     assert list(root.children.values())[0].key == k0
-    assert port.prefix.drop_key(k1) == 0  # the request still holds both pages
-    assert port.prefix.pages == 1 and all(port.allocator.ref_count(p) == 1
-                                          for p in port._tables[0][1:])
-    assert port.prefix.drop_key(b"no such key") == 0
-    port.release(0)
-    assert port.prefix.drop_subtree(list(root.children.values())[0]) == 1
-    assert port.prefix.pages == 0 and port.allocator.free_count == 12
-    with pytest.raises(ValueError, match="root"):
-        port.prefix.drop_subtree(root)
+    c.prefix.drop_key(k1)  # resident: the capacity hook leaves it
+    c.prefix.drop_key(b"no such key")
+    assert c.prefix.pages == 3
+    for cache in (ref, port):
+        for node in (list(cache.prefix._root.children.values())[0], cache.prefix._root):
+            with pytest.raises(ValueError, match="tiered-fallback"):
+                cache.prefix.drop_subtree(node)
+    c.release(0)
+    assert c.reclaim_index_pages(2) == 2  # the two deepest pages spill
+    assert c.prefix.tiered_count == 2 and c.occupancy()["tiered"] == 2
+    assert sorted(port.prefix.tier_keys()) == sorted(port.tier.keys())
+    c.tier.pop(k1)  # the tier let k1's payload go: its chain leaves the index
+    c.prefix.drop_key(k1)
+    assert c.prefix.tiered_count == 0 and c.tier.pages == 0 and c.prefix.pages == 1
+    assert port.allocator.free_count == 11
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +484,7 @@ def _drain(eng, prompts, port, eos_id=None):
     st = eng.scheduler.stats()
     return {"tokens": [done[r].tolist() for r in rids], "log": log,
             "stats": {k: st[k] for k in STAT_UNITS},
-            "peaks": dict(eng.scheduler.request_peaks), "occ": _occ(eng.kv.occupancy()),
+            "peaks": dict(eng.scheduler.request_peaks), "occ": eng.kv.occupancy(),
             "pools": eng.kv.pools}
 
 
