@@ -122,7 +122,11 @@ class ModelConfig:
 
 
 _MODULES = {
+    "granite-3-8b": "granite_3_8b",
+    "llama2-70b": "llama2_70b",
     "llama3-8b": "llama3_8b",
+    "llama3.2-1b": "llama3_2_1b",
+    "opt-66b": "opt_66b",
 }
 
 

@@ -2,9 +2,10 @@
 
 Counterpart of the subset of `repro/models/layers.py` that compressed-
 weight paged serving of a dense GQA decoder runs: RMS norm, rotary
-embeddings with per-request positions, grouped-query attention with f32
-probabilities in the PV product, the block-paged quantized KV pool, and the
-swiglu MLP. Functions take and return tensors; the paged pool is a dict of
+embeddings with per-request positions (off under learned positions),
+grouped-query attention with f32 probabilities in the PV product, the
+block-paged quantized KV pool, the swiglu and relu MLPs, and the tied
+head's logits. Functions take and return tensors; the paged pool is a dict of
 tensors per layer and is updated in place (the reference returns a new pool
 per write; in place saves a copy of every layer's pool per step).
 """
@@ -274,8 +275,9 @@ def paged_attention_block(
     q = mm(x, params["wq"]).reshape(b, s, hq, dh)
     k = mm(x, params["wk"]).reshape(b, s, hkv, dh)
     v = mm(x, params["wv"]).reshape(b, s, hkv, dh)
-    q = apply_rope_batched(q, positions, cfg.rope_theta)
-    k = apply_rope_batched(k, positions, cfg.rope_theta)
+    if cfg.pos_emb == "rope":  # learned positions were added to the embedding
+        q = apply_rope_batched(q, positions, cfg.rope_theta)
+        k = apply_rope_batched(k, positions, cfg.rope_theta)
 
     cache = paged_update_cache(
         cache, k, v, write_pos, write_slots, fresh_pages, copy_pages,
@@ -301,6 +303,11 @@ def paged_attention_block(
 
 def init_mlp(generator, cfg: ModelConfig, device, dtype) -> Params:
     d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp_act != "swiglu":  # relu has no gate
+        return {
+            "w_up": dense_init(generator, (d, f), device, dtype),
+            "w_down": dense_init(generator, (f, d), device, dtype),
+        }
     return {
         "w_gate": dense_init(generator, (d, f), device, dtype),
         "w_up": dense_init(generator, (d, f), device, dtype),
@@ -315,6 +322,24 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 
 def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """swiglu FFN: silu(x Wg) * (x Wu), then W_down."""
-    h = silu(mm(x, params["w_gate"])) * mm(x, params["w_up"])
+    """swiglu FFN: silu(x Wg) * (x Wu), then W_down; relu FFN: relu(x Wu),
+    then W_down. Each op rounds in the product's dtype, as the reference's."""
+    if cfg.mlp_act == "swiglu":
+        h = silu(mm(x, params["w_gate"])) * mm(x, params["w_up"])
+    else:
+        h = torch.relu(mm(x, params["w_up"]))
     return mm(h, params["w_down"])
+
+
+def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    """Logits of a tied head: x (..., D) bf16 against `embed` (V, D) bf16,
+    the products exact and summed in f32 into an f32 result (the
+    reference's einsum with `preferred_element_type=f32`). On the card one
+    cuBLAS GEMM reads the bf16 table and writes f32; on the CPU the same
+    sum runs over f32 copies of the operands."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.device.type == "cuda":
+        out = torch.mm(x2, embed.t(), out_dtype=torch.float32)
+    else:
+        out = x2.float() @ embed.float().t()
+    return out.reshape(*x.shape[:-1], embed.shape[0])

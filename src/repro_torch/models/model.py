@@ -1,7 +1,9 @@
 """The dense GQA decoder over the block-paged KV pool.
 
 Counterpart of `repro/models/model.py` for the paged serving path of a
-dense attention stack (llama3-8b). Layers are kept per layer in a list
+dense attention stack: llama3-8b, llama2-70b, llama3.2-1b and granite-3-8b
+(rope, swiglu; the last two with a tied head) and opt-66b (learned
+positions, a relu MLP, full MHA). Layers are kept per layer in a list
 rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
 and `spec_decode_chunk` its draft/verify rounds as Python loops with the
 done flags on the device and no host sync inside, so only the sampled
@@ -10,9 +12,10 @@ captures each loop whole as one CUDA graph (`serve/graphs.py`). Every FC matmul 
 DECA GeMM/GeMV kernels for compressed weights) and decode attention
 through the fused paged-attention kernel.
 
-Params are a dict of tensors: {"embed", "final_norm", "lm_head",
+Params are a dict of tensors: {"embed", "final_norm", "lm_head" (absent
+when the head is tied to `embed`), "pos_embed" (learned positions only),
 "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "pre_mlp_norm",
-"mlp": {w_gate, w_up, w_down}}, ...]}.
+"mlp": {w_gate (swiglu only), w_up, w_down}}, ...]}.
 """
 from __future__ import annotations
 
@@ -31,21 +34,19 @@ Pools = List[Dict[str, torch.Tensor]]
 
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
-    """Config features outside this slice of the port (ROADMAP Queue A
-    item 10: remaining model families)."""
+    """Config features outside the port so far, each with the step of
+    ROADMAP Queue A item 10 (remaining model families) that ports it."""
     checks = {
-        "family": cfg.family != "dense",
-        "n_experts": cfg.n_experts > 0,
-        "attn_pattern": cfg.attn_pattern != "global",
-        "mrope_sections": bool(cfg.mrope_sections),
-        "pos_emb": cfg.pos_emb != "rope",
-        "mlp_act": cfg.mlp_act != "swiglu",
-        "post_norms": cfg.post_norms,
-        "tie_embeddings": cfg.tie_embeddings,
-        "embed_scale": cfg.embed_scale,
-        "final_softcap": cfg.final_softcap > 0,
+        "family": (cfg.family != "dense", "10.5-10.7"),
+        "n_experts": (cfg.n_experts > 0, "10.5"),
+        "attn_pattern": (cfg.attn_pattern != "global", "10.3"),
+        "mrope_sections": (bool(cfg.mrope_sections), "10.7"),
+        "mlp_act": (cfg.mlp_act not in ("swiglu", "relu"), "10.3, 10.7"),
+        "post_norms": (cfg.post_norms, "10.3"),
+        "embed_scale": (cfg.embed_scale, "10.3"),
+        "final_softcap": (cfg.final_softcap > 0, "10.3"),
     }
-    return [name for name, bad in checks.items() if bad]
+    return [f"{name} (step {step})" for name, (bad, step) in checks.items() if bad]
 
 
 class Model:
@@ -95,19 +96,23 @@ class Model:
             return compress_tree({"layers": [tree]}, spec,
                                  layer_stack=self.layer_stack)["layers"][0]
 
-        embed = torch.randn((cfg.vocab_size, cfg.d_model), generator=generator,
-                            device=device) * 0.02
+        def table(rows):
+            return (torch.randn((rows, cfg.d_model), generator=generator,
+                                device=device) * 0.02).to(dtype)
+
         params: Params = {
-            "embed": embed.to(dtype),
+            "embed": table(cfg.vocab_size),
             "final_norm": torch.zeros(cfg.d_model, device=device),
         }
-        del embed
-        lm_head = {"lm_head": L.dense_init(
-            generator, (cfg.d_model, cfg.vocab_size), device, dtype
-        )}
-        if spec is not None:
-            lm_head = compress_tree(lm_head, spec)
-        params["lm_head"] = lm_head["lm_head"]
+        if cfg.pos_emb == "learned":
+            params["pos_embed"] = table(cfg.pos_table)
+        if not cfg.tie_embeddings:
+            lm_head = {"lm_head": L.dense_init(
+                generator, (cfg.d_model, cfg.vocab_size), device, dtype
+            )}
+            if spec is not None:
+                lm_head = compress_tree(lm_head, spec)
+            params["lm_head"] = lm_head["lm_head"]
         params["layers"] = [
             shrink(self.init_block(generator, device=device, dtype=dtype))
             for _ in range(cfg.n_layers)
@@ -182,12 +187,18 @@ class Model:
         attention window (the spec-decode draft)."""
         cfg = self.cfg
         x = params["embed"][tokens.long()].to(torch.bfloat16)
+        if cfg.pos_emb == "learned":
+            idx = torch.clamp(positions.long(), 0, cfg.pos_table - 1)
+            x = x + params["pos_embed"][idx].to(torch.bfloat16)
         new_cache = []
         for p, kind, cache_l in zip(params["layers"], self.kinds, cache):
             x, cache_l = self._block_apply(p, x, kind, positions, cache_l, paged)
             new_cache.append(cache_l)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
-        logits = mm(x.to(torch.float32), params["lm_head"])
+        if cfg.tie_embeddings:
+            logits = L.tied_logits(x, params["embed"])
+        else:
+            logits = mm(x.to(torch.float32), params["lm_head"])
         return logits, new_cache
 
     def score(self, params: Params, tokens: torch.Tensor, *,

@@ -7,9 +7,10 @@ machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
 Tolerance: the kernels and their plain versions multiply the same bf16
-values exactly and sum in f32 in another order (matmuls: K <= 512 here;
-attention: an online softmax over another grouping), so they agree to
-1e-4 of the output's scale. Decompression has no accumulation and is
+values exactly and sum in f32 in another order (matmuls: K <= 512 here,
+and the paper models' K of 28672 and 36864; attention: an online
+softmax over another grouping), so they agree to 1e-4 of the output's
+scale. Decompression has no accumulation and is
 bitwise. A spec engine's tokens are held against teacher-forced logits of
 the target to 5e-2 of their scale, the kernel-path tolerance of PERF.md.
 """
@@ -207,6 +208,69 @@ def test_gemm_kernel_ragged_shapes_match_plain(card, quant, density, m, n):
                 assert torch.all((got.float() - want).abs() <= bound), (x.dtype, out_dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [28672, 36864])
+@pytest.mark.parametrize("spec", ["bf8_50", "bf16_100"])
+def test_gemv_at_the_paper_models_long_k_matches_plain(card, spec, k):
+    """The down projections of llama2-70b (K = 28672) and opt-66b (K = 36864),
+    at a cut N: f32 sums two and a half times longer than llama3-8b's, held
+    to the same tolerance."""
+    quant, dens = spec.rsplit("_", 1)
+    g = torch.Generator(device=card).manual_seed(k)
+    ct = compress(torch.randn(k, 1024, generator=g, device=card) / k**0.5,
+                  CompressionSpec(quant, int(dens) / 100))
+    for m in (1, 4, 16):
+        x = torch.randn(m, k, generator=g, device=card)
+        got = deca_gemm.decompress_gemv(x, ct, out_dtype=torch.float32)
+        want = ref.decompress_gemv(x, ct, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert _close(got, want), m
+
+
+# (B, Hq, Hkv, Dh) of the paper models' decode attention: llama2-70b's 8
+# query heads a KV head, opt-66b's full MHA over 72 KV heads, llama3.2-1b's
+# head dim 64 (a lane holds two dims)
+_FAMILY_ATTENTION = {"llama2-70b": (4, 64, 8, 128), "opt-66b": (4, 72, 72, 128),
+                     "llama3.2-1b": (4, 32, 8, 64)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["none", "int8", "nf4"])
+@pytest.mark.parametrize("arch", sorted(_FAMILY_ATTENTION))
+def test_paged_attention_at_the_paper_models_shapes_matches_plain(card, arch, kind):
+    b, hq, hkv, dh = _FAMILY_ATTENTION[arch]
+    args = _pools(kind, card, seed=3, b=b, hq=hq, hkv=hkv, dh=dh, bs=32, mb=32,
+                  lens=(1024, 700, 333, 17))
+    for window in (0, 100):
+        got = paged_attention.paged_attention(*args, quant=kind, window=window)
+        want = ref.paged_decode_attention(*args, quant=kind, window=window)
+        torch.cuda.synchronize()
+        assert got.shape == (b, hq, dh) and _close(got, want), window
+
+
+@pytest.mark.gpu
+def test_tied_head_f32_logits_match_the_plain_f32_product(card):
+    """llama3.2-1b's tied head at full width: one bf16 GEMM with f32 output
+    against the plain product of f32 copies, both summing exact products
+    in f32: within 2 K 2^-24 sum|x e| of each other, f32, no bf16 rounding
+    of the logits."""
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn(4, 1, 2048, generator=g, device=card).bfloat16()
+    embed = (torch.randn(128256, 2048, generator=g, device=card) * 0.02).bfloat16()
+    got = layers.tied_logits(x, embed)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want = x.float() @ embed.float().t()
+        mag = x.float().abs() @ embed.float().abs().t()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (4, 1, 128256)
+    assert torch.all((got - want).abs() <= 2 * 2048 * 2.0**-24 * mag)
+    assert not torch.equal(got, got.bfloat16().float())
+
+
 # (pool shape, kv_lens, window): more pages than one split, a window that
 # leaves the leading splits empty, a padding slot with kv_len 0, B Hkv = 1
 _SPLIT_CASES = {
@@ -342,8 +406,8 @@ def _to(tree, device):
     return tree.to(device)
 
 
-def _smoke(device, spec="bf8_50"):
-    model = Model(get_smoke_config("llama3-8b"))
+def _smoke(device, spec="bf8_50", arch="llama3-8b"):
+    model = Model(get_smoke_config(arch))
     params = model.init(torch.Generator().manual_seed(0), device="cpu", spec=get_spec(spec))
     return model, _to(params, device)
 
@@ -443,10 +507,10 @@ def test_gemv_nonfinite_x_at_a_masked_out_position_matches_plain(card, quant, de
 # captured decode: graphs against the uncaptured steps, and the sampler
 # ---------------------------------------------------------------------------
 
-def _served_engine(card, kind, spec=None, **kw):
+def _served_engine(card, kind, spec=None, arch="llama3-8b", **kw):
     """A smoke-config engine on the card that has served requests whose
     chunks took every length C in 8, 4, 2, 1 (each length its own graph)."""
-    model, params = _smoke(card)
+    model, params = _smoke(card, arch=arch)
     eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
                            decode_chunk=8, kv_quant=kind, device=card, spec_decode=spec, **kw)
     rng = np.random.default_rng(5)
@@ -467,6 +531,25 @@ def test_decode_graph_replay_is_bitwise_the_uncaptured_chunk(card, kind):
     graphs = eng._chunk_graphs.graphs
     assert sorted(key[2][0] for key in graphs) == [1, 2, 4, 8]  # positions (C, M, 1)
     for key in graphs:
+        assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["opt-66b", "llama3.2-1b", "granite-3-8b"])
+def test_decode_graphs_of_the_new_families_replay_bitwise(card, arch):
+    """Learned positions and the relu MLP (opt-66b), a tied head (llama3.2-1b;
+    granite-3-8b with a vocab of 259) inside the captured chunk: every
+    replay is the uncaptured chunk bitwise, with 6 GeMVs a layer for relu
+    and 7 for swiglu, plus one for an untied head, each step."""
+    from repro_torch.serve.graphs import replay_check
+
+    eng = _served_engine(card, "int8", arch=arch)
+    cfg = eng.cfg
+    graphs = eng._chunk_graphs.graphs
+    assert sorted(key[2][0] for key in graphs) == [1, 2, 4, 8]
+    per_step = (6 if cfg.mlp_act == "relu" else 7) * cfg.n_layers + (not cfg.tie_embeddings)
+    for key, g in graphs.items():
+        assert g.launches[0] == key[2][0] * per_step
         assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
 
 
