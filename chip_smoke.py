@@ -111,6 +111,13 @@ PAPER_NEW = 32  # new tokens a request
 # dense and its compression's scratch, never the dense model
 BUILD_HEADROOM = 12e9
 PATH_LAYERS = 4  # depth of their kernel-path vs plain-path comparison
+# gemma2-2b at full width: 4 requests of seeded lengths, then one long one
+# whose local layers' window (4096) cuts the page walk
+GEMMA = "gemma2-2b"
+GEMMA_LONG = 4600
+GEMMA_MAX_LEN = 8192
+# hubert-xlarge's lm_head width: code rows of 504 bytes, no TMA box
+ODD_N, ODD_K = 504, 1280
 
 
 _LOG = []
@@ -396,7 +403,7 @@ def time_attention(torch, timer, case, args):
     moved = pages * bs * per_tok + 2 * qb.numel() * 2 + 4 * tables.numel()
     flops = 4.0 * hq * dh * toks
     case["bound_ms"], case["bound_by"] = bound_ms(moved, flops)
-    where = f"{case['model']} " if "model" in case else ""
+    where = "".join(f"{case[k]} " for k in ("model", "role") if k in case)
     log(f"{where}attention {kind:5s}: rel_err {case['rel_err']:.2e} kernel {case['ms']:.4f} ms "
         f"({achieved(case, moved, flops)}; device {fmt_ms(case['device_ms'])}, host "
         f"{case['host_ms']:.4f} ms) plain {case['plain_ms']:.4f} ms sdpa "
@@ -435,6 +442,73 @@ def check_attention(torch, timer, report):
         del pools
     log(f"attention: {len(cases)} cases, max rel err {worst:.2e} (tolerance {KERNEL_TOL})")
     report["attention_cases"] = cases
+    return cases
+
+
+def check_new_shapes(torch, timer, report):
+    """The kernels at the shapes this slice opened, each against its plain
+    version and timed: attention at gemma2-2b's heads (G 2, Dh 256) over
+    the none, int8 and nf4 pools with windows 0 and 100 and softcap 50;
+    attention at G 6, 7 and 16 at Dh 128 and 256 (int8 pool); the GeMV (M
+    = 4) and the GeMM (M = 2048) at (K, N) = (ODD_K, ODD_N) for every
+    weight codec, dense and at half density. Every case runs before a
+    failure is raised."""
+    from repro_torch.core.compression import compress
+    from repro_torch.core.formats import CompressionSpec
+    from repro_torch.kernels import deca_gemm, paged_attention, ref
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    cases = []
+    heads = [(8, 4, 256, kind) for kind in ("none", "int8", "nf4")]
+    heads += [(hkv * grp, hkv, dh, "int8") for grp, hkv in ((6, 2), (7, 2), (16, 1))
+              for dh in (128, 256)]
+    for hq, hkv, dh, kind in heads:
+        q, pools, tables, kv_lens, q_pos = _attention_inputs(torch, kind, g, hq, hkv, dh)
+        args = (q, pools, tables, kv_lens, q_pos)
+        role = f"G={hq // hkv} Hkv={hkv} Dh={dh}"
+        variants = ((0, 0.0), (100, 0.0), (0, 50.0), (100, 50.0)) if dh == 256 and \
+            hq == 8 else ((0, 0.0), (100, 50.0))
+        for window, cap in variants:
+            got = paged_attention.paged_attention(*args, quant=kind, window=window, softcap=cap)
+            want = ref.paged_decode_attention(*args, quant=kind, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            case = {"kernel": "attention", "kind": kind, "role": role, "window": window,
+                    "softcap": cap, "variant": f"window {window} softcap {cap:g}",
+                    "max_abs_err": err, "rel_err": rel}
+            if window == 0 and cap == 0.0:
+                time_attention(torch, timer, case, args)
+            cases.append(case)
+        del pools, args
+        torch.cuda.empty_cache()
+    w = torch.randn(ODD_K, ODD_N, generator=g, device="cuda") / math.sqrt(ODD_K)
+    xs = {m: torch.randn(m, ODD_K, generator=g, device="cuda").bfloat16().float()
+          for m in (4, 2048)}
+    for quant in CODECS:
+        for dens in (1.0, 0.5):
+            ct = compress(w, CompressionSpec(quant, dens))
+            for m, x in xs.items():
+                kind = "gemv" if m <= 32 else "gemm"
+                kern = deca_gemm.decompress_gemv if kind == "gemv" else deca_gemm.decompress_gemm
+                plain = ref.decompress_gemv if kind == "gemv" else ref.decompress_gemm
+                got, want = kern(x, ct), plain(x, ct)
+                torch.cuda.synchronize()
+                err, rel = rel_err(got, want)
+                case = {"kernel": kind, "role": f"N={ODD_N}", "K": ODD_K, "N": ODD_N, "M": m,
+                        "spec": ct.spec.name, "max_abs_err": err, "rel_err": rel}
+                if ct.spec.name == SERVED_SPEC:
+                    time_matmul(torch, timer, case, kern, plain, x, ct)
+                cases.append(case)
+    worst = max(c["rel_err"] for c in cases)
+    log(f"new shapes: {len(cases)} cases, max rel err {worst:.2e} (tolerance {KERNEL_TOL}): "
+        + ", ".join(f"{c['kernel']} {c.get('kind', c.get('spec'))} {c['role']}"
+                    f"{' ' + c['variant'] if 'variant' in c else ' M=%d' % c['M']} "
+                    f"{c['rel_err']:.2e}" for c in cases))
+    report["new_shape_cases"] = cases
+    bad = [c for c in cases if c["rel_err"] > KERNEL_TOL]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the new shapes: "
+                             f"{bad}")
     return cases
 
 
@@ -743,9 +817,9 @@ def gemv_per_step(rows, out):
 
 def gemvs_per_step(cfg) -> int:
     """GeMV launches of one decode step: one per FC matmul of each layer
-    (4 attention projections, and 3 in a swiglu MLP or 2 in a relu one)
+    (4 attention projections, and 3 in a gated MLP or 2 in a relu one)
     and one for an untied lm_head (a tied head is a cuBLAS GEMM)."""
-    per_layer = 4 + (3 if cfg.mlp_act == "swiglu" else 2)
+    per_layer = 4 + (3 if cfg.mlp_act in ("swiglu", "geglu") else 2)
     return per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
 
 
@@ -2198,7 +2272,28 @@ def check_tied_head(torch, model, params, report):
         raise AssertionError("the tied head's logits disagree with the plain f32 product")
 
 
-def serve_paper_model(torch, model, params, report, batches):
+def decode_kv_pages(cfg, lens, new, bs):
+    """KV pages one decode step walks, summed over the layers and averaged
+    over the decode steps, of requests with prompt lengths `lens` each
+    emitting `new` tokens (the first from the prefill): a step at KV
+    length kv walks ceil(kv / bs) pages in a global layer and only those
+    from the first its window can see in a local one (the kernel's
+    lo_page). Returns (layer pages a step, global pages a step of one
+    layer), the second to be checked against the scheduler's count."""
+    layer_pages = glob = 0
+    steps = new - 1
+    for n in lens:
+        for t in range(1, new):
+            kv = n + t
+            full = -(-kv // bs)
+            local = full - max(0, kv - cfg.window) // bs
+            glob += full
+            layer_pages += sum(local if k == "attn_local" else full for k in cfg.layer_kinds())
+    return layer_pages / steps, glob / steps
+
+
+def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=2048,
+                      check_all=False):
     """Greedy serves through the plain serve's engine, one per entry of
     `batches` (requests submitted at once, PAPER_NEW new tokens each, seeded
     prompt lengths in 64-1024), every decode chunk a captured graph. Each
@@ -2207,16 +2302,20 @@ def serve_paper_model(torch, model, params, report, batches):
     the KV pages the step walks, over the card's memory rate), tok/s,
     launches, peak memory, its graphs and one replay's breakdown; every
     request must emit its tokens inside the vocabulary, and each decode
-    step must launch one GeMV per FC matmul."""
+    step must launch one GeMV per FC matmul. `lens` gives the prompt
+    lengths; `check_all` also holds every serve's tokens against
+    teacher-forced logits (not only the first's) and its graphs' replays
+    bitwise against the uncaptured chunks."""
     from repro_torch.core.compression import CompressedTensor
     from repro_torch.core.decompress import _leaves
     from repro_torch.serve.engine import GenerationEngine
 
     cfg, name = model.cfg, model.cfg.name
     eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
-                           max_len=2048, decode_chunk=8)
+                           max_len=max_len, decode_chunk=8)
     g = torch.Generator().manual_seed(4)
-    lens = torch.randint(64, 1025, (sum(batches),), generator=g).tolist()
+    if lens is None:
+        lens = torch.randint(64, 1025, (sum(batches),), generator=g).tolist()
     prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy() for n in lens]
     fc = sum(x.nbytes for x in _leaves(params) if isinstance(x, CompressedTensor))
     head = params["embed"].numel() * 2 if cfg.tie_embeddings else 0  # read whole a step
@@ -2246,6 +2345,15 @@ def serve_paper_model(torch, model, params, report, batches):
         replay_ms = 1e3 * sum(c["wall_s"] for c in later) / max(1, sum(c["steps"] for c in later))
         steps = st["decode_steps"] - st0["decode_steps"]
         kv = (st["kv_pages_read"] - st0["kv_pages_read"]) * page_bytes / max(steps, 1)
+        if cfg.attn_pattern == "local_global":
+            # the scheduler counts a global layer's walk in every layer; a
+            # local layer walks only the pages its window sees
+            layer_pages, glob = decode_kv_pages(cfg, [len(p) for p in batch], PAPER_NEW,
+                                                eng.kv.block_size)
+            if abs(glob - kv / page_bytes) > 1e-6:
+                log(f"warning: {name} {what}: {glob} global pages a step by the prompt "
+                    f"lengths against the scheduler's {kv / page_bytes}")
+            kv = layer_pages * page_bytes / cfg.n_layers
         bound = 1e3 * (fc + head + kv) / HBM_BYTES_PER_S
         pf = run["prefills"]
         log(f"{name} {what}: prompts {[len(p) for p in batch]} x {PAPER_NEW} new, "
@@ -2270,7 +2378,133 @@ def serve_paper_model(torch, model, params, report, batches):
         if b == batches[0]:
             out["teacher_forced_argmax_share"] = teacher_forced(
                 torch, model, params, batch, outs, report, key=f"teacher_forced_{name}")
+        elif check_all:
+            out[f"teacher_forced_argmax_share_{what}"] = teacher_forced(
+                torch, model, params, batch, outs, report,
+                key=f"teacher_forced_{name}_{what.replace(' ', '')}")
+        if check_all:
+            check_replays(torch, eng, eng._chunk_graphs, f"{name} {what} decode chunk", report)
     return out
+
+
+def gemma2(torch, report):
+    """gemma2-2b at full width and depth on one card (26 layers, local and
+    global in turn, Dh 256, geglu, softcaps, post norms, a tied head of
+    256000 x 2304), compressed to SERVED_SPEC: its build and peak, its
+    kernels at its shapes, its tied head, a serve of 4 requests of seeded
+    lengths and one of GEMMA_LONG tokens (its local layers' window of 4096
+    cuts the walk), each decode chunk's replay held bitwise and its tokens
+    against teacher-forced logits, and the kernel path against the plain
+    path over PATH_LAYERS layers. Returns its kernel cases."""
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    cases = []
+    model, params, rec = build_compressed(torch, GEMMA)
+    cfg = model.cfg
+    check_model_kernels(torch, timer, model, params, cases)
+    del timer
+    check_tied_head(torch, model, params, rec)
+    g = torch.Generator().manual_seed(4)
+    lens = torch.randint(64, 1025, (4,), generator=g).tolist() + [GEMMA_LONG]
+    rec["serves"] = serve_paper_model(torch, model, params, report, (4, 1), lens=lens,
+                                      max_len=GEMMA_MAX_LEN, check_all=True)
+    long = rec["serves"]["batch 1"]
+    eng_graphs = long["graphs"]
+    log(f"{GEMMA} long request: {GEMMA_LONG} prompt tokens, the local layers' window "
+        f"{cfg.window} walks {-(-cfg.window // 32) + 1} of its ~{-(-GEMMA_LONG // 32)} pages; "
+        f"{len(eng_graphs['graphs'])} graphs")
+    cut = Model(dataclasses.replace(cfg, n_layers=PATH_LAYERS))
+    compare_paths(torch, cut, dict(params, layers=params["layers"][:PATH_LAYERS]), rec)
+    del model, params, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cases"], rec["seconds"] = cases, time.perf_counter() - t0
+    log(f"{GEMMA}: {rec['seconds']:.1f} s; freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    report["gemma2"] = rec
+    return cases
+
+
+def snapshot_serve(torch, model, params, prompts, report, new=32):
+    """Engine snapshots on full-width llama3-8b with the prefix cache and a
+    host tier: 4 requests served uninterrupted, then the same 4 on a
+    second engine snapshotted into a temporary directory after its first
+    decode chunk, restored into a fresh engine and drained. Every resumed
+    token must pass the teacher-forced rule, and the decode kernels must
+    run in the resumed drain; the walls, the bytes on disk and the counts
+    are printed."""
+    import shutil
+    import tempfile
+
+    from repro_torch.serve.engine import GenerationEngine
+
+    kw = dict(kv_quant=SERVED_KV, max_slots=4, block_size=32, max_len=2048, decode_chunk=8,
+              prefix_cache=True, host_tier=True)
+    batch = [p[:1024] for p in prompts[:4]]
+    ref = GenerationEngine(model, params, **kw)
+    rids = [ref.submit(p, max_new_tokens=new) for p in batch]
+    want = ref.run_until_drained()
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = GenerationEngine(model, params, **kw)
+    mine = [eng.submit(p, max_new_tokens=new) for p in batch]
+    assert mine == rids
+    eng.scheduler.step()  # admission and the prefill
+    eng.scheduler.step()  # a decode chunk
+    done_before = sum(len(r.out) for r in eng.scheduler.slots if r is not None)
+    root = tempfile.mkdtemp(prefix="deca_snapshot_")
+    try:
+        snap = str(Path(root) / "snap")
+        t = time.perf_counter()
+        counts = eng.snapshot(snap)
+        snap_s = time.perf_counter() - t
+        disk = sum(f.stat().st_size for f in Path(snap).iterdir())
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        fresh = GenerationEngine(model, params, **kw)
+        t = time.perf_counter()
+        if fresh.restore(snap) != counts:
+            raise AssertionError("restore read other counts than the snapshot wrote")
+        restore_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    occ = fresh.kv.occupancy()
+    if occ["used"] != 0 or occ["tiered"] != counts["nodes"]:
+        raise AssertionError(f"a restored engine holds device pages: {occ}")
+    for fn in counters().values():
+        fn.launches = 0
+    t = time.perf_counter()
+    got = fresh.run_until_drained()
+    torch.cuda.synchronize()
+    drain_s = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters().items()}
+    st = fresh.scheduler.stats()
+    fresh.scheduler.check_invariants()
+    outs = [got[r] for r in rids]
+    if any(len(o) != new for o in outs):
+        raise AssertionError("a resumed request did not emit its tokens")
+    if launches["deca_gemv"] == 0 or launches["deca_paged_attention"] == 0:
+        raise AssertionError(f"the resumed drain did not run the decode kernels: {launches}")
+    same = sum(int(a == b) for r, o in zip(rids, outs) for a, b in zip(o, want[r]))
+    log(f"snapshot of a tiered llama3-8b engine in mid-serve ({done_before} tokens decoded): "
+        f"{counts['nodes']} index nodes, {counts['requests']} requests, {disk / 1e6:.1f} MB on "
+        f"disk; snapshot {snap_s:.3f} s, restore {restore_s:.3f} s into a fresh engine "
+        f"({occ['tiered']} pages in the tier, {occ['used']} on the card); the drain "
+        f"{drain_s:.2f} s restored {st['tier_restored_pages']} pages ({st['tier_hit_tokens']} "
+        f"hit tokens, {st['tier_fallback_recompute']} recomputes); launches {launches}; "
+        f"{same}/{new * len(rids)} tokens equal the uninterrupted serve's")
+    tf = teacher_forced(torch, model, params, batch, outs, report, key="teacher_forced_snapshot")
+    report["snapshot"] = {"nodes": counts["nodes"], "requests": counts["requests"],
+                          "disk_bytes": disk, "snapshot_s": snap_s, "restore_s": restore_s,
+                          "drain_s": drain_s, "launches": launches, "stats": st,
+                          "tokens_equal": same, "argmax_share": tf}
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def paper_models(torch, report):
@@ -2374,6 +2608,7 @@ def main() -> int:
     timer = Timer(torch)
     mm_cases, dec_cases = check_matmuls(torch, timer, report)
     att_cases = check_attention(torch, timer, report)
+    new_cases = check_new_shapes(torch, timer, report)
     del timer
     torch.cuda.empty_cache()
 
@@ -2501,12 +2736,18 @@ def main() -> int:
     # 11. overload: the ladder down to park, chaos, the SLO gates, the host tier
     overload_serve(torch, model, params, prompts, report)
 
-    # 12. the paper's two models at full width and depth, then a tied head
+    # 12. a snapshot in mid-serve, restored into a fresh engine
+    snapshot_serve(torch, model, params, prompts, report)
+
+    # 13. the paper's two models at full width and depth, then a tied head
     del model, params
     gc.collect()
     torch.cuda.empty_cache()
     log(f"llama3-8b freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     paper_cases = paper_models(torch, report)
+
+    # 14. gemma2-2b: local and global layers, Dh 256, geglu, softcaps
+    gemma_cases = gemma2(torch, report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
@@ -2544,7 +2785,7 @@ def main() -> int:
         ("deca_decompress", csrc + "deca_decompress.cu",
          "src/repro/kernels/deca_decompress.py:103", dc),
     ]
-    held = mm_cases + att_cases + paper_cases
+    held = mm_cases + att_cases + new_cases + paper_cases + gemma_cases
     worst_abs = {  # over every case each kernel was held on
         "deca_gemv": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemv"),
         "deca_gemm": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemm"),

@@ -122,6 +122,7 @@ class ModelConfig:
 
 
 _MODULES = {
+    "gemma2-2b": "gemma2_2b",
     "granite-3-8b": "granite_3_8b",
     "llama2-70b": "llama2_70b",
     "llama3-8b": "llama3_8b",

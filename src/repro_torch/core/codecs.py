@@ -448,6 +448,9 @@ _WIRE_IDS: Dict[str, int] = {
 }
 
 
+_WIRE_NAMES: Dict[int, str] = {v: k for k, v in _WIRE_IDS.items()}
+
+
 def codec_wire_id(name: str) -> int:
     try:
         return _WIRE_IDS[name]
@@ -455,6 +458,14 @@ def codec_wire_id(name: str) -> int:
         raise ValueError(
             f"codec {name!r} has no wire id; known: {sorted(_WIRE_IDS)}"
         ) from None
+
+
+def codec_from_wire_id(wire_id: int) -> str:
+    """The codec name of a stable wire id (the inverse of `codec_wire_id`)."""
+    try:
+        return _WIRE_NAMES[wire_id]
+    except KeyError:
+        raise ValueError(f"unknown codec wire id {wire_id}") from None
 
 
 register(BF16Codec())

@@ -55,6 +55,19 @@
 //                are done.
 // setmaxnreg moves registers from the producer (24) and decoders (56) to
 // the consumers (168), which hold 128 f32 accumulators each.
+//
+// Any N. TMA needs every global row stride to be a multiple of 16 bytes:
+// the code rows are N bytes, so an N that is no multiple of 16 (hubert-
+// xlarge's lm_head, N = 504) cannot be a TMA box. For such an N the
+// triplet keeps its layout (it is not padded at compress time) and takes
+// the direct path: the producer still streams x by TMA, and each decoder
+// thread reads its column's code bytes, mask word and scale bits straight
+// from device memory (neighbouring threads on neighbouring columns, so a
+// warp's loads coalesce) into the same decode and the same swizzled B
+// ring. Columns past N decode as zeros, and the epilogue stores only
+// columns below N, in pairs where N is even and one by one where it is
+// odd. The direct path has no load ring for the weight, so its decoders
+// wait on device memory: it is the path of a rare shape, not a fast one.
 #include <cstdint>
 #include <cstring>
 #include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
@@ -191,6 +204,12 @@ struct Rings {
   uint64_t* bfull;  // decoded stage written (decoder threads)
   uint64_t* bempty; // decoded stage consumed (consumer warpgroups)
   int code_bytes;
+  // the direct path (N % 16 != 0): the planes in device memory
+  const uint8_t* gcodes;   // (ng ck, N)
+  const uint32_t* gmask;   // (ng, N)
+  const uint8_t* gscales;  // (ng, N) of scale_bytes each
+  int n;                   // N
+  int n0;                  // the tile's first column
 };
 
 // A sparse group of the thread's column, written straight into its row of
@@ -205,8 +224,8 @@ struct Rings {
 // 16-byte chunks in the row (chunk c of the group at c ^ sw).
 template <int kCodec>
 __device__ __forceinline__ void scatter_group(uint8_t* row, int gl, int t, const uint8_t* col,
-                                              int k_cap, uint32_t bits, bool scaled,
-                                              float scale) {
+                                              long long stride, int k_cap, uint32_t bits,
+                                              bool scaled, float scale) {
   const int sw = (gl * 4) ^ (t & 7);
 #pragma unroll
   for (int c = 0; c < 4; ++c)
@@ -217,13 +236,13 @@ __device__ __forceinline__ void scatter_group(uint8_t* row, int gl, int t, const
     if (rest == 0u) break;
     const int pos = __ffs(rest) - 1;
     rest &= rest - 1u;
-    float v = deca::code_value(kCodec, col, j, kBN);
+    float v = deca::code_value(kCodec, col, j, stride);
     if (scaled) v *= scale;
     *reinterpret_cast<__nv_bfloat16*>(row + (((pos >> 3) ^ sw) << 4) + ((pos & 7) << 1)) =
         __float2bfloat16_rn(v);
   }
   if (rest != 0u) {
-    float v = deca::code_value(kCodec, col, k_cap - 1, kBN);
+    float v = deca::code_value(kCodec, col, k_cap - 1, stride);
     if (scaled) v *= scale;
     const __nv_bfloat16 hv = __float2bfloat16_rn(v);
     while (rest != 0u) {
@@ -240,8 +259,11 @@ __device__ __forceinline__ void scatter_group(uint8_t* row, int gl, int t, const
 // group goes through decode_column<false>, which keeps the f32 product of
 // code and scale; the one round-to-nearest pack to bf16 gives the bits of
 // decode_column<true> (the plain version's bf16 operand). A sparse group
-// goes through scatter_group.
-template <int kCodec>
+// goes through scatter_group. kDirect (N % 16 != 0) reads the planes from
+// device memory; it is a template argument so that the TMA path compiles
+// as it did without it (a runtime flag cost the decoders 40 bytes of
+// spills and the GeMM ~10 % at M = 2048).
+template <int kCodec, bool kDirect>
 __device__ __forceinline__ void decode_loop(const Rings& r, int dec, int t, int n_k, int ng,
                                             int k_cap, int ck, bool sparse,
                                             int scale_bytes) {
@@ -250,26 +272,45 @@ __device__ __forceinline__ void decode_loop(const Rings& r, int dec, int t, int 
     const int s = i % kLoadStages, sb = i % kOpStages;
     mbar_wait(r.full + s, (i / kLoadStages) & 1);
     mbar_wait(r.bempty + sb, ((i / kOpStages) & 1) ^ 1);
-    const uint8_t* cs = r.codes + s * r.code_bytes;
-    const uint32_t* ms = reinterpret_cast<const uint32_t*>(r.mask + s * kMaskBytes);
-    const uint8_t* ss = r.scales + s * kScaleBytes;
     uint8_t* row = r.b + sb * kBBytes + t * (kBK * 2);
     for (int gl = dec; gl < kKGroups; gl += kDecoders) {
-      const int gi = gl * kBN + t;
-      const bool live = i * kKGroups + gl < ng;
-      const uint32_t sbits = scale_bytes == 1 ? (uint32_t)ss[gi]
-                             : scale_bytes == 2 ? (uint32_t)reinterpret_cast<const uint16_t*>(ss)[gi]
-                                                : 0u;
+      const int g = i * kKGroups + gl;
+      // this thread's column of group g: its first code byte and the
+      // stride between code bytes, its mask word and scale element, from
+      // the load stage or, on the direct path, from device memory
+      bool live = g < ng;
+      const uint8_t* col;
+      long long stride, gi;
+      const uint8_t* ss;
+      const uint32_t* ms;
+      if (kDirect) {
+        live = live && r.n0 + t < r.n;
+        gi = (long long)g * r.n + r.n0 + t;
+        col = r.gcodes + (long long)g * ck * r.n + r.n0 + t;
+        stride = r.n;
+        ss = r.gscales;
+        ms = r.gmask;
+      } else {
+        gi = gl * kBN + t;
+        col = r.codes + s * r.code_bytes + gl * ck * kBN + t;
+        stride = kBN;
+        ss = r.scales + s * kScaleBytes;
+        ms = reinterpret_cast<const uint32_t*>(r.mask + s * kMaskBytes);
+      }
+      uint32_t sbits = 0u;
+      if (!kDirect || live)  // a dead column of the direct path has no scale
+        sbits = scale_bytes == 1 ? (uint32_t)ss[gi]
+                : scale_bytes == 2 ? (uint32_t)reinterpret_cast<const uint16_t*>(ss)[gi]
+                                   : 0u;
       const float scale = deca::scale_value(kCodec, scaled, sbits);
       if (live && sparse) {
-        scatter_group<kCodec>(row, gl, t, cs + gl * ck * kBN + t, k_cap, ms[gi], scaled, scale);
+        scatter_group<kCodec>(row, gl, t, col, stride, k_cap, ms[gi], scaled, scale);
         continue;
       }
       uint32_t packed[deca::kGroup / 2];
       if (live) {  // a dense group: stored value i is row i
         float w[deca::kGroup];
-        deca::decode_column<false>(kCodec, cs + gl * ck * kBN + t, kBN, k_cap, false, 0u,
-                                   scaled, scale, w);
+        deca::decode_column<false>(kCodec, col, stride, k_cap, false, 0u, scaled, scale, w);
 #pragma unroll
         for (int j = 0; j < deca::kGroup / 2; ++j) packed[j] = pack_bf16(w[2 * j], w[2 * j + 1]);
       } else {
@@ -290,13 +331,29 @@ __device__ __forceinline__ void decode_loop(const Rings& r, int dec, int t, int 
   }
 }
 
+// the decoder loop for `codec`, the codec fixed at compile time
+template <bool kDirect>
+__device__ __forceinline__ void decode_codec(int codec, const Rings& r, int dec, int t, int n_k,
+                                             int ng, int k_cap, int ck, bool sp,
+                                             int scale_bytes) {
+  switch (codec) {
+    case deca::kBF16: decode_loop<deca::kBF16, kDirect>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
+    case deca::kBF8: decode_loop<deca::kBF8, kDirect>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
+    case deca::kMXFP4: decode_loop<deca::kMXFP4, kDirect>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
+    case deca::kINT8: decode_loop<deca::kINT8, kDirect>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
+    case deca::kINT4: decode_loop<deca::kINT4, kDirect>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
+    default: decode_loop<deca::kNF4, kDirect>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
                  const __grid_constant__ CUtensorMap code_map,
                  const __grid_constant__ CUtensorMap mask_map,
-                 const __grid_constant__ CUtensorMap scale_map, int codec, int k_cap,
-                 int ck, int sparse, int scale_bytes, int M, int K, int N, void* out,
-                 int out_f32) {
+                 const __grid_constant__ CUtensorMap scale_map, const uint8_t* codes,
+                 const uint32_t* mask, const uint8_t* scales, int direct, int codec,
+                 int k_cap, int ck, int sparse, int scale_bytes, int M, int K, int N,
+                 void* out, int out_f32) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -314,6 +371,11 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
 
   const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  r.gcodes = codes;
+  r.gmask = mask;
+  r.gscales = scales;
+  r.n = N;
+  r.n0 = n0;
   const int ng = K / deca::kGroup;
   const int n_k = (ng + kKGroups - 1) / kKGroups;
 
@@ -333,13 +395,15 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
   if (wg == 0) {  // producer
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kProducerRegs));
     if (t == 0) {
-      const uint32_t tx = kABytes + r.code_bytes + (sparse ? kMaskBytes : 0) +
-                          kKGroups * kBN * scale_bytes;
+      const uint32_t tx = direct ? kABytes
+                                 : kABytes + r.code_bytes + (sparse ? kMaskBytes : 0) +
+                                       kKGroups * kBN * scale_bytes;
       for (int i = 0; i < n_k; ++i) {
         const int s = i % kLoadStages;
         mbar_wait(r.empty + s, ((i / kLoadStages) & 1) ^ 1);
         mbar_expect_tx(r.full + s, tx);
         tma_load(r.a + s * kABytes, &x_map, i * kBK, m0, r.full + s);
+        if (direct) continue;  // the decoders read the planes themselves
         tma_load(r.codes + s * r.code_bytes, &code_map, n0, i * kKGroups * ck, r.full + s);
         if (sparse) tma_load(r.mask + s * kMaskBytes, &mask_map, n0, i * kKGroups, r.full + s);
         if (scale_bytes)
@@ -350,14 +414,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(kDecoderRegs));
     const bool sp = sparse != 0;
     const int dec = wg - 1;
-    switch (codec) {
-      case deca::kBF16: decode_loop<deca::kBF16>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
-      case deca::kBF8: decode_loop<deca::kBF8>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
-      case deca::kMXFP4: decode_loop<deca::kMXFP4>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
-      case deca::kINT8: decode_loop<deca::kINT8>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
-      case deca::kINT4: decode_loop<deca::kINT4>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
-      default: decode_loop<deca::kNF4>(r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes); break;
-    }
+    if (direct)
+      decode_codec<true>(codec, r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes);
+    else
+      decode_codec<false>(codec, r, dec, t, n_k, ng, k_cap, ck, sp, scale_bytes);
   } else {  // consumers: rows [c * 128, c * 128 + 128) of the tile
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(kConsumerRegs));
     const int c = wg - 1 - kDecoders;
@@ -395,16 +455,28 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap x_map,
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const int col = n0 + j * 8 + (l % 4) * 2;
-        if (col >= N) continue;  // N % 16 == 0, so col + 1 < N too
+        if (col >= N) continue;
+        // an even N keeps every (row, col) pair aligned and whole (col is
+        // even, so col + 1 < N); an odd N stores one by one
+        const bool pair = (N & 1) == 0;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const long long row = row0 + 8 * h;
           if (row >= M) continue;
           const float v0 = acc[mi][4 * j + 2 * h], v1 = acc[mi][4 * j + 2 * h + 1];
-          if (out_f32)
-            *reinterpret_cast<float2*>((float*)out + row * N + col) = make_float2(v0, v1);
-          else
-            *reinterpret_cast<uint32_t*>((__nv_bfloat16*)out + row * N + col) = pack_bf16(v0, v1);
+          if (pair) {
+            if (out_f32)
+              *reinterpret_cast<float2*>((float*)out + row * N + col) = make_float2(v0, v1);
+            else
+              *reinterpret_cast<uint32_t*>((__nv_bfloat16*)out + row * N + col) =
+                  pack_bf16(v0, v1);
+          } else if (out_f32) {
+            ((float*)out)[row * N + col] = v0;
+            if (col + 1 < N) ((float*)out)[row * N + col + 1] = v1;
+          } else {
+            ((__nv_bfloat16*)out)[row * N + col] = __float2bfloat16_rn(v0);
+            if (col + 1 < N) ((__nv_bfloat16*)out)[row * N + col + 1] = __float2bfloat16_rn(v1);
+          }
         }
       }
     }
@@ -453,27 +525,31 @@ bool make_map(CUtensorMap* map, CUtensorMapDataType dt, int esize, const void* p
 }  // namespace
 
 // x is bf16 (the wrapper rounds an f32 x once); scale_bytes is 0 (no
-// scales), 1 (E8M0) or 2 (bf16 bits).
+// scales), 1 (E8M0) or 2 (bf16 bits). An N that is no multiple of 16 takes
+// the direct path (see the header): no TMA map of the triplet.
 extern "C" int deca_gemm(const void* x, const void* codes, const void* mask,
                          const void* scales, int codec, int k_cap, int ck,
                          int scale_bytes, int M, int K, int N, void* out, int out_f32,
                          void* stream) {
-  if (ck < 1 || ck > 64 || N % 16 != 0 || K % deca::kGroup != 0 || M < 1 ||
+  if (ck < 1 || ck > 64 || N < 1 || K % deca::kGroup != 0 || M < 1 ||
       scale_bytes < 0 || scale_bytes > 2)
     return (int)cudaErrorInvalidValue;
   const int smem = smem_bytes(ck);
   const int ng = K / deca::kGroup;
+  const bool direct = N % 16 != 0;
   CUtensorMap xm, cm, mm, sm;
+  memset(&cm, 0, sizeof(cm));
   memset(&mm, 0, sizeof(mm));
   memset(&sm, 0, sizeof(sm));
   bool ok = make_map(&xm, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, x, M, K, kBM, kBK,
-                     CU_TENSOR_MAP_SWIZZLE_128B) &&
-            make_map(&cm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, (long long)ng * ck, N,
-                     kKGroups * ck, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (ok && mask != nullptr)
+                     CU_TENSOR_MAP_SWIZZLE_128B);
+  if (ok && !direct)
+    ok = make_map(&cm, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, codes, (long long)ng * ck, N,
+                  kKGroups * ck, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (ok && !direct && mask != nullptr)
     ok = make_map(&mm, CU_TENSOR_MAP_DATA_TYPE_INT32, 4, mask, ng, N, kKGroups, kBN,
                   CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (ok && scale_bytes != 0)
+  if (ok && !direct && scale_bytes != 0)
     ok = make_map(&sm, scale_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                                         : CU_TENSOR_MAP_DATA_TYPE_UINT16,
                   scale_bytes, scales, ng, N, kKGroups, kBN, CU_TENSOR_MAP_SWIZZLE_NONE);
@@ -483,6 +559,7 @@ extern "C" int deca_gemm(const void* x, const void* codes, const void* mask,
   if (err != cudaSuccess) return (int)err;
   dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
   gemm_sm90_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      xm, cm, mm, sm, codec, k_cap, ck, mask != nullptr, scale_bytes, M, K, N, out, out_f32);
+      xm, cm, mm, sm, (const uint8_t*)codes, (const uint32_t*)mask, (const uint8_t*)scales,
+      direct, codec, k_cap, ck, mask != nullptr, scale_bytes, M, K, N, out, out_f32);
   return (int)cudaGetLastError();
 }

@@ -26,18 +26,20 @@
 //     this page is folded. K and V are decoded from the staged bytes into
 //     registers with the codec's kv_decode arithmetic, rounded to bf16 as
 //     kernels/ref.py::kv_decode_page does; no f32 rows are staged.
-//       scores   warps own chunks of 32 / G tokens; a lane holds Dh/32
-//                dims of the G query rows and of each token's K row, and
-//                one butterfly of 31 shuffles sums the chunk's 32 dot
-//                products, one per lane, where reducing each dot product
-//                alone takes 5 shuffles.
+//       scores   warps own chunks of floor(32 / G) tokens; a lane holds
+//                Dh/32 dims of the G query rows and of each token's K row,
+//                and one butterfly of 31 shuffles sums the chunk's G x
+//                floor(32 / G) dot products, one per lane (lanes past
+//                them, 2 at G 6 and 4 at G 7, sum zeros that are dropped),
+//                where reducing each dot product alone takes 5 shuffles.
 //       softmax  a warp per query head, a lane per token: warp max and
 //                warp sum, in the order of ref.paged_softmax_update: bf16
 //                q.k with f32 sums times 1/sqrt(Dh), tanh softcap, the
 //                sentinel / causal / window mask as an additive -1e30,
 //                m_new = max(m, max s), p = exp(s - m_new) and 0 where
 //                masked, alpha = exp(m - m_new), l = l alpha + sum p.
-//       P.V      a thread per dim d, G sums: acc = acc alpha + sum p V[., d].
+//       P.V      a thread per dim d (two, d and d + 128, at Dh > 128), G
+//                sums: acc = acc alpha + sum p V[., d].
 //     Each CTA writes its partial (m, l, acc) per query head; a CTA with no
 //     page in its range writes the empty partial (-1e30, 0, 0).
 //   combine_kernel, grid (Hq, B): merges the splits in split order,
@@ -52,14 +54,28 @@
 
 #include "deca_tile.cuh"
 
-// The kernel is instantiated for each KV codec and each G in {1, 2, 4, 8},
-// so the decode and the per-head loops have no runtime branches.
+// Instances. The kernel is instantiated for each KV codec, each query
+// group G in {1, 2, 4, 6, 7, 8, 16} (the groups of the reference's
+// configs: grok-1 has G 6, qwen2-vl-7b G 7, recurrentgemma-9b G 16) and
+// each of two head-dim tiers, Dh <= 128 and Dh <= 256 (gemma2-2b and
+// recurrentgemma-9b have Dh 256): 6 x 7 x 2 = 84 instances, so the decode
+// and the per-head loops have no runtime branches and a lane's q registers
+// are sized by its tier (the Dh <= 128 tier keeps the registers it had
+// with 24 instances). Instances per G rather than a runtime G up to 16:
+// a runtime G would size every lane's q registers and sums for 16 heads.
+// Any other G, or Dh > 256, is refused at launch. Built as one `nvcc -O3`
+// the 84 instances took 184.6 s on the H100 machine's host, so the source
+// compiles in seven parts, all at once (kernels/cuda.py `_PARTS`): one per
+// KV codec (-DDECA_KV_CODEC=<wire id>: its 14 instances behind the C entry
+// deca_attention_split_<id>) and the dispatch with the combine kernel
+// (-DDECA_ATTN_MAIN), linked into one library.
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 8;      // query heads per KV head: 1, 2, 4 or 8
-constexpr int kMaxDh = 128;   // head dim: Dh / 32 dims per lane, a dim per thread
+constexpr int kMaxDh = 256;   // head dim: Dh / 32 dims per lane, 1 or 2 dims per thread
+
+#ifndef DECA_ATTN_MAIN  // the split kernels: every part but the dispatch
 
 // decoded KV element d of one token's head vector `row` (its stored bytes),
 // rounded to bf16 as kernels/ref.py::kv_decode_page does
@@ -202,14 +218,18 @@ __device__ __forceinline__ float butterfly_sum(float (&v)[32], int lane) {
   return v[0];
 }
 
-template <int kCodec, int kG>
+// kDJ = dims a lane holds per query row (4: Dh <= 128, 8: Dh <= 256); a
+// thread holds kDJ / 4 dims of the P.V sums.
+template <int kCodec, int kG, int kDJ>
 __global__ void __launch_bounds__(kThreads)
 split_kv_kernel(const void* q, int q_f32, const uint8_t* kp, const uint8_t* vp,
                 const int32_t* ppos, const uint16_t* ks, const uint16_t* vs,
                 const int32_t* tables, const int32_t* kv_lens, const int32_t* q_pos,
                 float* ws, int Hq, int Hkv, int Dh, int rb, int bs, int MB, int pps,
                 int buf_bytes, int causal, int window, float softcap) {
-  constexpr int kChunk = 32 / kG;  // tokens whose kG scores one butterfly sums
+  constexpr int kChunk = 32 / kG;      // tokens whose kG scores one butterfly sums
+  constexpr int kLanes = kChunk * kG;  // lanes that receive a score
+  constexpr int kDT = kDJ / 4;         // P.V dims a thread: d = tid + 128 e
   extern __shared__ __align__(16) uint8_t sm[];
   const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z, splits = gridDim.z;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -221,11 +241,11 @@ split_kv_kernel(const void* q, int q_f32, const uint8_t* kp, const uint8_t* vp,
   const bool scaled = ks != nullptr;
 
   // this lane's dims d = lane + 32 j of the kG query rows, bf16-rounded
-  float qr[kG][kMaxDh / 32];
+  float qr[kG][kDJ];
 #pragma unroll
   for (int g = 0; g < kG; ++g)
 #pragma unroll
-    for (int j = 0; j < kMaxDh / 32; ++j) {
+    for (int j = 0; j < kDJ; ++j) {
       const int d = lane + 32 * j;
       float v = 0.0f;
       if (d < Dh) {
@@ -235,9 +255,11 @@ split_kv_kernel(const void* q, int q_f32, const uint8_t* kp, const uint8_t* vp,
       }
       qr[g][j] = v;
     }
-  float acc[kG];
+  float acc[kDT][kG];
 #pragma unroll
-  for (int g = 0; g < kG; ++g) acc[g] = 0.0f;
+  for (int e = 0; e < kDT; ++e)
+#pragma unroll
+    for (int g = 0; g < kG; ++g) acc[e][g] = 0.0f;
   if (tid < kG) {
     Mx[tid] = -1e30f;
     Ls[tid] = 0.0f;
@@ -267,15 +289,15 @@ split_kv_kernel(const void* q, int q_f32, const uint8_t* kp, const uint8_t* vp,
     for (int c = warp; c * kChunk < bs; c += kWarps) {
       float v[32];
 #pragma unroll
+      for (int i = 0; i < 32; ++i) v[i] = 0.0f;
+#pragma unroll
       for (int i = 0; i < kChunk; ++i) {
         const int t = c * kChunk + i;
-#pragma unroll
-        for (int g = 0; g < kG; ++g) v[i * kG + g] = 0.0f;
         if (t < bs) {
           const uint8_t* krow = p.k + t * rb;
           const float ksc = scale_of(p.ksw, t, scaled, odd0, Hkv);
 #pragma unroll
-          for (int j = 0; j < kMaxDh / 32; ++j) {
+          for (int j = 0; j < kDJ; ++j) {
             const int d = lane + 32 * j;
             if (d < Dh) {
               const float kv = kv_value(kCodec, krow, ksc, d);
@@ -287,7 +309,7 @@ split_kv_kernel(const void* q, int q_f32, const uint8_t* kp, const uint8_t* vp,
       }
       const int t = c * kChunk + lane / kG, g = lane % kG;
       float sc = butterfly_sum(v, lane) * scale;
-      if (t < bs) {
+      if (lane < kLanes && t < bs) {
         if (softcap > 0.0f) sc = tanhf(sc / softcap) * softcap;
         S[g * bs + t] = sc + (visible(p.pos[t], qp, causal, window) ? 0.0f : -1e30f);
       }
@@ -314,31 +336,89 @@ split_kv_kernel(const void* q, int q_f32, const uint8_t* kp, const uint8_t* vp,
       }
     }
     __syncthreads();
-    // P.V: thread d keeps the kG sums of dim d
-    if (tid < Dh) {
+    // P.V: thread tid keeps the kG sums of dims tid + 128 e
 #pragma unroll
-      for (int g = 0; g < kG; ++g) acc[g] *= Alpha[g];
+    for (int e = 0; e < kDT; ++e) {
+      const int d = tid + kThreads * e;
+      if (d < Dh) {
+#pragma unroll
+        for (int g = 0; g < kG; ++g) acc[e][g] *= Alpha[g];
 #pragma unroll 8
-      for (int t = 0; t < bs; ++t) {
-        const float vsc = scale_of(p.vsw, t, scaled, odd0, Hkv);
-        const float v = kv_value(kCodec, p.v + t * rb, vsc, tid);
+        for (int t = 0; t < bs; ++t) {
+          const float vsc = scale_of(p.vsw, t, scaled, odd0, Hkv);
+          const float v = kv_value(kCodec, p.v + t * rb, vsc, d);
 #pragma unroll
-        for (int g = 0; g < kG; ++g) acc[g] = fmaf(S[g * bs + t], v, acc[g]);
+          for (int g = 0; g < kG; ++g) acc[e][g] = fmaf(S[g * bs + t], v, acc[e][g]);
+        }
       }
     }
   }
   __syncthreads();
   // the partial of this split: per query head g, [m, l, acc[0..Dh)]
   float* part = ws + (((long long)b * Hkv + h) * splits + split) * kG * (Dh + 2);
-  if (tid < Dh) {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) part[g * (Dh + 2) + 2 + tid] = acc[g];
+  for (int e = 0; e < kDT; ++e) {
+    const int d = tid + kThreads * e;
+    if (d < Dh) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) part[g * (Dh + 2) + 2 + d] = acc[e][g];
+    }
   }
   if (tid < kG) {
     part[tid * (Dh + 2)] = Mx[tid];
     part[tid * (Dh + 2) + 1] = Ls[tid];
   }
 }
+
+template <int kCodec, int kG, int kDJ>
+cudaError_t launch_split(dim3 grid, int smem, cudaStream_t s, const void* q, int q_f32,
+                         const void* kp, const void* vp, const void* ppos, const void* ks,
+                         const void* vs, const void* tables, const void* kv_lens,
+                         const void* q_pos, void* ws, int Hq, int Hkv, int Dh, int rb,
+                         int bs, int MB, int pps, int buf_bytes, int causal, int window,
+                         float softcap) {
+  // above the default limit: opt in, once per instance and size, so a
+  // launch inside a CUDA graph capture makes no attribute call
+  static int opted_in = 48 * 1024;
+  if (smem > opted_in) {
+    cudaError_t err = cudaFuncSetAttribute(
+        split_kv_kernel<kCodec, kG, kDJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    opted_in = smem;
+  }
+  split_kv_kernel<kCodec, kG, kDJ><<<grid, kThreads, smem, s>>>(
+      q, q_f32, (const uint8_t*)kp, (const uint8_t*)vp, (const int32_t*)ppos,
+      (const uint16_t*)ks, (const uint16_t*)vs, (const int32_t*)tables,
+      (const int32_t*)kv_lens, (const int32_t*)q_pos, (float*)ws, Hq, Hkv, Dh, rb, bs, MB,
+      pps, buf_bytes, causal, window, softcap);
+  return cudaGetLastError();
+}
+
+// the kernel for `codec` with G = Hq / Hkv query heads a KV head (1, 2, 4,
+// 6, 7, 8 or 16) in its head-dim tier
+template <int kCodec, int kDJ, typename... Args>
+cudaError_t launch_for_group(int G, Args... args) {
+  switch (G) {
+    case 1: return launch_split<kCodec, 1, kDJ>(args...);
+    case 2: return launch_split<kCodec, 2, kDJ>(args...);
+    case 4: return launch_split<kCodec, 4, kDJ>(args...);
+    case 6: return launch_split<kCodec, 6, kDJ>(args...);
+    case 7: return launch_split<kCodec, 7, kDJ>(args...);
+    case 8: return launch_split<kCodec, 8, kDJ>(args...);
+    case 16: return launch_split<kCodec, 16, kDJ>(args...);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <int kCodec, typename... Args>
+cudaError_t launch_for_shape(int G, int Dh, Args... args) {
+  return Dh <= 128 ? launch_for_group<kCodec, 4>(G, args...)
+                   : launch_for_group<kCodec, 8>(G, args...);
+}
+
+#endif  // DECA_ATTN_MAIN
+
+#ifndef DECA_KV_CODEC  // the combine and the dispatch
 
 __global__ void __launch_bounds__(kThreads)
 combine_kernel(const float* ws, void* out, int out_bf16, int Hkv, int G, int Dh, int splits) {
@@ -362,47 +442,40 @@ combine_kernel(const float* ws, void* out, int out_bf16, int Hkv, int G, int Dh,
   }
 }
 
-template <int kCodec, int kG>
-cudaError_t launch_split(dim3 grid, int smem, cudaStream_t s, const void* q, int q_f32,
-                         const void* kp, const void* vp, const void* ppos, const void* ks,
-                         const void* vs, const void* tables, const void* kv_lens,
-                         const void* q_pos, void* ws, int Hq, int Hkv, int Dh, int rb,
-                         int bs, int MB, int pps, int buf_bytes, int causal, int window,
-                         float softcap) {
-  // above the default limit: opt in, once per instance and size, so a
-  // launch inside a CUDA graph capture makes no attribute call
-  static int opted_in = 48 * 1024;
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        split_kv_kernel<kCodec, kG>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
-  }
-  split_kv_kernel<kCodec, kG><<<grid, kThreads, smem, s>>>(
-      q, q_f32, (const uint8_t*)kp, (const uint8_t*)vp, (const int32_t*)ppos,
-      (const uint16_t*)ks, (const uint16_t*)vs, (const int32_t*)tables,
-      (const int32_t*)kv_lens, (const int32_t*)q_pos, (float*)ws, Hq, Hkv, Dh, rb, bs, MB,
-      pps, buf_bytes, causal, window, softcap);
-  return cudaGetLastError();
-}
-
-// the kernel for `codec` with G = Hq / Hkv query heads a KV head (1, 2, 4, 8)
-template <int kCodec, typename... Args>
-cudaError_t launch_for_group(int G, Args... args) {
-  switch (G) {
-    case 1: return launch_split<kCodec, 1>(args...);
-    case 2: return launch_split<kCodec, 2>(args...);
-    case 4: return launch_split<kCodec, 4>(args...);
-    case 8: return launch_split<kCodec, 8>(args...);
-    default: return cudaErrorInvalidValue;
-  }
-}
+#endif  // DECA_KV_CODEC
 
 }  // namespace
 
+#define SPLIT_PARAMS                                                                  \
+  int G, int B, int splits, int smem, cudaStream_t s, const void *q, int q_f32,       \
+      const void *kp, const void *vp, const void *ppos, const void *ks, const void *vs, \
+      const void *tables, const void *kv_lens, const void *q_pos, void *ws, int Hq,     \
+      int Hkv, int Dh, int rb, int bs, int MB, int pps, int buf_bytes, int causal,      \
+      int window, float softcap
 #define SPLIT_ARGS                                                                   \
   dim3(Hkv, B, splits), smem, s, q, q_f32, kp, vp, ppos, ks, vs, tables, kv_lens, q_pos, \
       ws, Hq, Hkv, Dh, rb, bs, MB, pps, buf_bytes, causal, window, softcap
+#define SPLIT_NAMES                                                                   \
+  G, B, splits, smem, s, q, q_f32, kp, vp, ppos, ks, vs, tables, kv_lens, q_pos, ws, Hq, \
+      Hkv, Dh, rb, bs, MB, pps, buf_bytes, causal, window, softcap
+
+// The split kernels of one KV codec (wire id ID) at (G, Dh), behind a plain
+// C entry so that each codec's instances can be compiled on their own.
+#define DECA_SPLIT_ENTRY_(ID) \
+  extern "C" int deca_attention_split_##ID(SPLIT_PARAMS)
+#define DECA_SPLIT_ENTRY(ID) DECA_SPLIT_ENTRY_(ID)
+
+#ifdef DECA_KV_CODEC
+DECA_SPLIT_ENTRY(DECA_KV_CODEC) {
+  return (int)launch_for_shape<DECA_KV_CODEC>(G, Dh, SPLIT_ARGS);
+}
+#else
+DECA_SPLIT_ENTRY(0);
+DECA_SPLIT_ENTRY(2);
+DECA_SPLIT_ENTRY(3);
+DECA_SPLIT_ENTRY(4);
+DECA_SPLIT_ENTRY(5);
+DECA_SPLIT_ENTRY(6);
 
 // ws holds B * Hkv * splits * G * (Dh + 2) floats; out is (B, Hq, Dh) in
 // bf16 when out_bf16, else f32. Shared memory: two page buffers (page_at's
@@ -415,24 +488,25 @@ extern "C" int deca_paged_attention(
     int rb, int bs, int MB, int splits, int pps, int codec, int causal, int window,
     float softcap, void* stream) {
   const int G = Hq / Hkv;
-  if (rb % 4 != 0 || G > kMaxG || Dh > kMaxDh || splits < 1 || pps < 1 ||
+  if (rb % 4 != 0 || Hq % Hkv != 0 || Dh > kMaxDh || splits < 1 || pps < 1 ||
       (long long)splits * pps < MB)
     return (int)cudaErrorInvalidValue;
   const int buf_bytes = (2 * bs * rb + 12 * bs + 15) / 16 * 16;
   const int smem = 2 * buf_bytes + 4 * G * (bs + 3);
   cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err;
+  int err;
   switch (codec) {
-    case deca::kNone: err = launch_for_group<deca::kNone>(G, SPLIT_ARGS); break;
-    case deca::kBF8: err = launch_for_group<deca::kBF8>(G, SPLIT_ARGS); break;
-    case deca::kINT8: err = launch_for_group<deca::kINT8>(G, SPLIT_ARGS); break;
-    case deca::kINT4: err = launch_for_group<deca::kINT4>(G, SPLIT_ARGS); break;
-    case deca::kMXFP4: err = launch_for_group<deca::kMXFP4>(G, SPLIT_ARGS); break;
-    case deca::kNF4: err = launch_for_group<deca::kNF4>(G, SPLIT_ARGS); break;
+    case deca::kNone: err = deca_attention_split_0(SPLIT_NAMES); break;
+    case deca::kBF8: err = deca_attention_split_2(SPLIT_NAMES); break;
+    case deca::kMXFP4: err = deca_attention_split_3(SPLIT_NAMES); break;
+    case deca::kINT8: err = deca_attention_split_4(SPLIT_NAMES); break;
+    case deca::kINT4: err = deca_attention_split_5(SPLIT_NAMES); break;
+    case deca::kNF4: err = deca_attention_split_6(SPLIT_NAMES); break;
     default: return (int)cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess) return (int)err;
+  if (err != (int)cudaSuccess) return err;
   combine_kernel<<<dim3(Hq, B), kThreads, 0, s>>>((const float*)ws, out, out_bf16, Hkv, G,
                                                    Dh, splits);
   return (int)cudaGetLastError();
 }
+#endif  // DECA_KV_CODEC

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into a shared
 library with a plain C interface, loaded with `ctypes`. A library is built
 at its first use into `build/` beside the sources (listed in .gitignore),
 named by a hash of the sources, so an edited kernel is never served from a
-stale build. `build(names)` starts one `nvcc` per source at once.
+stale build. `build(names)` starts one `nvcc` per source at once; a source
+listed in `_PARTS` compiles in parts, one `nvcc -c` for each set of
+defines, all started with the rest, and links them into its library.
 Nothing here runs at import: the CPU tests import every module.
 """
 from __future__ import annotations
@@ -21,6 +23,13 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 LIBRARIES = ("deca_gemm", "deca_gemm_sm90", "paged_attention", "deca_decompress")
+
+# sources compiled in parts (each part's defines), then linked: the
+# attention source's 84 instances split by KV codec (csrc/paged_attention.cu)
+_PARTS = {
+    "paged_attention": [[f"-DDECA_KV_CODEC={i}"] for i in (0, 2, 3, 4, 5, 6)]
+    + [["-DDECA_ATTN_MAIN"]],
+}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -39,11 +48,16 @@ def _target(name: str) -> Path:
     return BUILD / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _command(name: str, out: Path):
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+
+
+def _command(name: str, out: Path, defines=None):
+    """nvcc of `name`'s source into the library `out`, or, with `defines`,
+    into the object `out` of one part."""
+    kind = ["-shared"] if defines is None else ["-c"] + list(defines)
     return [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-        "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu"),
+        _nvcc(), *_ARCH, "-std=c++17", "-O3", *kind, "-Xcompiler", "-fPIC",
+        "-Xptxas", "-v", "-I", str(CSRC), "-o", str(out), str(CSRC / f"{name}.cu"),
     ]
 
 
@@ -52,21 +66,37 @@ def build(names: Iterable[str] = LIBRARIES) -> Dict[str, str]:
     Returns each compiled library's `ptxas -v` report; raises with the
     compiler's output if any build fails."""
     BUILD.mkdir(parents=True, exist_ok=True)
+
+    def start(cmd):
+        return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True)
+
     procs = {}
     for name in names:
         out = _target(name)
-        if not out.exists():
-            tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-            procs[name] = (out, tmp, subprocess.Popen(
-                _command(name, tmp), stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True,
-            ))
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        if name in _PARTS:
+            objs = [tmp.with_suffix(f".part{i}.o") for i in range(len(_PARTS[name]))]
+            procs[name] = (out, tmp, objs, [
+                start(_command(name, o, d)) for o, d in zip(objs, _PARTS[name])])
+        else:
+            procs[name] = (out, tmp, None, [start(_command(name, tmp))])
     reports, failed = {}, []
-    for name, (out, tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        reports[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+    for name, (out, tmp, objs, parts) in procs.items():
+        logs = [p.communicate()[0] for p in parts]
+        reports[name] = "\n".join(logs)
+        bad = [(p.returncode, log) for p, log in zip(parts, logs) if p.returncode != 0]
+        if not bad and objs is not None:
+            link = subprocess.run([_nvcc(), *_ARCH, "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            if link.returncode != 0:
+                bad.append((link.returncode, link.stdout + link.stderr))
+            for o in objs:
+                o.unlink(missing_ok=True)
+        if bad:
+            failed += [f"{name}: nvcc exited {rc}\n{log}" for rc, log in bad]
         else:
             tmp.replace(out)
     if failed:

@@ -25,8 +25,9 @@ shared memory (csrc/deca_gemm.cu).
                    decoded bf16 tile into a second ring in the swizzled
                    K-major layout wgmma reads, and two consumer warpgroups
                    accumulate m64n128k16 wgmmas in f32 registers. x is rounded to bf16 once, here, as the
-                   kernel's bf16(x); N must be a multiple of 16 (TMA row
-                   strides).
+                   kernel's bf16(x). Any N: where N is no multiple of 16
+                   (a TMA row stride must be), the decoders read the
+                   triplet's planes from device memory instead.
 
 On CPU tensors each wrapper returns its plain version from
 `kernels/ref.py`; on CUDA tensors it launches its kernel or raises.
@@ -109,8 +110,6 @@ def decompress_gemm(
     x, tile = _launch_args(x, ct, out_dtype)
     x = x.to(torch.bfloat16)  # the kernel's bf16(x): one TMA dtype
     m, (k, n) = x.shape[0], ct.shape
-    if n % 16:
-        raise ValueError(f"the GeMM kernel takes N a multiple of 16, got {n}")
     ck = tile[-1]
     if ck > 64:
         raise ValueError(f"the GeMM kernel takes at most 64 code bytes a group, got {ck}")

@@ -13,7 +13,8 @@ Each split writes its partial to a workspace, and a second kernel merges
 the splits in split order, so the result is deterministic, and stores it
 in q's dtype. The split count comes from the shapes alone
 (`autotune.attention_splits`), never from `kv_lens`, so no host sync is
-added. The gathered dense KV view never exists in device memory.
+added. The gathered dense KV view never exists in device memory. It takes
+head dims up to 256 and the query groups in `GROUPS`, one instance each.
 
 Bound by the bytes of the quantized pages it reads.
 
@@ -32,6 +33,8 @@ from repro_torch.core.codecs import codec_wire_id, get_codec
 from repro_torch.kernels import autotune, cuda, ref
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# query heads a KV head the kernel is instantiated for (csrc/paged_attention.cu)
+GROUPS = (1, 2, 4, 6, 7, 8, 16)
 _SIGNATURES = {
     # q, q_f32, kp, vp, ppos, ks, vs, tables, kv_lens, q_pos, workspace,
     # out, out_bf16, B, Hq, Hkv, Dh, bytes per stored head vector,
@@ -88,8 +91,8 @@ def paged_attention(
     row_bytes = w * kp.element_size()
     if row_bytes % 4:
         raise ValueError(f"a stored head vector of {row_bytes} bytes is not whole words")
-    if dh > 128 or hq // hkv not in (1, 2, 4, 8):
-        raise ValueError(f"the kernel takes head dim <= 128 and 1, 2, 4 or 8 query heads "
+    if dh > 256 or hq // hkv not in GROUPS:
+        raise ValueError(f"the kernel takes head dim <= 256 and {GROUPS} query heads "
                          f"a KV head, got {dh} and {hq // hkv}")
     splits, pps = autotune.attention_splits(mb, b, hkv)
     q = q.contiguous()

@@ -4,13 +4,14 @@ Counterpart of the subset of `repro/models/layers.py` that compressed-
 weight paged serving of a dense GQA decoder runs: RMS norm, rotary
 embeddings with per-request positions (off under learned positions),
 grouped-query attention with f32 probabilities in the PV product, the
-block-paged quantized KV pool, the swiglu and relu MLPs, and the tied
-head's logits. Functions take and return tensors; the paged pool is a dict of
+block-paged quantized KV pool, the swiglu, geglu and relu MLPs, and the
+tied head's logits. Functions take and return tensors; the paged pool is a dict of
 tensors per layer and is updated in place (the reference returns a new pool
 per write; in place saves a copy of every layer's pool per step).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -301,9 +302,12 @@ def paged_attention_block(
     return mm(out.reshape(b, s, hq * dh), params["wo"]), cache
 
 
+_GATED = ("swiglu", "geglu")
+
+
 def init_mlp(generator, cfg: ModelConfig, device, dtype) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.mlp_act != "swiglu":  # relu has no gate
+    if cfg.mlp_act not in _GATED:  # relu has no gate
         return {
             "w_up": dense_init(generator, (d, f), device, dtype),
             "w_down": dense_init(generator, (f, d), device, dtype),
@@ -321,14 +325,58 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+@functools.lru_cache(maxsize=None)
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _const(value: float, like: torch.Tensor) -> float:
+    """A scalar rounded to `like`'s dtype first, as JAX rounds a weakly
+    typed Python float (or a numpy scalar cast with `astype`) to the
+    array's dtype before the op. It stays a Python float, exact in that
+    dtype (torch computes `tensor op scalar` in f32 and rounds once, as
+    an op of two bf16 operands), so no device tensor is made inside a
+    captured decode step."""
+    return _rounded(float(value), like.dtype)
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation of gelu as `jax.nn.gelu` (approximate=True,
+    its default) computes it, each op rounded in the input dtype with its
+    constants rounded to that dtype first:
+    x * (0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * (x * (x * x)))))).
+    `torch.nn.functional.gelu(approximate="tanh")` rounds a bf16 input only
+    once, at the end, so it differs in the last bf16 bit; on f32 the two
+    agree to f32 rounding."""
+    cube = x * (x * x)  # lax.integer_pow(x, 3): x times its square
+    inner = _const(math.sqrt(2 / math.pi), x) * (x + _const(0.044715, x) * cube)
+    cdf = _const(0.5, x) * (_const(1.0, x) + torch.tanh(inner))
+    return x * cdf
+
+
 def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """swiglu FFN: silu(x Wg) * (x Wu), then W_down; relu FFN: relu(x Wu),
-    then W_down. Each op rounds in the product's dtype, as the reference's."""
-    if cfg.mlp_act == "swiglu":
-        h = silu(mm(x, params["w_gate"])) * mm(x, params["w_up"])
+    """swiglu FFN: silu(x Wg) * (x Wu), then W_down; geglu: gelu_tanh(x Wg)
+    * (x Wu), then W_down; relu FFN: relu(x Wu), then W_down. Each op
+    rounds in the product's dtype, as the reference's."""
+    if cfg.mlp_act in _GATED:
+        act = silu if cfg.mlp_act == "swiglu" else gelu_tanh
+        h = act(mm(x, params["w_gate"])) * mm(x, params["w_up"])
     else:
         h = torch.relu(mm(x, params["w_up"]))
     return mm(h, params["w_down"])
+
+
+def embed_scale(x: torch.Tensor, d_model: int) -> torch.Tensor:
+    """Gemma's embedding scale: the gathered rows times sqrt(d_model) in
+    the embedding's dtype, the constant rounded to that dtype first, as
+    the reference's multiply by a weakly typed Python float."""
+    return x * _const(math.sqrt(d_model), x)
+
+
+def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
+    """cap * tanh(logits / cap) in the logits' dtype (f32 for the final
+    logits): the reference's final logit softcap."""
+    return torch.tanh(logits / cap) * cap
 
 
 def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:

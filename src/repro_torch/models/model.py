@@ -2,8 +2,11 @@
 
 Counterpart of `repro/models/model.py` for the paged serving path of a
 dense attention stack: llama3-8b, llama2-70b, llama3.2-1b and granite-3-8b
-(rope, swiglu; the last two with a tied head) and opt-66b (learned
-positions, a relu MLP, full MHA). Layers are kept per layer in a list
+(rope, swiglu; the last two with a tied head), opt-66b (learned
+positions, a relu MLP, full MHA) and gemma2-2b (geglu, local and global
+layers in turn, attention and final logit softcaps, post-attention and
+post-MLP norms, an embedding scaled by sqrt(d_model), a tied head).
+Layers are kept per layer in a list
 rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
 and `spec_decode_chunk` its draft/verify rounds as Python loops with the
 done flags on the device and no host sync inside, so only the sampled
@@ -14,8 +17,9 @@ through the fused paged-attention kernel.
 
 Params are a dict of tensors: {"embed", "final_norm", "lm_head" (absent
 when the head is tied to `embed`), "pos_embed" (learned positions only),
-"layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "pre_mlp_norm",
-"mlp": {w_gate (swiglu only), w_up, w_down}}, ...]}.
+"layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "post_attn_norm"
+(post norms only), "pre_mlp_norm", "mlp": {w_gate (swiglu and geglu),
+w_up, w_down}, "post_mlp_norm" (post norms only)}, ...]}.
 """
 from __future__ import annotations
 
@@ -39,12 +43,9 @@ def _unsupported(cfg: ModelConfig) -> List[str]:
     checks = {
         "family": (cfg.family != "dense", "10.5-10.7"),
         "n_experts": (cfg.n_experts > 0, "10.5"),
-        "attn_pattern": (cfg.attn_pattern != "global", "10.3"),
+        "attn_pattern": (cfg.attn_pattern not in ("global", "local_global"), "10.6"),
         "mrope_sections": (bool(cfg.mrope_sections), "10.7"),
-        "mlp_act": (cfg.mlp_act not in ("swiglu", "relu"), "10.3, 10.7"),
-        "post_norms": (cfg.post_norms, "10.3"),
-        "embed_scale": (cfg.embed_scale, "10.3"),
-        "final_softcap": (cfg.final_softcap > 0, "10.3"),
+        "mlp_act": (cfg.mlp_act not in ("swiglu", "geglu", "relu"), "10.7"),
     }
     return [f"{name} (step {step})" for name, (bad, step) in checks.items() if bad]
 
@@ -69,12 +70,15 @@ class Model:
     # ------------------------------------------------------------------
     def init_block(self, generator: torch.Generator, *, device, dtype) -> Params:
         cfg = self.cfg
-        return {
-            "pre_norm": torch.zeros(cfg.d_model, device=device),
-            "attn": L.init_attention(generator, cfg, device, dtype),
-            "pre_mlp_norm": torch.zeros(cfg.d_model, device=device),
-            "mlp": L.init_mlp(generator, cfg, device, dtype),
-        }
+        norm = lambda: torch.zeros(cfg.d_model, device=device)
+        p = {"pre_norm": norm(), "attn": L.init_attention(generator, cfg, device, dtype)}
+        if cfg.post_norms:
+            p["post_attn_norm"] = norm()
+        p["pre_mlp_norm"] = norm()
+        p["mlp"] = L.init_mlp(generator, cfg, device, dtype)
+        if cfg.post_norms:
+            p["post_mlp_norm"] = norm()
+        return p
 
     def init(
         self,
@@ -165,9 +169,14 @@ class Model:
             copy_pages=paged.get("copy_pages"),
             window_override=paged.get("window_override"),
         )
+        if cfg.post_norms:
+            out = L.rms_norm(p["post_attn_norm"], out, cfg.norm_eps)
         x = x + out
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
-        return x + L.mlp_block(p["mlp"], h, cfg), cache
+        out = L.mlp_block(p["mlp"], h, cfg)
+        if cfg.post_norms:
+            out = L.rms_norm(p["post_mlp_norm"], out, cfg.norm_eps)
+        return x + out, cache
 
     def forward(
         self,
@@ -186,7 +195,10 @@ class Model:
         paged-attention kernel and a window_override that caps its
         attention window (the spec-decode draft)."""
         cfg = self.cfg
-        x = params["embed"][tokens.long()].to(torch.bfloat16)
+        x = params["embed"][tokens.long()]
+        if cfg.embed_scale:
+            x = L.embed_scale(x, cfg.d_model)
+        x = x.to(torch.bfloat16)
         if cfg.pos_emb == "learned":
             idx = torch.clamp(positions.long(), 0, cfg.pos_table - 1)
             x = x + params["pos_embed"][idx].to(torch.bfloat16)
@@ -199,6 +211,8 @@ class Model:
             logits = L.tied_logits(x, params["embed"])
         else:
             logits = mm(x.to(torch.float32), params["lm_head"])
+        if cfg.final_softcap:
+            logits = L.softcap(logits, cfg.final_softcap)
         return logits, new_cache
 
     def score(self, params: Params, tokens: torch.Tensor, *,

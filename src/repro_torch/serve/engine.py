@@ -21,7 +21,8 @@ step functions run eagerly. `obs=Observability.default()` installs the
 metrics registry, the request tracer and RoofLens (`repro_torch.obs`); the
 scheduler's sites read the host clock around its device calls and nothing
 else. `sla`, `injector`, `watchdog` and `host_tier` install overload
-resilience and the host KV tier (see `GenerationEngine`).
+resilience and the host KV tier (see `GenerationEngine`); `snapshot` and
+`restore` persist a tiered engine's warm state across a process's death.
 """
 from __future__ import annotations
 
@@ -39,9 +40,11 @@ from repro_torch.device import resolve
 from repro_torch.models.model import Model
 from repro_torch.serve import sampling
 from repro_torch.serve.graphs import StepGraphs
-from repro_torch.serve.host_tier import HostTier, apply_page_planes
-from repro_torch.serve.paged_cache import PagedKVCache
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.checkpoint.ckpt import load_snapshot, save_snapshot
+from repro_torch.serve.host_tier import HostTier, TierPayload, apply_page_planes, chain_key
+from repro_torch.serve.paged_cache import PagedKVCache, _RadixNode
+from repro_torch.serve.scheduler import Request, Scheduler
+from repro_torch.serve.slo import RequestStatus
 
 
 def make_paged_prefill_step(model: Model) -> Callable:
@@ -217,8 +220,10 @@ class GenerationEngine:
     packed planes with a CRC32C) instead of dropping them, admission
     restores tier-resident prefix hits with a verified upload before the
     prefill launch, written into the pools in place so captured decode
-    graphs keep replaying, and the ladder gains its `spill` rung. Snapshots
-    of the tier wait for ROADMAP Queue A item 9b.
+    graphs keep replaying, and the ladder gains its `spill` rung.
+    `snapshot(dir)` and `restore(dir)` persist such an engine's warm state
+    (the reference's format: a snapshot of either package restores in the
+    other).
     """
 
     def __init__(
@@ -310,6 +315,10 @@ class GenerationEngine:
             if spec_decode is not None:
                 self._spec_graphs = StepGraphs(self._spec_device, device=self.device,
                                                pools=lambda: self.kv.pools)
+        # window freeing is sound only when every layer's attention is local:
+        # one global layer keeps the whole history live (the pool is shared
+        # by all layers), so gemma2's alternating stack never arms it
+        all_local = all(k == "attn_local" for k in model.kinds)
         self.scheduler = Scheduler(
             self.kv,
             max_slots=max_slots,
@@ -320,6 +329,7 @@ class GenerationEngine:
             scrub_fn=self._run_paged_scrub,
             chunk=max(1, decode_chunk),
             prefill_batch=prefill_batch,
+            local_window=self.cfg.window if all_local and self.cfg.window > 0 else None,
             spec_fn=self._run_paged_spec_chunk if spec_decode is not None else None,
             spec_k=spec_decode.k if spec_decode is not None else 0,
             spec_rounds=self.spec_rounds,
@@ -462,6 +472,165 @@ class GenerationEngine:
     def run_until_drained(self) -> Dict[int, np.ndarray]:
         """Step the scheduler until every submitted request completes."""
         return self.scheduler.run_until_drained()
+
+    # ------------------------------------------------------------------
+    # crash-safe persistence
+    # ------------------------------------------------------------------
+    def _require_tiered(self, what: str) -> None:
+        if self.kv.prefix is None or self.tier is None:
+            raise RuntimeError(
+                f"{what} requires the paged engine with prefix_cache=True and a "
+                "host_tier (the snapshot format is the tier's content-addressed "
+                "payloads)"
+            )
+
+    def _snapshot_fields(self) -> Dict[str, Any]:
+        """The settings a resumed session's tokens depend on."""
+        return {
+            "kv_quant": self.kv_quant or "none",
+            "block_size": self.block_size,
+            "seed": self.seed,
+            "temperature": self.temperature,
+            "max_len": self.max_len,
+        }
+
+    def snapshot(self, directory: str) -> Dict[str, int]:
+        """Persist the engine's warm state to `directory`, atomically
+        (`checkpoint.ckpt.save_snapshot`, manifest written last). Every
+        resident is parked (its emitted tokens fold into its prompt, the
+        overload-preemption path), every index page spills into the host
+        tier as a checksummed payload, and the radix index's structure, the
+        tier payloads, the queued and parked requests, the undrained
+        results and the sampling configuration go to disk. A fresh engine
+        built with the same model, codec, block size, seed and temperature
+        `restore`s it and resumes the parked sessions with the same tokens:
+        their keys (seed, rid, output index) survive. This engine stays
+        usable: its cached pages are now in the tier, and the next hit
+        restores them. Returns {"nodes": ..., "requests": ...}."""
+        self._require_tiered("snapshot")
+        sched = self.scheduler
+        for slot in range(sched.max_slots):
+            if sched.slots[slot] is not None:
+                sched._park(slot)
+        self.kv.spill_all()
+        prefix = self.kv.prefix
+        payloads = self.tier.state()
+        arrays: Dict[str, np.ndarray] = {}
+        node_meta = []
+        # depth first, parents before children: restore rebuilds top-down
+        order: Dict[int, int] = {id(prefix._root): -1}
+        stack = [prefix._root]
+        while stack:
+            n = stack.pop()
+            for c in n.children.values():
+                i = len(node_meta)
+                order[id(c)] = i
+                p = payloads[c.key]
+                arrays[f"node/{i}/chunk"] = np.frombuffer(c.chunk, np.uint8)
+                arrays[f"node/{i}/blob"] = np.frombuffer(p.blob, np.uint8)
+                node_meta.append({
+                    "parent": order[id(n)],
+                    "tick": c.tick,
+                    "codec": p.codec,
+                    "wire_id": p.wire_id,
+                    "planes": [[path, list(shape), dt] for path, shape, dt in p.planes],
+                    "nbytes": p.nbytes,
+                    "crc": p.crc,
+                })
+                stack.append(c)
+        req_meta = []
+        for j, r in enumerate(sched.queue):
+            arrays[f"req/{j}/prompt"] = np.asarray(r.prompt, np.int32)
+            arrays[f"req/{j}/done"] = np.asarray(r.done_tokens, np.int32)
+            req_meta.append({
+                "rid": r.rid,
+                "max_new_tokens": r.max_new_tokens,
+                "eos_id": r.eos_id,
+                "priority": r.priority,
+                "parks": r.parks,
+                "was_parked": r.was_parked,
+            })
+        # finished but undrained results survive too: a session whose
+        # tokens were computed but never fetched is still a session
+        statuses = {}
+        for rid, toks in sched.results.items():
+            arrays[f"res/{rid}"] = np.asarray(toks, np.int32)
+            statuses[str(rid)] = sched.statuses[rid].value
+        meta = {
+            "version": 1,
+            **self._snapshot_fields(),
+            "next_rid": sched._next_rid,
+            "tick": prefix._tick,
+            "nodes": node_meta,
+            "requests": req_meta,
+            "results": statuses,
+        }
+        save_snapshot(directory, arrays, meta)
+        return {"nodes": len(node_meta), "requests": len(req_meta)}
+
+    def restore(self, directory: str) -> Dict[str, int]:
+        """Load a `snapshot` into this freshly built engine: the radix index
+        is rebuilt with every node tiered (no device pages: a tenant's pages
+        come back on its first hit), the tier refills with the saved
+        payloads (a damaged one verbatim: it degrades to recompute at
+        admission, as it would have before), and the queued and parked
+        sessions re-enter the queue under their rids, so their sampling
+        keys continue where they stopped. Raises ValueError when this
+        engine's codec, block size, seed, temperature or max_len differ
+        from the snapshot's: resumed tokens could not be the same."""
+        self._require_tiered("restore")
+        arrays, meta = load_snapshot(directory)
+        if meta.get("version") != 1:
+            raise ValueError(f"unsupported snapshot version {meta.get('version')!r}")
+        for field, mine in self._snapshot_fields().items():
+            if meta[field] != mine:
+                raise ValueError(
+                    f"snapshot {field} mismatch: saved {meta[field]!r}, this engine "
+                    f"has {mine!r}; resumed outputs would not be the same"
+                )
+        prefix, tier, sched = self.kv.prefix, self.tier, self.scheduler
+        if (prefix.pages or prefix.tiered_count or sched.queue
+                or any(r is not None for r in sched.slots)):
+            raise RuntimeError(
+                "restore requires a fresh engine (empty prefix index, tier and queue)")
+        if tier.capacity_pages is not None and tier.capacity_pages < len(meta["nodes"]):
+            raise ValueError(
+                f"tier capacity ({tier.capacity_pages} pages) is smaller than the "
+                f"snapshot ({len(meta['nodes'])} pages)"
+            )
+        built = []
+        for i, nm in enumerate(meta["nodes"]):
+            parent = prefix._root if nm["parent"] < 0 else built[nm["parent"]]
+            chunk = arrays[f"node/{i}/chunk"].tobytes()
+            node = _RadixNode(chunk, None, parent, nm["tick"],
+                              key=chain_key(parent.key, chunk))
+            parent.children[chunk] = node
+            prefix._tiered += 1
+            built.append(node)
+            tier.put(node.key, TierPayload(
+                codec=nm["codec"],
+                wire_id=nm["wire_id"],
+                planes=tuple((path, tuple(shape), dt) for path, shape, dt in nm["planes"]),
+                nbytes=nm["nbytes"],
+                crc=nm["crc"],
+                blob=arrays[f"node/{i}/blob"].tobytes(),
+            ))
+        prefix._tick = meta["tick"]
+        now = sched._clock()
+        for j, rm in enumerate(meta["requests"]):
+            r = Request(rm["rid"], np.asarray(arrays[f"req/{j}/prompt"], np.int32),
+                        rm["max_new_tokens"], rm["eos_id"], priority=rm["priority"],
+                        submit_t=now)
+            r.done_tokens = [int(t) for t in arrays[f"req/{j}/done"]]
+            r.parks = rm["parks"]
+            r.was_parked = rm["was_parked"]
+            sched.queue.append(r)
+        for rid_s, status in meta.get("results", {}).items():
+            rid = int(rid_s)
+            sched.results[rid] = np.asarray(arrays[f"res/{rid}"], np.int32)
+            sched.statuses[rid] = RequestStatus(status)
+        sched._next_rid = max(sched._next_rid, meta["next_rid"])
+        return {"nodes": len(meta["nodes"]), "requests": len(meta["requests"])}
 
     def generate(self, prompts: np.ndarray, n_steps: int) -> np.ndarray:
         """prompts (B, S) int -> generated tokens (B, n_steps)."""

@@ -374,6 +374,10 @@ class HostTier:
     def pop(self, key: bytes) -> Optional[TierPayload]:
         return self._store.pop(key, None)
 
+    def state(self) -> Dict[bytes, TierPayload]:
+        """Snapshot hook: the stored payloads, in insertion order."""
+        return dict(self._store)
+
     def corrupt_one(self) -> Optional[bytes]:
         """Chaos hook (`corrupt_tier_page`): flip bytes in one stored
         payload, deterministically the smallest key, so seeded fault

@@ -2,8 +2,7 @@
 prefix index, and per-request block tables over the device pools built by
 `Model.init_paged_cache`.
 
-Counterpart of `repro/serve/paged_cache.py` without its window freeing
-(ROADMAP Queue A item 10). Layout:
+Counterpart of `repro/serve/paged_cache.py`. Layout:
 per attention layer one (num_blocks+1, block_size, Hkv, W) pool for K and V
 plus a (num_blocks+1, block_size) position plane. Device page 0 is the null
 page: pad and inactive-slot writes land there with the empty-position
@@ -23,7 +22,8 @@ sentinel. Allocator page `a` is device page `a + 1`.
                   reservations, copy-on-write, park, and the flat
                   write-slot / block-table / fresh-page / copy arrays the
                   device steps take; owns the device pools and routes
-                  index-eviction victims into the host tier
+                  index-eviction victims into the host tier; window
+                  freeing (`free_behind`) for all-local attention stacks
 
 A request at length `len` holds exactly ceil(len / block_size) pages; with
 the prefix index on, pages holding a prompt prefix another request already
@@ -216,21 +216,22 @@ class PrefixIndex:
             node = child
         return n
 
-    def insert(self, prompt, table: List[int]) -> int:
+    def insert(self, prompt, table: List[Optional[int]]) -> int:
         """Cache every full page of a finished prefill: chunks already
         indexed are kept (first writer wins: the later request's identical
         page stays private), new chunks pin the request's page with one
         index reference. A tiered node on the path is re-adopted instead:
         the writer's page holds the same content (same chunk path, causal
         attention), so the node goes resident on it and its tier payload is
-        dropped, which keeps resident nodes above tiered ones. Returns
-        pages newly pinned."""
+        dropped, which keeps resident nodes above tiered ones. Stops at a
+        window-freed hole (a cached prefix must run from position 0).
+        Returns pages newly pinned."""
         self._tick += 1
         node, added = self._root, 0
         for i, key in enumerate(self._chunks(prompt)):
             child = node.children.get(key)
             if child is not None and child.tiered:
-                if i >= len(table):
+                if i >= len(table) or table[i] is None:
                     break
                 child.page = table[i]
                 self.allocator.incref(table[i])
@@ -241,7 +242,7 @@ class PrefixIndex:
                 child.tick = self._tick
                 added += 1
             elif child is None:
-                if i >= len(table):
+                if i >= len(table) or table[i] is None:
                     break
                 child = _RadixNode(key, table[i], node, self._tick,
                                    key=chain_key(node.key, key))
@@ -660,7 +661,7 @@ class PagedKVCache:
         table = self._tables.pop(rid, None)
         if table is None:
             return
-        self.allocator.free(table)
+        self.allocator.free([p for p in table if p is not None])
         self._reserved.pop(rid, None)
 
     def prefix_insert(self, rid: int, prompt) -> int:
@@ -671,7 +672,28 @@ class PagedKVCache:
         return self.prefix.insert(prompt, self._tables[rid])
 
     def blocks_held(self, rid: int) -> int:
-        return len(self._tables[rid])
+        return sum(1 for p in self._tables[rid] if p is not None)
+
+    def free_behind(self, rid: int, min_live_pos: int) -> int:
+        """Window freeing: release every page whose tokens all lie below
+        `min_live_pos`, positions no live or later query of an all-local
+        stack can attend to once its window has slid past them. The table
+        keeps a None in the page's place so later block indices stay
+        position-addressed; `block_table_row` reads it as the null page,
+        whose scrubbed sentinel masks it (never the stale page, which may
+        already hold another tenant's KV). Returns the pages returned to
+        the free list (a shared page only drops this request's
+        reference)."""
+        table = self._tables[rid]
+        bs = self.block_size
+        dead = []
+        for bi in range(min(len(table), max(0, min_live_pos) // bs)):
+            if table[bi] is not None and (bi + 1) * bs <= min_live_pos:
+                dead.append(table[bi])
+                table[bi] = None
+        if dead:
+            return len(self.allocator.free(dead))
+        return 0
 
     def rollback(self, rid: int, n_keep: int) -> int:
         """Speculative-decode rollback: shrink the request back to the
@@ -687,9 +709,10 @@ class PagedKVCache:
         keep = self.blocks_for(max(0, n_keep))
         if len(table) <= keep:
             return 0
-        tail = table[keep:]
+        tail = [p for p in table[keep:] if p is not None]
+        removed = len(table) - keep
         del table[keep:]
-        self._reserved[rid] = self._reserved.get(rid, 0) + len(tail)
+        self._reserved[rid] = self._reserved.get(rid, 0) + removed
         freed = self.allocator.free(tail)
         if freed and self._fresh:
             drop = {p + 1 for p in freed}
@@ -718,7 +741,7 @@ class PagedKVCache:
             self.prefix.insert(tokens, self._tables[rid])
         table = self._tables.pop(rid)
         self._reserved.pop(rid, None)
-        freed = self.allocator.free(table)
+        freed = self.allocator.free([p for p in table if p is not None])
         if freed and self._fresh:
             drop = {p + 1 for p in freed}
             self._fresh = [d for d in self._fresh if d not in drop]
@@ -727,7 +750,7 @@ class PagedKVCache:
     def held_pages(self, rid: int) -> List[int]:
         """The request's page ids, one entry per table reference (the audit
         hook of `check_invariants`); [] for a request without a table."""
-        return list(self._tables.get(rid, []))
+        return [p for p in self._tables.get(rid, []) if p is not None]
 
     # -- slot / table arrays for the device steps ----------------------------
 
@@ -764,6 +787,11 @@ class PagedKVCache:
             while len(table) <= bi:
                 table.append(self._alloc_page(rid, fresh=True))
             pg = table[bi]
+            if pg is None:
+                # positions only grow and free_behind releases only pages
+                # behind the window: a write never lands on one
+                raise ValueError(
+                    f"request {rid}: write at position {p} targets a window-freed page")
             if self.allocator.ref_count(pg) > 1:
                 dst = self._alloc_page(rid, fresh=False)
                 self._pending_copies.append((pg + 1, dst + 1))
@@ -821,7 +849,8 @@ class PagedKVCache:
 
     def block_table_row(self, rid: Optional[int], max_blocks: int) -> np.ndarray:
         """(max_blocks,) device page ids, null-page-padded; all-null when
-        the slot is inactive (rid None)."""
+        the slot is inactive (rid None). Window-freed entries read the null
+        page too: the page itself may already serve another tenant."""
         row = np.zeros(max_blocks, np.int32)
         if rid is not None:
             table = self._tables[rid]
@@ -829,5 +858,6 @@ class PagedKVCache:
                 raise ValueError(
                     f"request {rid} holds {len(table)} pages > max_blocks={max_blocks}"
                 )
-            row[: len(table)] = np.asarray(table, np.int32) + 1
+            row[: len(table)] = np.asarray(
+                [0 if p is None else p + 1 for p in table], np.int32)
         return row

@@ -1,8 +1,7 @@
 """Continuous-batching scheduler over the block-paged KV cache.
 
-Counterpart of `repro/serve/scheduler.py` (without its window freeing,
-ROADMAP Queue A item 10, and its single-step decode: a chunk of one step
-serves it). A FIFO request
+Counterpart of `repro/serve/scheduler.py` (without its single-step
+decode: a chunk of one step serves it). A FIFO request
 queue feeds a fixed set of `max_slots` decode slots. Each scheduling round
 the host admits queued requests into free slots while the pool has enough
 unreserved pages for a request's worst case, prefills all requests admitted
@@ -96,6 +95,7 @@ STAT_UNITS: Dict[str, str] = {
     "prefix_cached_pages": "pages (pages the prefix index currently pins)",
     "kv_pages_read": "pages (decode-attention pages actually walked)",
     "kv_pages_read_worst": "pages (max_blocks gather worst case)",
+    "window_freed_pages": "pages (released behind the attention window)",
     "mean_occupancy": "ratio (active slot-steps / max_slots*steps)",
     "mean_blocks": "pages (mean pool pages held per decode step)",
     "padding_waste_saved": "ratio (ring-cache block-steps never allocated)",
@@ -200,6 +200,12 @@ class Scheduler:
             payloads into their device pages before the prefill launch that
             reads them.
 
+    `local_window` (set by the engine when every attention layer is local)
+    turns on window freeing: after each scheduling round the pages that
+    have slid wholly behind every live and later query's window go back to
+    the free list, and their table entries become null-page reads, which
+    the position sentinel masks.
+
     `prefill_chunk` switches prefill to chunked mode: each round advances
     every mid-prefill slot by at most that many prompt tokens in one
     length-bounded launch, then runs a decode round for the slots that
@@ -228,6 +234,7 @@ class Scheduler:
         scrub_fn: Callable,
         chunk: int = 1,
         prefill_batch: bool = True,
+        local_window: Optional[int] = None,
         spec_fn: Optional[Callable] = None,
         spec_k: int = 0,
         spec_rounds: int = 0,
@@ -244,6 +251,8 @@ class Scheduler:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if local_window is not None and local_window < 1:
+            raise ValueError(f"local_window must be >= 1, got {local_window}")
         if spec_fn is not None and (spec_k < 1 or spec_rounds < 1):
             raise ValueError(
                 f"spec_fn requires spec_k >= 1 and spec_rounds >= 1, got "
@@ -260,6 +269,7 @@ class Scheduler:
         self._tier_restore = tier_restore_fn
         self.chunk = chunk
         self.prefill_batch = prefill_batch
+        self.local_window = local_window
         self._spec = spec_fn
         self.spec_k = spec_k
         self.spec_rounds = spec_rounds
@@ -287,8 +297,9 @@ class Scheduler:
             "active_slot_steps": 0,
             "paged_block_steps": 0, "dense_block_steps": 0, "peak_blocks": 0,
             "prefill_calls": 0, "prefill_chunk_calls": 0,
-            "prefill_token_steps": 0, "prefill_real_tokens": 0, "kv_pages_read": 0,
-            "kv_pages_read_worst": 0, "draft_tokens": 0, "verify_calls": 0,
+            "prefill_token_steps": 0, "prefill_real_tokens": 0,
+            "kv_pages_read": 0, "kv_pages_read_worst": 0, "window_freed_pages": 0,
+            "draft_tokens": 0, "verify_calls": 0,
             "shed_requests": 0, "expired_requests": 0, "preempted_requests": 0,
             "parked_requests": 0, "resumed_requests": 0, "failed_requests": 0,
             "degradations": 0, "itl_deferrals": 0,
@@ -466,6 +477,7 @@ class Scheduler:
         for slot, r in admitted:
             if self._finished(r):
                 self._evict(slot)
+        self._free_window_pages()  # a long prompt may already out-span it
 
     # ------------------------------------------------------------------
     # overload resilience: deadlines, SLO gates, the degradation ladder,
@@ -744,6 +756,7 @@ class Scheduler:
         for i, r in pending:
             if r.out and self._finished(r):
                 self._evict(i)
+        self._free_window_pages()
 
     def _prefill_span_cap(self, pending) -> int:
         """Tokens one chunked-prefill launch may process per request. The
@@ -1008,6 +1021,7 @@ class Scheduler:
         for i, r in active:
             if self._finished(r):
                 self._evict(i)
+        self._free_window_pages()
 
     def _account_decode_chunk(self, active, steps_taken, used0, held0, p0s, c):
         """Replay the single-step charging order over the chunk: a page is
@@ -1032,13 +1046,39 @@ class Scheduler:
             st["paged_block_steps"] += used
             st["dense_block_steps"] += len(live) * self.max_blocks
             st["peak_blocks"] = max(st["peak_blocks"], used)
-            for i in live:  # the fused walk covers ceil(kv_len / bs) pages
-                kv_len = p0s[i] + j + 1
-                st["kv_pages_read"] += min(self.max_blocks, -(-kv_len // bs))
-                st["kv_pages_read_worst"] += self.max_blocks
+            for i in live:
+                self._account_kv_read(p0s[i] + j + 1)
             for i, r in active:
                 if steps_taken[i] == j + 1 and self._finished(r):
                     used -= held0[i] + grown[i]
+
+    def _account_kv_read(self, kv_len: int) -> None:
+        """One decode token's KV read of one slot: the fused walk covers
+        the pages from the first its window can see (all-local stacks) up
+        to ceil(kv_len / bs); the worst case is the max_blocks gather."""
+        bs = self.cache.block_size
+        first = max(0, kv_len - self.local_window) // bs if self.local_window else 0
+        self._stats["kv_pages_read"] += min(self.max_blocks, -(-kv_len // bs)) - first
+        self._stats["kv_pages_read_worst"] += self.max_blocks
+
+    def _free_window_pages(self) -> None:
+        """Window freeing (all-local attention stacks only): a key at
+        position p is visible to query q iff p > q - window, and live
+        queries only advance, so every page wholly below `next query -
+        window + 1` is dead for good. Its table entry becomes a null-page
+        read, masked by the scrubbed sentinel, never the stale page, which
+        may be reallocated to another tenant."""
+        if self.local_window is None:
+            return
+        freed = 0
+        for r in self.slots:
+            if r is not None:
+                # the next query position: decode feeds back the last
+                # sampled token at next_pos - 1; a mid-prefill slot's next
+                # chunk starts at `prefilled`
+                nq = r.next_pos - 1 if r.out else r.prefilled
+                freed += self.cache.free_behind(r.rid, nq + 1 - self.local_window)
+        self._stats["window_freed_pages"] += freed
 
     def _decode_active_spec(self, active) -> None:
         """Speculative decode: `spec_rounds` draft-k/verify-once rounds in
@@ -1108,6 +1148,7 @@ class Scheduler:
         for i, r in active:
             if self._finished(r):
                 self._evict(i)
+        self._free_window_pages()
 
     def _account_decode_spec(self, active, e_rounds, p0s, held0, used0, tw):
         """Replay the spec chunk's per-round charging. A round is one decode
@@ -1119,7 +1160,9 @@ class Scheduler:
         st = self._stats
         st["decode_chunks"] += 1
         st["host_syncs"] += 1
-        bs, k, window = self.cache.block_size, self.spec_k, self.spec_window
+        bs, k = self.cache.block_size, self.spec_k
+        wins = [w for w in (self.spec_window or None, self.local_window) if w is not None]
+        window = min(wins) if wins else None
         used = used0
         grown = dict.fromkeys(held0, 0)
         pos = dict(p0s)

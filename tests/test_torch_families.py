@@ -192,13 +192,17 @@ def test_init_and_compress_tree_match_the_references_trees(arch):
 
 _REFUSED = {
     "moe": {"family": "moe", "n_experts": 4, "experts_per_token": 2},
+    "gelu": {"mlp_act": "gelu"},
+    "mrope": {"mrope_sections": (2, 3, 3)},
+    "attention_free": {"attn_pattern": "none"},
+}
+# gemma2-2b's features (item 10.3), refused until the port took them
+_ACCEPTED = {
     "post_norms": {"post_norms": True},
     "embed_scale": {"embed_scale": True},
     "final_softcap": {"final_softcap": 30.0},
     "local_global": {"attn_pattern": "local_global"},
     "geglu": {"mlp_act": "geglu"},
-    "gelu": {"mlp_act": "gelu"},
-    "mrope": {"mrope_sections": (2, 3, 3)},
 }
 
 
@@ -207,6 +211,12 @@ def test_model_still_refuses_unported_features_with_their_item(feature):
     cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), **_REFUSED[feature])
     with pytest.raises(NotImplementedError, match="Queue A item 10"):
         Model(cfg)
+
+
+@pytest.mark.parametrize("feature", sorted(_ACCEPTED))
+def test_model_accepts_gemma2_features(feature):
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), **_ACCEPTED[feature])
+    assert Model(cfg).cfg is cfg
 
 
 # ---------------------------------------------------------------------------

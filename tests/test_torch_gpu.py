@@ -229,9 +229,9 @@ def test_gemv_at_the_paper_models_long_k_matches_plain(card, spec, k):
 
 # (B, Hq, Hkv, Dh) of the paper models' decode attention: llama2-70b's 8
 # query heads a KV head, opt-66b's full MHA over 72 KV heads, llama3.2-1b's
-# head dim 64 (a lane holds two dims)
+# head dim 64 (a lane holds two dims), gemma2-2b's head dim 256 at G 2
 _FAMILY_ATTENTION = {"llama2-70b": (4, 64, 8, 128), "opt-66b": (4, 72, 72, 128),
-                     "llama3.2-1b": (4, 32, 8, 64)}
+                     "llama3.2-1b": (4, 32, 8, 64), "gemma2-2b": (4, 8, 4, 256)}
 
 
 @pytest.mark.gpu
@@ -246,6 +246,64 @@ def test_paged_attention_at_the_paper_models_shapes_matches_plain(card, arch, ki
         want = ref.paged_decode_attention(*args, quant=kind, window=window)
         torch.cuda.synchronize()
         assert got.shape == (b, hq, dh) and _close(got, want), window
+
+
+# (Hq, Hkv, Dh) past the kernel's first limits: gemma2-2b's Dh 256 at G 2,
+# recurrentgemma-9b's Dh 256 at G 16, grok-1's G 6 and qwen2-vl-7b's G 7
+# (at both head-dim tiers); G 6 and 7 leave 2 and 4 lanes of a score
+# butterfly idle, so a wrong split shows as wrong rows of one slot
+_NEW_ATTENTION = {"dh256_g2": (8, 4, 256), "dh256_g16": (16, 1, 256),
+                  "dh128_g6": (12, 2, 128), "dh128_g7": (14, 2, 128),
+                  "dh256_g6": (6, 1, 256), "dh256_g7": (7, 1, 256)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KV_KINDS)
+@pytest.mark.parametrize("case", sorted(_NEW_ATTENTION))
+def test_paged_attention_at_head_dim_256_and_any_group_matches_plain(card, case, kind):
+    """Every (slot, head) row of the kernel's output against the plain
+    version's, with and without a window and gemma2's softcap of 50."""
+    hq, hkv, dh = _NEW_ATTENTION[case]
+    args = _pools(kind, card, seed=11, b=4, hq=hq, hkv=hkv, dh=dh, bs=16, mb=24,
+                  lens=(380, 257, 100, 3))
+    for window, softcap in ((0, 0.0), (100, 0.0), (0, 50.0), (100, 50.0)):
+        got = paged_attention.paged_attention(*args, quant=kind, window=window,
+                                              softcap=softcap)
+        want = ref.paged_decode_attention(*args, quant=kind, window=window,
+                                          softcap=softcap)
+        torch.cuda.synchronize()
+        assert got.shape == (4, hq, dh)
+        err = (got.float() - want.float()).abs().amax(dim=-1)
+        bad = (err > TOL * float(want.float().abs().max())).nonzero().tolist()
+        assert not bad, (window, softcap, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [504, 259])
+@pytest.mark.parametrize("density", [1.0, 0.5, 0.05])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_gemm_and_gemv_at_an_n_that_is_no_multiple_of_16_match_plain(card, quant, density, n):
+    """hubert-xlarge's lm_head width N = 504 (code rows of 504 bytes: no TMA
+    box) and an odd N = 259 (the epilogue stores one by one), at K = 1280:
+    the GeMM's direct path on ragged M and the GeMV, every weight codec."""
+    k = 1280
+    g = torch.Generator(device=card).manual_seed(n + int(density * 100))
+    ct = compress(torch.randn(k, n, generator=g, device=card) * 0.05,
+                  CompressionSpec(quant, density))
+    for m in (4, 33, 300):
+        x = torch.randn(m, k, generator=g, device=card)
+        kernel = deca_gemm.decompress_gemv if m <= ops.GEMV_MAX_M else deca_gemm.decompress_gemm
+        plain = ref.decompress_gemv if m <= ops.GEMV_MAX_M else ref.decompress_gemm
+        want = plain(x, ct, out_dtype=torch.float32)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            got = kernel(x, ct, out_dtype=out_dtype)
+            torch.cuda.synchronize()
+            assert got.dtype == out_dtype and got.shape == (m, n)
+            if out_dtype == torch.float32:
+                assert _close(got, want), m
+            else:
+                bound = 2.0**-8 * want.abs() + TOL * want.abs().max()
+                assert torch.all((got.float() - want).abs() <= bound), m
 
 
 @pytest.mark.gpu
@@ -957,3 +1015,76 @@ def test_tier_restore_keeps_pool_addresses_and_graphs_replay_bitwise(card):
             assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
         eng.scheduler.check_invariants()
     assert outs[True] == outs[False]
+
+
+# ---------------------------------------------------------------------------
+# gemma2-2b (geglu, softcaps, post norms, local and global layers) and
+# engine snapshots on the card
+# ---------------------------------------------------------------------------
+
+def _teacher_forced_gap(model, params, prompt, out, card, block_size=8):
+    """The largest gap, over the emitted tokens, between a position's top
+    teacher-forced logit and the emitted token's, over max|logit|."""
+    seq = torch.as_tensor(np.concatenate([prompt, out[:-1]]), device=card)
+    rows = model.score(params, seq, block_size=block_size)[len(prompt) - 1:]
+    picked = rows.gather(1, torch.as_tensor(out, device=card).long()[:, None])[:, 0]
+    return float((rows.max(dim=1).values - picked).max()) / float(rows.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["none", "int8"])
+def test_gemma2_smoke_on_the_card_keeps_tokens_within_logit_tolerance(card, kind):
+    """gemma2-2b-smoke served on the card with prompts past its local window
+    of 32: each emitted token's teacher-forced logit lies within 5e-2 of
+    the position's scale of its largest; every captured chunk replays
+    bitwise; the decode steps launch the attention kernel and the GeMV."""
+    from repro_torch.serve.graphs import replay_check
+
+    model, params = _smoke(card, arch="gemma2-2b")
+    eng = GenerationEngine(model, params, max_len=128, block_size=8, max_slots=2,
+                           decode_chunk=8, kv_quant=kind, device=card)
+    assert eng.scheduler.local_window is None
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (60, 9, 41)]
+    att0, gemv0 = paged_attention.paged_attention.launches, deca_gemm.decompress_gemv.launches
+    rids = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    done = eng.run_until_drained()
+    assert paged_attention.paged_attention.launches > att0
+    assert deca_gemm.decompress_gemv.launches > gemv0
+    for p, r in zip(prompts, rids):
+        assert len(done[r]) == 12
+        assert _teacher_forced_gap(eng.model, params, p, done[r], card) <= 5e-2
+    for key in eng._chunk_graphs.graphs:
+        assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
+
+
+@pytest.mark.gpu
+def test_snapshot_round_trip_on_the_card(card, tmp_path):
+    """A tiered llama3-8b-smoke engine on the card snapshots in mid-serve; a
+    fresh engine restores it (every page in the tier, none on the card),
+    resumes through the tier and emits every token, each within the
+    teacher-forced tolerance; the snapshotted engine finishes too."""
+    model, params = _smoke(card)
+    kw = dict(max_len=64, block_size=8, max_slots=2, decode_chunk=4, kv_quant="int8",
+              num_blocks=16, prefix_cache=True, host_tier=True, device=card)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (17, 33)]
+    eng = GenerationEngine(model, params, **kw)
+    rids = [eng.submit(p, max_new_tokens=n) for p, n in zip(prompts, (4, 12))]
+    eng.scheduler.step()
+    eng.scheduler.step()
+    counts = eng.snapshot(str(tmp_path / "snap"))
+    assert counts["nodes"] > 0 and counts["requests"] >= 1
+    fresh = GenerationEngine(model, params, **kw)
+    assert fresh.restore(str(tmp_path / "snap")) == counts
+    occ = fresh.kv.occupancy()
+    assert occ["used"] == 0 and occ["tiered"] == counts["nodes"]
+    got = fresh.run_until_drained()
+    st = fresh.scheduler.stats()
+    assert st["tier_restored_pages"] > 0 and st["tier_fallback_recompute"] == 0
+    fresh.scheduler.check_invariants()
+    for p, r, n in zip(prompts, rids, (4, 12)):
+        assert len(got[r]) == n
+        assert _teacher_forced_gap(model, params, p, got[r], card) <= 5e-2
+    again = eng.run_until_drained()
+    assert len(again[rids[1]]) == 12

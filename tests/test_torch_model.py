@@ -351,7 +351,8 @@ def test_init_with_spec_matches_compressing_afterwards():
 
 def test_model_rejects_unported_features():
     cfg = get_smoke_config("llama3-8b")
-    for change in ({"n_experts": 4}, {"post_norms": True}, {"embed_scale": True}):
+    # post norms and the embedding scale are gemma2-2b's, ported since
+    for change in ({"n_experts": 4}, {"mlp_act": "gelu"}, {"mrope_sections": (2, 3, 3)}):
         with pytest.raises(NotImplementedError, match="Queue A item 10"):
             Model(dataclasses.replace(cfg, **change))
     with pytest.raises(ValueError):

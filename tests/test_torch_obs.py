@@ -417,9 +417,9 @@ def _serve_observed(eng, prompts):
     return [done[r].tolist() for r in rids]
 
 
-#: Metrics only the reference publishes: the stat of its window freeing
-#: (ROADMAP Queue A item 10).
-REF_ONLY = {"serve.stats.window_freed_pages"}
+#: Metrics only the reference publishes: none since the port's window
+#: freeing publishes `window_freed_pages`.
+REF_ONLY = set()
 
 SERVES = {
     "plain": (dict(kv_quant="int8"), {}),
