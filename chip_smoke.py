@@ -65,7 +65,13 @@ served greedily through captured decode graphs (prefill walls, the
 replayed decode step beside its bytes bound, launches, a replay's
 breakdown, tokens against teacher-forced logits), and its kernel path held
 against the plain path over its first 4 layers; then llama3.2-1b the same
-way, whose head is tied to the embedding. The kernel bounds take their
+way, whose head is tied to the embedding. Last, `moe` serves grok-1-314b
+(8 experts, top-2) at full width and 16 of its 64 layers, built one
+expert at a time: its kernels at its shapes and kimi-k2's, a 4-request
+serve with 833 GeMVs a decode step, replays bitwise and the token-slots
+each prefill drops, the kernel path against the plain path, a drop-free
+copy with its routes pinned held against teacher-forced logits, and a
+spec engine on 2 of its layers. The kernel bounds take their
 rates from the same H100 profile (`core/roofsurface.py`), whose
 Roof-Surface lines print as an analytic line at the start.
 """
@@ -118,6 +124,19 @@ GEMMA_LONG = 4600
 GEMMA_MAX_LEN = 8192
 # hubert-xlarge's lm_head width: code rows of 504 bytes, no TMA box
 ODD_N, ODD_K = 504, 1280
+# grok-1-314b at full width, cut in depth: one card holds 16 of its 64
+# layers with all 8 experts (about 51 GB at bf8_50), a whole period of a
+# uniform stack; a drop-free copy (capacity = n_experts) with its routes
+# pinned carries the token rule, and its spec engine runs at MOE_SPEC_LAYERS
+MOE = "grok-1-314b"
+MOE_LAYERS = 16
+MOE_NEW = 64
+MOE_SPEC_LAYERS = 2
+MOE_PATH_STEPS = 1  # decode steps of its kernel-vs-plain comparison (plain GeMV ~0.1 s a call)
+# expert matmul rows: decode bins of 4 slots (M = cap = 4), the spec
+# verify's 16, a 1024-token prompt's bin at capacity 1.25 (160), a long prefill
+MOE_EXPERT_MS = (1, 4, 16, 160, 2048)
+KIMI = "kimi-k2-1t-a32b"  # its expert GeMVs and its attention at Dh 112, G 8
 
 
 _LOG = []
@@ -593,9 +612,12 @@ def plain_kernels():
          paged_attention.paged_attention) = saved
 
 
-def compare_paths(torch, model, params, report, key="path_comparison"):
-    """Prefill and decode-step logits of the kernel path against the plain
-    path on the card, on the same tokens and the same fresh pools."""
+def compare_paths(torch, model, params, report, key="path_comparison", steps=4,
+                  routes=None):
+    """Prefill and `steps` decode-step logits of the kernel path against
+    the plain path on the card, on the same tokens and the same fresh
+    pools; with `routes` (an active RouteLog) the plain path replays the
+    expert choices the kernel path made."""
     from repro_torch.serve.engine import make_paged_prefill_step
 
     bs, n = 32, 224
@@ -608,11 +630,14 @@ def compare_paths(torch, model, params, report, key="path_comparison"):
     fresh = tables[0, :8].clone()
     last = torch.tensor([n - 1], device="cuda")
     no_copy = torch.zeros(1, 2, dtype=torch.int32, device="cuda")
-    results, fed, steps = {}, [], 4
+    results, fed = {}, []
     zero = torch.zeros(1, dtype=torch.int32, device="cuda")
+    mark = len(routes.seen) if routes is not None else 0
     for path in ("kernel", "plain"):
         ctx = plain_kernels() if path == "plain" else contextlib.nullcontext()
-        with ctx:
+        pin = (routes.replay(routes.seen[mark:]) if routes is not None and path == "plain"
+               else contextlib.nullcontext())
+        with ctx, pin:
             pools = model.init_paged_cache(16, bs, device="cuda")
             logits, pools = make_paged_prefill_step(model)(
                 params, tokens, pos, pools, tables, slots, pos, fresh, no_copy, last)
@@ -817,10 +842,14 @@ def gemv_per_step(rows, out):
 
 def gemvs_per_step(cfg) -> int:
     """GeMV launches of one decode step: one per FC matmul of each layer
-    (4 attention projections, and 3 in a gated MLP or 2 in a relu one)
-    and one for an untied lm_head (a tied head is a cuBLAS GEMM)."""
-    per_layer = 4 + (3 if cfg.mlp_act in ("swiglu", "geglu") else 2)
-    return per_layer * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    (4 attention projections, and 3 in a gated MLP or 2 in a relu one; an
+    MoE layer runs every expert's FFN on its bin once per routing slot,
+    E x k of them) and one for an untied lm_head (a tied head is a cuBLAS
+    GEMM). grok-1 at 16 layers: 16 x (4 + 8 x 2 x 3) + 1 = 833."""
+    ffn = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
+    if cfg.n_experts:
+        ffn *= cfg.n_experts * cfg.experts_per_token
+    return (4 + ffn) * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
 
 
 def counters():
@@ -830,6 +859,12 @@ def counters():
     return {"deca_gemv": deca_gemm.decompress_gemv, "deca_gemm": deca_gemm.decompress_gemm,
             "deca_paged_attention": paged_attention.paged_attention,
             "deca_decompress": deca_decompress.decompress}
+
+
+def first_w_up(params):
+    """Layer 0's w_up: the MLP's, or expert 0's of an MoE layer."""
+    layer = params["layers"][0]
+    return layer["mlp"]["w_up"] if "mlp" in layer else layer["moe"]["w_up"].pick(0)
 
 
 def check_draft_leaf(torch, target, served, draft_spec):
@@ -854,15 +889,18 @@ def check_draft_leaf(torch, target, served, draft_spec):
         f"({time.perf_counter() - t0:.1f} s on the CPU)")
 
 
-def teacher_forced(torch, model, params, prompts, outs, report, key="teacher_forced"):
+def teacher_forced(torch, model, params, prompts, outs, report, key="teacher_forced",
+                   pin=None):
     """Each emitted token's logit in one teacher-forced target forward over
     prompt + emitted tokens (kernel path) lies within LOGIT_TOL of the
-    position's scale below the position's largest logit. Returns the share
-    of positions where it is the argmax."""
+    position's scale below the position's largest logit. `pin(i)` gives a
+    context for request i's forward (an MoE config's routes replayed).
+    Returns the share of positions where it is the argmax."""
     worst, exact, total = 0.0, 0, 0
-    for p, out in zip(prompts, outs):
+    for i, (p, out) in enumerate(zip(prompts, outs)):
         seq = torch.as_tensor(list(p) + list(out[:-1]), device="cuda")
-        rows = model.score(params, seq)[len(p) - 1:]
+        with pin(i) if pin else contextlib.nullcontext():
+            rows = model.score(params, seq)[len(p) - 1:]
         em = torch.as_tensor(out, device="cuda").long()
         picked = rows.gather(1, em[:, None])[:, 0]
         gap = (rows.max(dim=1).values - picked) / rows.abs().max()
@@ -902,7 +940,9 @@ def serve_spec(torch, model, params, prompts, plain_outs, report):
     build_s = time.perf_counter() - t0
     peak_extra = torch.cuda.max_memory_allocated() - base
     built = counters()["deca_decompress"].launches
-    n_ct = sum(isinstance(x, CompressedTensor) for x in _leaves(params))
+    # an expert-stacked leaf decompresses one expert a launch
+    n_ct = sum((x.lead[0] if x.lead else 1) for x in _leaves(params)
+               if isinstance(x, CompressedTensor))
     target_b, draft_b = compressed_bytes(params), compressed_bytes(eng.draft_params)
     fc = lambda tree: sum(x.nbytes for x in _leaves(tree) if isinstance(x, CompressedTensor))
     log(f"spec engine (k={SPEC_K}, draft {DRAFT_CODEC}, {eng.spec_rounds} rounds per "
@@ -913,8 +953,8 @@ def serve_spec(torch, model, params, prompts, plain_outs, report):
         f"{fc(eng.draft_params) / 1e9:.3f} GB")
     if built != n_ct:
         raise AssertionError(f"{built} decompress launches for {n_ct} compressed leaves")
-    check_draft_leaf(torch, params["layers"][0]["mlp"]["w_up"],
-                     eng.draft_params["layers"][0]["mlp"]["w_up"], get_spec(DRAFT_CODEC))
+    check_draft_leaf(torch, first_w_up(params), first_w_up(eng.draft_params),
+                     get_spec(DRAFT_CODEC))
 
     launches_ = []
     eng.scheduler._spec = chunk_timer(torch, eng._spec_graphs, eng.scheduler._spec, launches_)
@@ -2136,9 +2176,10 @@ def overload_serve(torch, model, params, prompts, report):
     report["overload_serve"] = res
 
 
-def build_compressed(torch, arch):
-    """`arch` at full width and depth with SERVED_SPEC weights, each layer
-    compressed on the card as `Model.init` draws it: the build's seconds,
+def build_compressed(torch, arch, n_layers=None):
+    """`arch` at full width and depth (or cut to `n_layers`) with
+    SERVED_SPEC weights, each layer compressed on the card as `Model.init`
+    draws it (an MoE weight one expert at a time): the build's seconds,
     the stored bytes beside the dense bf16 size, and the peak allocation
     over the build, which must stay within BUILD_HEADROOM of the stored
     bytes (the dense model never exists whole)."""
@@ -2148,6 +2189,9 @@ def build_compressed(torch, arch):
     from repro_torch.models.model import Model
 
     cfg = dataclasses.replace(get_config(arch), kv_quant=SERVED_KV)
+    full = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     model = Model(cfg)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2162,8 +2206,11 @@ def build_compressed(torch, arch):
            "dense_bf16_bytes": 2 * cfg.param_count(),
            "build_peak_bytes": torch.cuda.max_memory_allocated() - base}
     over = rec["build_peak_bytes"] - rec["param_bytes"]
-    log(f"{arch} full width and depth ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, d_ff {cfg.d_ff} {cfg.mlp_act}, vocab "
+    depth = "depth" if cfg.n_layers == full else f"{cfg.n_layers} of its {full} layers"
+    moe = (f"{cfg.n_experts} experts top-{cfg.experts_per_token} capacity "
+           f"{cfg.capacity_factor:g}, " if cfg.n_experts else "")
+    log(f"{arch} full width and {depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, {moe}d_ff {cfg.d_ff} {cfg.mlp_act}, vocab "
         f"{cfg.vocab_size}, {cfg.pos_emb} positions, "
         f"{'tied' if cfg.tie_embeddings else 'untied'} head) built and compressed to "
         f"{SERVED_SPEC} on the card in {rec['build_s']:.1f} s: {rec['param_bytes'] / 1e9:.3f} GB "
@@ -2175,28 +2222,36 @@ def build_compressed(torch, arch):
     return model, params, rec
 
 
-def check_model_kernels(torch, timer, model, params, cases):
+def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 2048)):
     """The matmul kernels on every distinct FC shape of a served model (its
     layer-0 leaves and lm_head, at the served codec): the GeMV at M = 1 and
-    4 and the GeMM at M = 2048, and the attention kernel at its heads over
+    4 and the GeMM at M = 2048 (an MoE expert at `expert_ms`, through the
+    last expert's `pick` view of the stacked leaf, whose planes start
+    furthest into the stack), and the attention kernel at its heads over
     the served KV pool, each against its plain version and timed. Every
     case runs before any failure is raised, so one run reports them all."""
+    from repro_torch.core.compression import CompressedTensor
     from repro_torch.kernels import deca_gemm, paged_attention, ref
 
     cfg = model.cfg
     layer = params["layers"][0]
-    named = [(n[2:] if n.startswith("w_") else n[1:], ct)
-             for grp in ("attn", "mlp") for n, ct in layer[grp].items()]
+    named = [(n[2:] if n.startswith("w_") else n[1:], ct, False)
+             for n, ct in layer["attn"].items()]
+    for n, ct in layer.get("mlp", {}).items():
+        named.append((n[2:], ct, False))
+    for n, ct in layer.get("moe", {}).items():
+        if isinstance(ct, CompressedTensor):
+            named.append((f"expert {n[2:]}", ct.pick(ct.lead[0] - 1), True))
     if "lm_head" in params:
-        named.append(("lm_head", params["lm_head"]))
+        named.append(("lm_head", params["lm_head"], False))
     shapes = {}
-    for name, ct in named:
-        shapes.setdefault(ct.shape, []).append((name, ct))
+    for name, ct, expert in named:
+        shapes.setdefault((ct.shape, expert), []).append((name, ct))
     g = torch.Generator(device="cuda").manual_seed(11)
     mine = []
-    for (k, n), group in shapes.items():
+    for ((k, n), expert), group in shapes.items():
         role, ct = "/".join(name for name, _ in group), group[0][1]
-        for m in (1, 4, 2048):
+        for m in (expert_ms if expert else (1, 4, 2048)):
             kind = "gemv" if m <= 32 else "gemm"
             kern = deca_gemm.decompress_gemv if kind == "gemv" else deca_gemm.decompress_gemm
             plain = ref.decompress_gemv if kind == "gemv" else ref.decompress_gemm
@@ -2293,7 +2348,7 @@ def decode_kv_pages(cfg, lens, new, bs):
 
 
 def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=2048,
-                      check_all=False):
+                      check_all=False, new=PAPER_NEW, teacher=True, prompts=None):
     """Greedy serves through the plain serve's engine, one per entry of
     `batches` (requests submitted at once, PAPER_NEW new tokens each, seeded
     prompt lengths in 64-1024), every decode chunk a captured graph. Each
@@ -2303,9 +2358,14 @@ def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=
     launches, peak memory, its graphs and one replay's breakdown; every
     request must emit its tokens inside the vocabulary, and each decode
     step must launch one GeMV per FC matmul. `lens` gives the prompt
-    lengths; `check_all` also holds every serve's tokens against
-    teacher-forced logits (not only the first's) and its graphs' replays
-    bitwise against the uncaptured chunks."""
+    lengths (`prompts` the prompts themselves); `check_all` also holds
+    every serve's tokens against teacher-forced logits (not only the
+    first's) and its graphs' replays bitwise against the uncaptured
+    chunks; `teacher` False holds no tokens against teacher-forced logits
+    (an MoE config whose routes and drops a teacher pass would not
+    reproduce). An MoE step reads each expert's planes once per routing slot
+    (the reference's dispatch runs every expert's bin each slot): the
+    bound counts them k times, and the log gives the one-read bound too."""
     from repro_torch.core.compression import CompressedTensor
     from repro_torch.core.decompress import _leaves
     from repro_torch.serve.engine import GenerationEngine
@@ -2314,10 +2374,13 @@ def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=
     eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
                            max_len=max_len, decode_chunk=8)
     g = torch.Generator().manual_seed(4)
-    if lens is None:
-        lens = torch.randint(64, 1025, (sum(batches),), generator=g).tolist()
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy() for n in lens]
-    fc = sum(x.nbytes for x in _leaves(params) if isinstance(x, CompressedTensor))
+    if prompts is None:
+        if lens is None:
+            lens = torch.randint(64, 1025, (sum(batches),), generator=g).tolist()
+        prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy() for n in lens]
+    reads = lambda x: cfg.experts_per_token if x.lead else 1
+    fc = sum(x.nbytes * reads(x) for x in _leaves(params) if isinstance(x, CompressedTensor))
+    fc_once = sum(x.nbytes for x in _leaves(params) if isinstance(x, CompressedTensor))
     head = params["embed"].numel() * 2 if cfg.tie_embeddings else 0  # read whole a step
     page_bytes = eng.kv.bytes_per_token() * eng.kv.block_size
     log(f"{name} engine: int8 KV pool of {eng.kv.num_blocks} pages, "
@@ -2329,10 +2392,10 @@ def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=
         what = f"batch {b}"
         batch, start = prompts[start:start + b], start + b
         st0 = eng.scheduler.stats()
-        outs, run = serve_waves(torch, eng, [batch], PAPER_NEW)
+        outs, run = serve_waves(torch, eng, [batch], new)
         st, launches = run["stats"], run["launches"]
-        if any(len(o) != PAPER_NEW for o in outs):
-            raise AssertionError(f"{name} {what}: a request did not emit its {PAPER_NEW} tokens")
+        if any(len(o) != new for o in outs):
+            raise AssertionError(f"{name} {what}: a request did not emit its {new} tokens")
         if not all(0 <= int(t) < cfg.vocab_size for o in outs for t in o):
             raise AssertionError(f"{name} {what}: a token lies outside the vocabulary")
         steps_run = launches["deca_paged_attention"] / cfg.n_layers  # one a layer a step
@@ -2348,7 +2411,7 @@ def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=
         if cfg.attn_pattern == "local_global":
             # the scheduler counts a global layer's walk in every layer; a
             # local layer walks only the pages its window sees
-            layer_pages, glob = decode_kv_pages(cfg, [len(p) for p in batch], PAPER_NEW,
+            layer_pages, glob = decode_kv_pages(cfg, [len(p) for p in batch], new,
                                                 eng.kv.block_size)
             if abs(glob - kv / page_bytes) > 1e-6:
                 log(f"warning: {name} {what}: {glob} global pages a step by the prompt "
@@ -2356,29 +2419,34 @@ def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=
             kv = layer_pages * page_bytes / cfg.n_layers
         bound = 1e3 * (fc + head + kv) / HBM_BYTES_PER_S
         pf = run["prefills"]
-        log(f"{name} {what}: prompts {[len(p) for p in batch]} x {PAPER_NEW} new, "
+        log(f"{name} {what}: prompts {[len(p) for p in batch]} x {new} new, "
             f"{run['tokens']} tokens in {run['wall_s']:.2f} s = "
             f"{run['tokens'] / run['wall_s']:.1f} tok/s; prefill "
             + ", ".join(f"{c['rows']}x{c['span']} {1e3 * c['wall_s']:.1f} ms" for c in pf)
             + f"; replayed decode {replay_ms:.2f} ms a step over {len(later)} chunks "
             f"({gemvs_per_step(cfg)} GeMVs a step); launches {launches}; peak device memory "
             f"{run['peak_bytes'] / 1e9:.2f} GB")
+        once = 1e3 * (fc_once + head + kv) / HBM_BYTES_PER_S
         log(f"{name} {what}: decode bytes bound a step {bound:.3f} ms = (FC "
             f"{fc / 1e9:.3f} GB{f' + tied head {head / 1e9:.3f} GB' if head else ''} + KV "
             f"{kv / 1e9:.4f} GB) over {HBM_BYTES_PER_S / 1e12:.2f} TB/s; FC alone "
             f"{1e3 * fc / HBM_BYTES_PER_S:.3f} ms; the replayed step is {replay_ms / bound:.2f}x "
-            f"the bound ({bound / replay_ms:.3f} of it)")
+            f"the bound ({bound / replay_ms:.3f} of it)"
+            + (f"; with one read of each expert ({fc_once / 1e9:.3f} GB of FC planes, "
+               f"the experts read once instead of {cfg.experts_per_token} times) the bound "
+               f"would be {once:.3f} ms, {replay_ms / once:.2f}x" if fc != fc_once else ""))
         out[what] = {"prompt_lens": [len(p) for p in batch], "tokens": run["tokens"],
                      "wall_s": run["wall_s"], "prefills": pf, "replayed_ms_per_step": replay_ms,
-                     "bound_ms": bound, "fc_bytes": fc, "head_bytes": head,
+                     "bound_ms": bound, "one_read_bound_ms": once, "fc_bytes": fc,
+                     "fc_stored_bytes": fc_once, "head_bytes": head,
                      "kv_bytes_per_step": kv, "launches": launches,
                      "peak_bytes": run["peak_bytes"], "chunks": run["chunks"],
                      "graphs": graph_costs(eng._chunk_graphs, run["chunks"], f"{name} {what}")}
         profile_replays(torch, eng._chunk_graphs, f"{name} {what} decode chunk", report)
-        if b == batches[0]:
+        if teacher and b == batches[0]:
             out["teacher_forced_argmax_share"] = teacher_forced(
                 torch, model, params, batch, outs, report, key=f"teacher_forced_{name}")
-        elif check_all:
+        elif teacher and check_all:
             out[f"teacher_forced_argmax_share_{what}"] = teacher_forced(
                 torch, model, params, batch, outs, report,
                 key=f"teacher_forced_{name}_{what.replace(' ', '')}")
@@ -2424,6 +2492,377 @@ def gemma2(torch, report):
     log(f"{GEMMA}: {rec['seconds']:.1f} s; freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
         f"allocated")
     report["gemma2"] = rec
+    return cases
+
+
+class RouteLog:
+    """The experts an MoE config chooses, read from its own routing and fed
+    back into it. While active, `layers.top_k` is wrapped: each uncaptured
+    call keeps its choice (G, Tl, k), one call a layer of each forward (a
+    captured decode step runs nothing and is not seen), and each engine
+    prefill and decode chunk keeps its host arrays beside the calls it made
+    (an engine built inside the context). Inside `replay(choices)` each call
+    returns the next of `choices` instead, its gates read from the caller's
+    own probabilities, and notes the routes where the caller's own choice
+    differs, with the probability gap that decided each."""
+
+    def __init__(self, torch):
+        self.torch, self.seen, self.steps, self.replays = torch, [], [], []
+        self.queue = None
+
+    def __enter__(self):
+        from repro_torch.models import layers
+        from repro_torch.serve.engine import GenerationEngine as Eng
+
+        self.inner = layers.top_k
+        self.engine = (Eng._run_paged_prefill, Eng._run_paged_decode_chunk)
+
+        def top_k(probs, k):
+            vals, idx = self.inner(probs, k)
+            if self.queue is not None:
+                return self._replayed(probs, idx, k)
+            if not (probs.is_cuda and self.torch.cuda.is_current_stream_capturing()):
+                self.seen.append(idx.detach().clone())
+            return vals, idx
+
+        def step(kind, fn):
+            def run(eng, *arrays):
+                first = len(self.seen)
+                out = fn(eng, *arrays)
+                self.steps.append((kind, arrays, first, len(self.seen)))
+                return out
+            return run
+        layers.top_k = top_k
+        Eng._run_paged_prefill = step("prefill", self.engine[0])
+        Eng._run_paged_decode_chunk = step("decode", self.engine[1])
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import layers
+        from repro_torch.serve.engine import GenerationEngine as Eng
+
+        layers.top_k = self.inner
+        Eng._run_paged_prefill, Eng._run_paged_decode_chunk = self.engine
+
+    def _replayed(self, probs, own, k):
+        idx = self.queue.pop(0)
+        if idx.shape != own.shape:
+            raise AssertionError(f"replayed choice {tuple(idx.shape)} for a call of "
+                                 f"{tuple(own.shape)}")
+        # the gap that decides a route: the smallest between neighbours
+        # among the k + 1 largest probabilities (the order of the k, and
+        # the k-th against the first left out)
+        top = probs.sort(dim=-1, descending=True).values[..., :k + 1]
+        gap = (top[..., :-1] - top[..., 1:]).min(dim=-1).values
+        self.gaps.append(gap.flatten())
+        self.flipped.append(gap[(own != idx).any(dim=-1)])
+        return probs.gather(-1, idx), idx
+
+    @contextlib.contextmanager
+    def replay(self, choices):
+        """Replay `choices` (one per call, in call order); on exit the gap
+        of every route and of every flipped one join `replays`."""
+        self.queue, self.gaps, self.flipped = list(choices), [], []
+        try:
+            yield
+        finally:
+            left, self.queue = len(self.queue), None
+        if left:
+            raise AssertionError(f"{left} logged choices were never replayed")
+        self.replays.append((self.torch.cat(self.gaps).cpu(),
+                             self.torch.cat(self.flipped).cpu()))
+
+    def flips(self) -> dict:
+        """Over every replay: the routes, those where the replaying pass
+        would have chosen otherwise and the gap that decided each, the
+        smallest and the median gap of all routes, and how many routes lie
+        within the largest flipped gap."""
+        gaps = self.torch.cat([g for g, _ in self.replays])
+        flipped = self.torch.cat([f for _, f in self.replays])
+        worst = flipped.max().item() if flipped.numel() else 0.0
+        return {"routes": gaps.numel(), "flipped": flipped.numel(),
+                "flip_gaps": sorted(flipped.tolist()), "smallest_gap": gaps.min().item(),
+                "median_gap": gaps.median().item(),
+                "routes_within_largest_flip_gap": int((gaps <= worst).sum())}
+
+    def drops(self, cfg):
+        """Per engine prefill: its rows' tokens (padding included) and its
+        real prompt tokens, its bins' rows (`cap`), and the token-slots it
+        drops over all its layers (a token past `cap` in its expert's bin in
+        a routing slot; the bin fills in token order), of all tokens and of
+        the prompt tokens alone. One dispatch group (G = 1)."""
+        from repro_torch.kernels.ref import CACHE_EMPTY_POS
+
+        torch, rows = self.torch, []
+        for kind, arrays, a, b in self.steps:
+            if kind != "prefill":
+                continue
+            real = torch.as_tensor(arrays[4] != CACHE_EMPTY_POS).flatten()
+            tl, k, n = real.numel(), cfg.experts_per_token, int(real.sum())
+            real = real.to(self.seen[a].device)
+            cap = max(4, math.ceil(tl / cfg.n_experts * cfg.capacity_factor))
+            dropped = ours = 0
+            for idx in self.seen[a:b]:
+                for s in range(k):
+                    eid = idx[0, :, s]
+                    count = torch.nn.functional.one_hot(eid, cfg.n_experts).cumsum(0)
+                    out = count.gather(1, eid[:, None])[:, 0] > cap  # rank >= cap
+                    dropped += int(out.sum())
+                    ours += int((out & real).sum())
+            rows.append({"tokens": tl, "prompt_tokens": n, "cap": cap, "dropped": dropped,
+                         "share": dropped / ((b - a) * tl * k), "prompt_dropped": ours,
+                         "prompt_share": ours / ((b - a) * n * k)})
+        return rows
+
+    def routes_of(self, cfg, prompts, rids, new=MOE_NEW):
+        """Each request's choices at every position the engine ran it
+        through, (len(prompt) + new, layers, k) on the host (-1 where none
+        ran): prefill rows matched to requests by their prompts, decode
+        slots by their request ids; a decode chunk logs C steps of
+        n_layers calls."""
+        import numpy as np
+        from repro_torch.kernels.ref import CACHE_EMPTY_POS
+
+        nl, k = cfg.n_layers, cfg.experts_per_token
+        out = {r: np.full((len(p) + new, nl, k), -1, np.int64)
+               for p, r in zip(prompts, rids)}
+        for kind, arrays, a, b in self.steps:
+            calls = np.stack([c[0].cpu().numpy() for c in self.seen[a:b]])  # (calls, Tl, k)
+            if kind == "prefill":
+                if len(calls) != nl:
+                    raise AssertionError(f"a prefill logged {len(calls)} calls")
+                tokens, wpos = arrays[0], arrays[4]
+                for row in range(tokens.shape[0]):
+                    n = int((wpos[row] != CACHE_EMPTY_POS).sum())
+                    who = [r for p, r in zip(prompts, rids)
+                           if len(p) == n and np.array_equal(tokens[row, :n], p)]
+                    if who:
+                        span = slice(row * tokens.shape[1], row * tokens.shape[1] + n)
+                        out[who[0]][wpos[row, :n]] = calls[:, span].transpose(1, 0, 2)
+                continue
+            positions, slot_rids, max_steps, active = arrays[2], arrays[7], arrays[9], arrays[11]
+            c = positions.shape[0]
+            if len(calls) != c * nl:
+                raise AssertionError(f"a decode chunk of {c} steps logged {len(calls)} calls")
+            for j in range(c):
+                for i in np.flatnonzero(active & (j < max_steps)):
+                    out[int(slot_rids[i])][positions[j, i, 0]] = calls[j * nl:(j + 1) * nl, i]
+        return out
+
+
+def log_flips(cfg, st, what) -> dict:
+    """A route log's replays (`RouteLog.flips`): the routes where the
+    replaying pass would have chosen otherwise, each with its gap."""
+    log(f"{cfg.name} {what}: the replaying pass's own top-{cfg.experts_per_token} differs "
+        f"from the replayed choice at {st['flipped']} of {st['routes']} (token, layer) routes; "
+        f"the probability gaps that decided them: "
+        + ", ".join(f"{x:.2e}" for x in st["flip_gaps"][:32])
+        + (" ..." if st["flipped"] > 32 else "")
+        + f"; over all routes the smallest gap {st['smallest_gap']:.2e}, the median "
+        f"{st['median_gap']:.3e}; {st['routes_within_largest_flip_gap']} routes lie within "
+        f"the largest flipped gap")
+    return st
+
+
+def routed_serve(torch, model, params, prompts, report):
+    """The token rule with the served routers: `model` (a drop-free copy,
+    so a request's routes do not depend on its batch) serves `prompts`
+    greedily, its decode chunks uncaptured so that every route is logged
+    (the served serve holds its replays bitwise to the uncaptured chunks);
+    then each request's teacher-forced forward replays the routes its serve
+    chose, with gates from the teacher pass's own probabilities. A near tie
+    that the teacher pass's summation order breaks the other way would
+    otherwise send a token through other experts, which no tolerance on
+    logits covers; those routes are logged with their gaps."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    cfg = model.cfg
+    with RouteLog(torch) as routes:
+        eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                               max_len=2048, decode_chunk=8)
+        eng._chunk_graphs = None  # every decode chunk runs uncaptured
+        for fn in counters().values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p, max_new_tokens=MOE_NEW) for p in prompts]
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters().items()}
+        outs = [done[r] for r in rids]
+        if any(len(o) != MOE_NEW for o in outs):
+            raise AssertionError(f"a request did not emit its {MOE_NEW} tokens")
+        steps_run = launches["deca_paged_attention"] / cfg.n_layers
+        if launches["deca_gemv"] != gemvs_per_step(cfg) * steps_run:
+            raise AssertionError(f"the uncaptured decode steps did not launch one GeMV per FC "
+                                 f"matmul ({launches})")
+        chosen = routes.routes_of(cfg, prompts, rids)
+        del eng
+        torch.cuda.empty_cache()
+        log(f"{cfg.name} drop-free copy (capacity {cfg.capacity_factor:g}) with the served "
+            f"routers: {len(rids)} requests x {MOE_NEW} new in {wall:.2f} s, decode chunks "
+            f"uncaptured; launches {launches}")
+
+        def pin(i):
+            n = len(prompts[i]) + len(outs[i]) - 1
+            seq = chosen[rids[i]][:n]
+            if (seq < 0).any():
+                raise AssertionError(f"request {i}: a position with no logged route")
+            return routes.replay([torch.as_tensor(seq[:, layer][None], device="cuda")
+                                  for layer in range(cfg.n_layers)])
+        share = teacher_forced(torch, model, params, prompts, outs, report,
+                               key="teacher_forced_routed", pin=pin)
+    return {"wall_s": wall, "launches": launches, "argmax_share": share,
+            "outs": [list(map(int, o)) for o in outs],
+            "flips": log_flips(cfg, routes.flips(), "teacher passes on the served routes")}
+
+
+def zero_router(params):
+    """The same weights with every router zeroed: each probability ties,
+    and top-k takes experts 0 .. k-1 for every token whatever its
+    activations. The expert planes are shared, not copied."""
+    import torch
+
+    return dict(params, layers=[
+        dict(layer, moe=dict(layer["moe"], router=torch.zeros_like(layer["moe"]["router"])))
+        for layer in params["layers"]])
+
+
+def check_kimi_shapes(torch, timer, cases):
+    """kimi-k2-1t-a32b's expert GeMVs (d_model 7168, d_ff 2048: 7168 x 2048
+    gate/up, 2048 x 7168 down) at M = 1, 4, 16 on SERVED_SPEC weights, and
+    its decode attention (64 q / 8 kv heads, Dh 112: the kernel's d < Dh
+    guards) over every KV pool kind, each against its plain version; the
+    served codec and pool timed."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.core.compression import compress
+    from repro_torch.core.formats import get_spec
+    from repro_torch.kernels import deca_gemm, paged_attention, ref
+
+    cfg = get_config(KIMI)
+    g = torch.Generator(device="cuda").manual_seed(23)
+    mine = []
+    for k, n, role in ((cfg.d_model, cfg.d_ff, "expert gate/up"),
+                       (cfg.d_ff, cfg.d_model, "expert down")):
+        ct = compress(torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k),
+                      get_spec(SERVED_SPEC))
+        for m in (1, 4, 16):
+            x = torch.randn(m, k, generator=g, device="cuda").bfloat16().float()
+            got, want = deca_gemm.decompress_gemv(x, ct), ref.decompress_gemv(x, ct)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            case = {"model": cfg.name, "kernel": "gemv", "role": role, "K": k, "N": n, "M": m,
+                    "spec": ct.spec.name, "max_abs_err": err, "rel_err": rel}
+            time_matmul(torch, timer, case, deca_gemm.decompress_gemv, ref.decompress_gemv,
+                        x, ct)
+            mine.append(case)
+    role = f"G={cfg.n_heads // cfg.n_kv_heads} Hkv={cfg.n_kv_heads} Dh={cfg.d_head}"
+    for kind in KV_KINDS:
+        q, pools, tables, kv_lens, q_pos = _attention_inputs(
+            torch, kind, g, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+        args = (q, pools, tables, kv_lens, q_pos)
+        for window, cap in ((0, 0.0), (100, 50.0)):
+            got = paged_attention.paged_attention(*args, quant=kind, window=window, softcap=cap)
+            want = ref.paged_decode_attention(*args, quant=kind, window=window, softcap=cap)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            case = {"model": cfg.name, "kernel": "attention", "kind": kind, "role": role,
+                    "variant": f"window {window} softcap {cap:g}", "max_abs_err": err,
+                    "rel_err": rel}
+            if kind == SERVED_KV and window == 0:
+                time_attention(torch, timer, case, args)
+            mine.append(case)
+        del pools, args
+        torch.cuda.empty_cache()
+    worst = max(c["rel_err"] for c in mine)
+    log(f"{cfg.name} shapes: {len(mine)} cases, max rel err {worst:.2e} (tolerance "
+        f"{KERNEL_TOL}): " + ", ".join(
+            f"{c['kernel']} {c['role']} {c.get('kind', '')}"
+            f"{' ' + c['variant'] if 'variant' in c else ' M=%d' % c['M']} {c['rel_err']:.2e}"
+            for c in mine))
+    cases += mine
+    bad = [c for c in mine if c["rel_err"] > KERNEL_TOL]
+    if bad:
+        raise AssertionError(f"{cfg.name}: kernels disagree with their plain versions: {bad}")
+
+
+def moe(torch, report):
+    """grok-1-314b at full width and MOE_LAYERS layers, compressed to
+    SERVED_SPEC on the card one expert at a time: its build and peak, its
+    kernels at its shapes (the experts through `pick` views) and kimi-k2's,
+    a 4-request greedy serve of MOE_NEW tokens at its capacity 1.25 (each
+    decode chunk replayed bitwise, 833 GeMVs a step, the replayed step
+    beside its bytes bound with every expert read once per routing slot,
+    the token-slots each prefill drops, of all and of the prompt tokens);
+    the kernel path against the plain path over PATH_LAYERS layers at the
+    served capacity and on a drop-free copy (capacity = n_experts), the
+    plain path on the kernel path's routes; the drop-free copy with the
+    served routers held to the token rule, each teacher pass on the routes
+    its serve chose (`routed_serve`); and a self-speculative engine on
+    MOE_SPEC_LAYERS layers of the drop-free copy (the draft tree through
+    the decompression kernel, expert by expert), on zero routers, whose
+    ties send every token to experts 0 and 1: the spec launch is captured,
+    so its routes cannot be replayed into the teacher pass. Returns its
+    kernel cases."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import GenerationEngine
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    cases = []
+    model, params, rec = build_compressed(torch, MOE, n_layers=MOE_LAYERS)
+    cfg = model.cfg
+    check_model_kernels(torch, timer, model, params, cases, expert_ms=MOE_EXPERT_MS)
+    check_kimi_shapes(torch, timer, cases)
+    del timer
+    no_dense_lm_head(torch, cfg, params, rec)
+    g = torch.Generator().manual_seed(4)
+    lens = torch.randint(64, 1025, (4,), generator=g).tolist()
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy() for n in lens]
+    with RouteLog(torch) as routes:
+        rec["serves"] = serve_paper_model(torch, model, params, rec, (4,), new=MOE_NEW,
+                                          teacher=False, check_all=True, prompts=prompts)
+    prefill = routes.drops(cfg)
+    rec["prefill_drops"] = prefill
+    log(f"{MOE} capacity {cfg.capacity_factor:g}: token-slots each prefill call drops "
+        f"(over its {cfg.n_layers} layers and {cfg.experts_per_token} slots): " + ", ".join(
+            f"{r['tokens']} tokens (padding included), bins of {r['cap']}: {r['dropped']} = "
+            f"{r['share']:.4f}; of its {r['prompt_tokens']} prompt tokens "
+            f"{r['prompt_dropped']} = {r['prompt_share']:.4f}" for r in prefill)
+        + "; decode bins of 4 never drop")
+    free_cfg = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
+    head = dict(params, layers=params["layers"][:PATH_LAYERS])
+    for what, c in (("served", cfg), ("drop_free", free_cfg)):
+        with RouteLog(torch) as routes:
+            compare_paths(torch, Model(dataclasses.replace(c, n_layers=PATH_LAYERS)), head,
+                          rec, key=f"path_comparison_{what}", steps=MOE_PATH_STEPS,
+                          routes=routes)
+        rec[f"path_route_flips_{what}"] = log_flips(
+            cfg, routes.flips(), f"capacity {c.capacity_factor:g}, plain path on the kernel "
+            f"path's routes")
+    del head
+    free = Model(free_cfg)
+    rec["drop_free"] = routed_serve(torch, free, params, prompts, rec)
+    spec_model = Model(dataclasses.replace(free_cfg, n_layers=MOE_SPEC_LAYERS))
+    spec_params = zero_router(dict(params, layers=params["layers"][:MOE_SPEC_LAYERS]))
+    plain = GenerationEngine(spec_model, spec_params, kv_quant=SERVED_KV, max_slots=4,
+                             block_size=32, max_len=2048, decode_chunk=8)
+    rids = [plain.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+    done = plain.run_until_drained()
+    del plain
+    gc.collect()  # its graphs hold the engine in a cycle
+    spec_rec = {}
+    eng, rec["spec_launches"], _ = serve_spec(torch, spec_model, spec_params, prompts,
+                                              [done[r] for r in rids], spec_rec)
+    rec["spec"] = spec_rec
+    del eng, model, params, free, spec_model, spec_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cases"], rec["seconds"] = cases, time.perf_counter() - t0
+    log(f"{MOE}: {rec['seconds']:.1f} s; freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    report["moe"] = rec
     return cases
 
 
@@ -2542,6 +2981,40 @@ def paper_models(torch, report):
     log(f"paper_models: {res['seconds']:.1f} s")
     report["paper_models"] = res
     return cases
+
+
+def phase_alone(phase, record: str) -> int:
+    """One phase of this script alone on one card (`tools/paper_models.py`,
+    `tools/moe_serve.py`): the card's name and power limit, the kernels'
+    build (a no-op when they are built), then `phase(torch, report)`, whose
+    record goes to chiprun_out/<record>.json. Non-zero without a card."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print(f"{record}: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    global HBM_BYTES_PER_S, BF16_FLOP_PER_S
+    from repro_torch.core import roofsurface as rs
+    from repro_torch.kernels import cuda
+
+    HBM_BYTES_PER_S, BF16_FLOP_PER_S = rs.H100_SXM.mbw, rs.H100_SXM.peak_flops
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    OUT.mkdir(exist_ok=True)
+    log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    cuda.build()
+    log(f"built the kernels in {time.perf_counter() - t0:.1f} s")
+    report = {}
+    try:
+        phase(torch, report)
+    finally:
+        (OUT / f"{record}.json").write_text(json.dumps(report, indent=1, default=str))
+    return 0
 
 
 def main() -> int:
@@ -2749,6 +3222,9 @@ def main() -> int:
     # 14. gemma2-2b: local and global layers, Dh 256, geglu, softcaps
     gemma_cases = gemma2(torch, report)
 
+    # 15. grok-1-314b: top-2 of 8 experts, 16 of its 64 layers at full width
+    moe_cases = moe(torch, report)
+
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
 
@@ -2785,7 +3261,7 @@ def main() -> int:
         ("deca_decompress", csrc + "deca_decompress.cu",
          "src/repro/kernels/deca_decompress.py:103", dc),
     ]
-    held = mm_cases + att_cases + new_cases + paper_cases + gemma_cases
+    held = mm_cases + att_cases + new_cases + paper_cases + gemma_cases + moe_cases
     worst_abs = {  # over every case each kernel was held on
         "deca_gemv": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemv"),
         "deca_gemm": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemm"),

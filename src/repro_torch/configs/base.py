@@ -122,6 +122,8 @@ class ModelConfig:
 
 
 _MODULES = {
+    "grok-1-314b": "grok_1_314b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "gemma2-2b": "gemma2_2b",
     "granite-3-8b": "granite_3_8b",
     "llama2-70b": "llama2_70b",

@@ -4,7 +4,9 @@
 its `compress_tree` tree, as host arrays (`jax.device_get`), and returns the
 port's params: the layer-stacked `blocks` of the scanned stack are unstacked
 into one dict per layer, including the lead-L planes of stacked compressed
-weights. The reference's compressed leaves are read by their attributes
+weights; an MoE layer's `moe` subtree keeps its (E, ...) share: the f32
+(d, E) router, and each expert weight as (E, K, N) dense or as one
+expert-stacked compressed leaf with (E, ng, ...) planes. The reference's compressed leaves are read by their attributes
 (`codes`, `mask`, `scales`, `spec`, `shape`), so this module imports nothing
 of the reference. It lets both packages compute from the same numbers.
 """

@@ -12,7 +12,7 @@ one host core. The planes are bitwise those of the reference's numpy
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -30,6 +30,11 @@ class CompressedTensor:
                                           uint32 bits (bit i = row g*G+i)
     scales: (ng, N) uint8 | int16 or None E8M0 (mxfp4) / bf16 bits (int8,
                                           int4, nf4) held in int16
+
+    An expert-stacked leaf (an MoE weight, the reference's (E, K, N) leaf)
+    carries one lead dim on every plane, (E, ng, ...), and keeps `shape`
+    the (K, N) of one slice, as the reference's stacked leaves do; `pick(i)`
+    is expert i as a 2-D triplet.
     """
 
     codes: torch.Tensor
@@ -49,6 +54,54 @@ class CompressedTensor:
             for t in (self.codes, self.mask, self.scales)
             if t is not None
         )
+
+    @property
+    def lead(self) -> Tuple[int, ...]:
+        """Lead (expert) dims: what `codes` carries beyond (ng, ck, N)."""
+        return tuple(self.codes.shape[:-3])
+
+    def pick(self, i: int) -> "CompressedTensor":
+        """Expert i of an expert-stacked leaf: a 2-D triplet whose planes
+        are views into the stacked planes (the reference's `pick`,
+        `jax.tree.map(lambda a: a[i], ct)`). A view starts i slices into
+        its plane, and the kernels read planes in 16-byte pieces: on the
+        card each view must be 16-byte aligned, which `compress_stacked`
+        ensures by the stride of every plane and this checks."""
+        if len(self.lead) != 1:
+            raise ValueError(f"pick takes a leaf with one lead dim, got {self.lead}")
+        planes = [None if t is None else t[i] for t in (self.codes, self.mask, self.scales)]
+        if self.codes.device.type == "cuda" and any(
+                t is not None and t.data_ptr() % 16 for t in planes):
+            raise ValueError(f"expert {i}'s planes are not 16-byte aligned")
+        return CompressedTensor(*planes, spec=self.spec, shape=self.shape)
+
+
+def compress_stacked(slices: Callable[[int], torch.Tensor], n: int,
+                     spec: CompressionSpec) -> CompressedTensor:
+    """An expert-stacked leaf from `n` 2-D slices, `slices(i)` made one at
+    a time: each is compressed as `compress` does (the reference's
+    `_compress_leaf` of a stacked array, slice by slice) and copied into
+    planes allocated once, so no more than one dense slice and the stacked
+    planes are alive together. Each plane's per-expert stride must be a
+    multiple of 16 bytes, so every `pick` view stays aligned for the
+    kernels."""
+    planes = None
+    for i in range(n):
+        ct = compress(slices(i), spec)
+        parts = (ct.codes, ct.mask, ct.scales)
+        if planes is None:
+            for t in parts:
+                if t is not None and (t.numel() * t.element_size()) % 16:
+                    raise ValueError(f"a plane slice of {tuple(t.shape)} is no multiple of "
+                                     "16 bytes: its expert views would be misaligned")
+            planes = [None if t is None else t.new_empty((n,) + tuple(t.shape))
+                      for t in parts]
+        for dst, t in zip(planes, parts):
+            if t is not None:
+                dst[i] = t
+        shape = ct.shape
+        del ct, parts
+    return CompressedTensor(*planes, spec=spec, shape=shape)
 
 
 def _sparsify_groups(

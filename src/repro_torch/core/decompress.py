@@ -4,17 +4,21 @@
 and lists of tensors) and replaces every eligible FC weight with a
 `CompressedTensor`, on the device the weight lies on; `make_draft_tree`
 re-encodes a served tree at a cheaper codec for self-speculative decode.
+An MoE weight, (E, K, N), becomes one expert-stacked leaf compressed
+slice by slice, as the reference stores it; the model's layers `pick`
+an expert's 2-D triplet from it.
 `mm(x, w)` is the matmul every model layer uses: `x @ w` for a plain
 tensor; for a CompressedTensor the DECA decompress-GeMM (`kernels/ops.py`),
 so the dense weight never exists in device memory.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Optional
 
 import torch
 
-from repro_torch.core.compression import CompressedTensor, compress
+from repro_torch.core.compression import CompressedTensor, compress, compress_stacked
 from repro_torch.core.formats import CompressionSpec
 from repro_torch.kernels import ops
 
@@ -34,15 +38,27 @@ def mm(x: torch.Tensor, w: Any) -> torch.Tensor:
 _SKIP = ("embed", "pos_embed", "router", "conv_w", "a_log", "a_param", "norm")
 
 
-def _eligible(name: str, t: torch.Tensor, spec: CompressionSpec, stack: int) -> bool:
-    """The reference's rule. Its 4096-element floor counts the array it
-    compresses, which for a uniform model is the (n_layers, K, N) stack of
+def eligible(name: str, shape, spec: CompressionSpec, stack: int) -> bool:
+    """The reference's rule, on a leaf's name and shape: a weight of rank
+    2 or more (an (E, K, N) expert stack included) whose K, `shape[-2]`,
+    the group divides. Its 4096-element floor counts the array it
+    compresses, which for a uniform model is the (n_layers, ...) stack of
     a layer weight: `stack` is that layer count (1 elsewhere)."""
     if any(s in name for s in _SKIP):
         return False
-    if t.dim() != 2 or stack * t.numel() < 4096:
+    if len(shape) < 2 or stack * math.prod(shape) < 4096:
         return False
-    return t.shape[0] % spec.group == 0
+    return shape[-2] % spec.group == 0
+
+
+def _compress_leaf(t: torch.Tensor, spec: CompressionSpec) -> CompressedTensor:
+    """A 2-D weight, or an (E, K, N) expert stack compressed slice by slice
+    into one stacked leaf (the reference's `_compress_leaf`)."""
+    if t.dim() == 2:
+        return compress(t, spec)
+    if t.dim() != 3:
+        raise ValueError(f"the port stacks one lead dim, got {tuple(t.shape)}")
+    return compress_stacked(lambda i: t[i], t.shape[0], spec)
 
 
 def _map_leaves(tree: Any, fn, layer_stack: Optional[int], path: str = "",
@@ -75,8 +91,8 @@ def compress_tree(params: Any, spec: CompressionSpec, *,
     length of the tree's `layers` list, the reference's uniform stack."""
 
     def one(path, leaf, stack):
-        if isinstance(leaf, torch.Tensor) and _eligible(path, leaf, spec, stack):
-            return compress(leaf, spec)
+        if isinstance(leaf, torch.Tensor) and eligible(path, leaf.shape, spec, stack):
+            return _compress_leaf(leaf, spec)
         return leaf
 
     return _map_leaves(params, one, layer_stack)
@@ -100,9 +116,13 @@ def make_draft_tree(params: Any, draft_spec: CompressionSpec, *,
         if isinstance(leaf, CompressedTensor):
             if leaf.shape[0] % draft_spec.group:
                 return leaf
+            if leaf.lead:  # an expert stack: one slice through the kernel at a time
+                return compress_stacked(
+                    lambda i: ops.decompress(leaf.pick(i), out_dtype=torch.float32),
+                    leaf.lead[0], draft_spec)
             return compress(ops.decompress(leaf, out_dtype=torch.float32), draft_spec)
-        if isinstance(leaf, torch.Tensor) and _eligible(path, leaf, draft_spec, stack):
-            return compress(leaf, draft_spec)
+        if isinstance(leaf, torch.Tensor) and eligible(path, leaf.shape, draft_spec, stack):
+            return _compress_leaf(leaf, draft_spec)
         return leaf
 
     return _map_leaves(params, one, layer_stack)

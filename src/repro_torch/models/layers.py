@@ -4,10 +4,11 @@ Counterpart of the subset of `repro/models/layers.py` that compressed-
 weight paged serving of a dense GQA decoder runs: RMS norm, rotary
 embeddings with per-request positions (off under learned positions),
 grouped-query attention with f32 probabilities in the PV product, the
-block-paged quantized KV pool, the swiglu, geglu and relu MLPs, and the
-tied head's logits. Functions take and return tensors; the paged pool is a dict of
-tensors per layer and is updated in place (the reference returns a new pool
-per write; in place saves a copy of every layer's pool per step).
+block-paged quantized KV pool, the swiglu, geglu and relu MLPs, the
+top-k MoE FFN with capacity dispatch, and the tied head's logits.
+Functions take and return tensors; the paged pool is a dict of tensors
+per layer and is updated in place (the reference returns a new pool per
+write; in place saves a copy of every layer's pool per step).
 """
 from __future__ import annotations
 
@@ -19,7 +20,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.codecs import get_codec
-from repro_torch.core.decompress import mm
+from repro_torch.core.compression import CompressedTensor, compress_stacked
+from repro_torch.core.decompress import eligible, mm
+from repro_torch.core.formats import CompressionSpec
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import CACHE_EMPTY_POS
 
@@ -354,16 +357,145 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+# the reference's `_act`: silu for swiglu, gelu (tanh) for geglu, relu
+_ACTS = {"swiglu": silu, "geglu": gelu_tanh, "relu": torch.relu}
+
+
 def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """swiglu FFN: silu(x Wg) * (x Wu), then W_down; geglu: gelu_tanh(x Wg)
     * (x Wu), then W_down; relu FFN: relu(x Wu), then W_down. Each op
     rounds in the product's dtype, as the reference's."""
     if cfg.mlp_act in _GATED:
-        act = silu if cfg.mlp_act == "swiglu" else gelu_tanh
-        h = act(mm(x, params["w_gate"])) * mm(x, params["w_up"])
+        h = _ACTS[cfg.mlp_act](mm(x, params["w_gate"])) * mm(x, params["w_up"])
     else:
         h = torch.relu(mm(x, params["w_up"]))
     return mm(h, params["w_down"])
+
+
+def init_moe(generator, cfg: ModelConfig, device, dtype, *,
+             spec: Optional[CompressionSpec] = None, stack: int = 1) -> Params:
+    """The reference's `init_moe` leaves: an f32 (d, E) router and (E, K,
+    N) expert weights, each expert drawn as `dense_init` draws a (K, N)
+    weight, in the reference's leaf order (router, w_up, w_down, w_gate).
+    With `spec`, an eligible expert weight (`decompress.eligible`, `stack`
+    the layers the reference stacks) is compressed one expert at a time as
+    it is drawn, into one expert-stacked leaf: at grok-1 width a dense
+    (E, K, N) weight is 3.2 GB of bf16, and it never exists whole."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def experts(name, k, n):
+        draw = lambda _: dense_init(generator, (k, n), device, dtype)
+        if spec is not None and eligible(f"moe/{name}", (e, k, n), spec, stack):
+            return compress_stacked(draw, e, spec)
+        return torch.stack([draw(i) for i in range(e)])
+
+    p = {"router": dense_init(generator, (d, e), device, torch.float32),
+         "w_up": experts("w_up", d, f), "w_down": experts("w_down", f, d)}
+    if cfg.mlp_act in _GATED:
+        p["w_gate"] = experts("w_gate", d, f)
+    return p
+
+
+def _dispatch_groups(t: int) -> int:
+    """Group-local dispatch shards. The reference takes the active mesh's
+    batch sharding (pod x data), so routing sorts stay shard-local, and 1
+    outside a mesh. The port has no mesh until ROADMAP Queue A item 12:
+    one group, the reference's answer outside a mesh."""
+    return 1
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` along the last axis: the k largest, in descending
+    order, the lower index first among equal values. `torch.topk` promises
+    no order among ties; a stable descending sort keeps the input order of
+    equal values, and its first k are the reference's."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _expert(w, i: int):
+    """Expert i's (K, N) weight: a 2-D triplet of a stacked compressed
+    leaf (its planes are views) or a slice of a dense (E, K, N) one."""
+    return w.pick(i) if isinstance(w, CompressedTensor) else w[i]
+
+
+def _expert_ffn(params: Params, x: torch.Tensor, i: int, cfg: ModelConfig) -> torch.Tensor:
+    """Expert i's FFN on its capacity bin x (G, cap, D), every matmul
+    through `mm` (the DECA GeMV at G cap <= 32 rows, else the GeMM)."""
+    act = _ACTS[cfg.mlp_act]
+    up = mm(x, _expert(params["w_up"], i))
+    if "w_gate" in params:
+        h = act(mm(x, _expert(params["w_gate"], i))) * up
+    else:
+        h = act(up)
+    return mm(h, _expert(params["w_down"], i))
+
+
+def moe_block(params: Params, x: torch.Tensor,
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k token-choice MoE with capacity dispatch: the reference's
+    `moe_block`, op for op, returning (out (B, S, D), aux).
+
+    f32 router logits, softmax, top-k (ties to the lower expert) and the
+    gates renormalised; the Switch-style load-balancing aux over all
+    tokens. Per routing slot, in slot order: a stable sort of the tokens
+    by expert, each token's rank in its expert's bin by `searchsorted`
+    (side left), a bin of `cap` rows per expert and one pad row (E cap)
+    that takes every token past its bin's capacity and is thrown away;
+    each expert's FFN on its whole bin, empty rows and empty bins included,
+    so every shape is fixed by (B, S) and nothing waits on the host (a
+    decode chunk captures whole); then each token's output times its gate
+    (zero when dropped), cast to x's dtype, and added to the running
+    output in x's dtype. `cap = max(4, ceil(tokens / E * capacity_factor))`
+    is host arithmetic on the static shape. The only scatter with repeated
+    indices writes the pad row, whose value is never read, so the output
+    does not depend on which write wins."""
+    b, s, d = x.shape
+    e, k = cfg.n_experts, cfg.experts_per_token
+    t = b * s
+    g = _dispatch_groups(t)
+    tl = t // g  # tokens per dispatch group
+    dev = x.device
+    xf = x.reshape(g, tl, d)
+
+    logits = torch.matmul(xf.to(torch.float32), params["router"].to(torch.float32))
+    probs = torch.softmax(logits, dim=-1)  # (G, Tl, E)
+    gate_vals, expert_idx = top_k(probs, k)  # (G, Tl, k)
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(-1, keepdim=True), min=1e-9)
+
+    me = probs.mean(dim=(0, 1))  # (E,)
+    ones = torch.ones(expert_idx.numel(), dtype=torch.float32, device=dev)
+    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, expert_idx.reshape(-1), ones) / (t * k)
+    aux = e * torch.sum(me * ce)
+
+    # capacity floor of 4 keeps tiny decode batches drop-free
+    cap = max(4, int(math.ceil(tl / e * cfg.capacity_factor)))
+    gi = torch.arange(g, device=dev)[:, None]
+    rank = torch.arange(tl, device=dev)[None, :]
+    pad = torch.zeros((g, 1, d), dtype=x.dtype, device=dev)
+    out = torch.zeros((g, tl, d), dtype=x.dtype, device=dev)
+    for slot in range(k):
+        eid = expert_idx[:, :, slot]  # (G, Tl)
+        gates = gate_vals[:, :, slot]
+        order = torch.sort(eid, dim=1, stable=True).indices
+        sorted_eid = torch.gather(eid, 1, order)
+        seg_start = torch.searchsorted(sorted_eid, sorted_eid, side="left")
+        pos = rank - seg_start  # rank within the expert's bin
+        keep = pos < cap
+        dest = torch.where(keep, sorted_eid * cap + pos, e * cap)  # drop -> pad row
+        xg = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=dev)
+        xg[gi, dest] = xf[gi, order]
+        xe = xg[:, :-1].reshape(g, e, cap, d).transpose(0, 1)  # (E, G, cap, D)
+        ye = torch.stack([_expert_ffn(params, xe[i], i, cfg) for i in range(e)])
+        yflat = torch.cat([ye.transpose(0, 1).reshape(g, e * cap, d), pad], dim=1)
+        y_tok = yflat[gi, dest]  # (G, Tl, D)
+        gathered = torch.gather(gates, 1, order)
+        weighted = (y_tok * (gathered * keep)[:, :, None]).to(x.dtype)
+        contrib = torch.zeros((g, tl, d), dtype=x.dtype, device=dev)
+        contrib[gi, order] = weighted
+        out = out + contrib
+    return out.reshape(b, s, d), aux
 
 
 def embed_scale(x: torch.Tensor, d_model: int) -> torch.Tensor:

@@ -5,7 +5,9 @@ dense attention stack: llama3-8b, llama2-70b, llama3.2-1b and granite-3-8b
 (rope, swiglu; the last two with a tied head), opt-66b (learned
 positions, a relu MLP, full MHA) and gemma2-2b (geglu, local and global
 layers in turn, attention and final logit softcaps, post-attention and
-post-MLP norms, an embedding scaled by sqrt(d_model), a tied head).
+post-MLP norms, an embedding scaled by sqrt(d_model), a tied head), and
+the MoE family: grok-1-314b (geglu experts, softcaps) and kimi-k2-1t-a32b
+(swiglu experts), a top-k MoE FFN in every layer (`layers.moe_block`).
 Layers are kept per layer in a list
 rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
 and `spec_decode_chunk` its draft/verify rounds as Python loops with the
@@ -19,7 +21,9 @@ Params are a dict of tensors: {"embed", "final_norm", "lm_head" (absent
 when the head is tied to `embed`), "pos_embed" (learned positions only),
 "layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "post_attn_norm"
 (post norms only), "pre_mlp_norm", "mlp": {w_gate (swiglu and geglu),
-w_up, w_down}, "post_mlp_norm" (post norms only)}, ...]}.
+w_up, w_down} or, with experts, "moe": {router (D, E) f32, w_up, w_down,
+w_gate: (E, K, N) each, or one expert-stacked compressed leaf},
+"post_mlp_norm" (post norms only)}, ...]}.
 """
 from __future__ import annotations
 
@@ -39,10 +43,17 @@ Pools = List[Dict[str, torch.Tensor]]
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
     """Config features outside the port so far, each with the step of
-    ROADMAP Queue A item 10 (remaining model families) that ports it."""
+    ROADMAP Queue A item 10 (remaining model families) that ports it. The
+    MoE family (grok-1-314b, kimi-k2-1t-a32b: an MoE FFN in every layer of
+    an attention stack) is ported; experts in a dense family, or an MoE
+    family without them, are not."""
+    experts = cfg.n_experts > 0
     checks = {
-        "family": (cfg.family != "dense", "10.5-10.7"),
-        "n_experts": (cfg.n_experts > 0, "10.5"),
+        "family": (cfg.family not in ("dense", "moe"), "10.6-10.7"),
+        # experts only in an MoE family, an MoE family only with them, and
+        # 1 <= experts_per_token <= n_experts
+        "n_experts": ((cfg.family == "moe") != experts or (experts and not (
+            0 < cfg.experts_per_token <= cfg.n_experts)), "10.5"),
         "attn_pattern": (cfg.attn_pattern not in ("global", "local_global"), "10.6"),
         "mrope_sections": (bool(cfg.mrope_sections), "10.7"),
         "mlp_act": (cfg.mlp_act not in ("swiglu", "geglu", "relu"), "10.7"),
@@ -68,14 +79,21 @@ class Model:
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def init_block(self, generator: torch.Generator, *, device, dtype) -> Params:
+    def init_block(self, generator: torch.Generator, *, device, dtype,
+                   spec: Optional[CompressionSpec] = None) -> Params:
+        """One layer's leaves. With `spec`, MoE expert weights come back
+        compressed, one expert at a time (`L.init_moe`); the rest dense."""
         cfg = self.cfg
         norm = lambda: torch.zeros(cfg.d_model, device=device)
         p = {"pre_norm": norm(), "attn": L.init_attention(generator, cfg, device, dtype)}
         if cfg.post_norms:
             p["post_attn_norm"] = norm()
         p["pre_mlp_norm"] = norm()
-        p["mlp"] = L.init_mlp(generator, cfg, device, dtype)
+        if cfg.n_experts:
+            p["moe"] = L.init_moe(generator, cfg, device, dtype, spec=spec,
+                                  stack=self.layer_stack)
+        else:
+            p["mlp"] = L.init_mlp(generator, cfg, device, dtype)
         if cfg.post_norms:
             p["post_mlp_norm"] = norm()
         return p
@@ -118,7 +136,7 @@ class Model:
                 lm_head = compress_tree(lm_head, spec)
             params["lm_head"] = lm_head["lm_head"]
         params["layers"] = [
-            shrink(self.init_block(generator, device=device, dtype=dtype))
+            shrink(self.init_block(generator, device=device, dtype=dtype, spec=spec))
             for _ in range(cfg.n_layers)
         ]
         return params
@@ -173,7 +191,10 @@ class Model:
             out = L.rms_norm(p["post_attn_norm"], out, cfg.norm_eps)
         x = x + out
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
-        out = L.mlp_block(p["mlp"], h, cfg)
+        if cfg.n_experts:
+            out, _ = L.moe_block(p["moe"], h, cfg)  # aux: a training loss term
+        else:
+            out = L.mlp_block(p["mlp"], h, cfg)
         if cfg.post_norms:
             out = L.rms_norm(p["post_mlp_norm"], out, cfg.norm_eps)
         return x + out, cache

@@ -347,7 +347,8 @@ class GenerationEngine:
         """Bind RoofLens to this engine's traffic shape: the stored bytes of
         every leaf (compressed leaves count their packed planes), the dense
         elements behind the compressed leaves (the decompression vector-op
-        term), the weight and KV codecs, the decode batch rows, and the
+        term; an expert-stacked leaf counts its `shape`, one expert's, as
+        the reference's bind does), the weight and KV codecs, the decode batch rows, and the
         draft tree's stored bytes, depth and window on a spec engine."""
         compressed = [l for l in _leaves(self.params) if isinstance(l, CompressedTensor)]
         spec = self.spec

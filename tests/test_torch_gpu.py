@@ -1088,3 +1088,108 @@ def test_snapshot_round_trip_on_the_card(card, tmp_path):
         assert _teacher_forced_gap(model, params, p, got[r], card) <= 5e-2
     again = eng.run_until_drained()
     assert len(again[rids[1]]) == 12
+
+
+# ---------------------------------------------------------------------------
+# the MoE family: expert views of stacked leaves, kimi-k2's heads, graphs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("density", [1.0, 0.5])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_kernels_on_expert_views_of_a_stacked_leaf_match_plain(card, quant, density):
+    """Each expert of an expert-stacked leaf, through its `pick` view (its
+    planes start i slices into the stack): the GeMV (M = 4) and the GeMM (M
+    = 160) against their plain versions, and the decompression kernel
+    bitwise, the view's planes being those of the expert compressed alone."""
+    from repro_torch.core.compression import compress_stacked
+
+    spec = CompressionSpec(quant, density)
+    g = torch.Generator(device=card).manual_seed(31)
+    w = torch.randn(5, 512, 384, generator=g, device=card) * 0.05
+    stacked = compress_stacked(lambda i: w[i], 5, spec)
+    xs = {m: torch.randn(m, 512, generator=g, device=card) for m in (4, 160)}
+    for i in range(5):
+        ct = stacked.pick(i)
+        alone = compress(w[i], spec)
+        for plane in ("codes", "mask", "scales"):
+            a, b = getattr(ct, plane), getattr(alone, plane)
+            assert (a is None) == (b is None) and (a is None or torch.equal(a, b))
+            assert a is None or a.data_ptr() % 16 == 0
+        for m, x in xs.items():
+            got = ops.decompress_gemm(x, ct, out_dtype=torch.float32)
+            plain = ref.decompress_gemv if m <= ops.GEMV_MAX_M else ref.decompress_gemm
+            want = plain(x, ct, out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert _close(got, want), (i, m)
+        for dt in (torch.float32, torch.bfloat16):
+            got = deca_decompress.decompress(ct, out_dtype=dt)
+            assert torch.equal(_bits(got), _bits(ref.decompress(ct, dt))), (i, dt)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", KV_KINDS)
+def test_paged_attention_at_kimi_k2_head_dim_112_matches_plain(card, kind):
+    """kimi-k2's decode attention (Dh 112: the last lanes of each head row
+    idle under the kernel's d < Dh guards; G 8), every (slot, head) row,
+    with and without a window and a softcap."""
+    args = _pools(kind, card, seed=13, b=4, hq=16, hkv=2, dh=112, bs=16, mb=24,
+                  lens=(380, 257, 100, 3))
+    for window, softcap in ((0, 0.0), (100, 0.0), (0, 30.0)):
+        got = paged_attention.paged_attention(*args, quant=kind, window=window,
+                                              softcap=softcap)
+        want = ref.paged_decode_attention(*args, quant=kind, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        assert got.shape == (4, 16, 112)
+        err = (got.float() - want.float()).abs().amax(dim=-1)
+        bad = (err > TOL * float(want.float().abs().max())).nonzero().tolist()
+        assert not bad, (window, softcap, bad)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["grok-1-314b", "kimi-k2-1t-a32b"])
+def test_moe_decode_graphs_replay_bitwise(card, arch):
+    """An MoE smoke config served on the card: every captured decode chunk
+    replays bitwise (the router's sorts, the capacity scatters and every
+    expert's FFN inside the graph), with E x k x 3 expert GeMVs and 4
+    attention GeMVs a layer, plus the head's, each step; the tokens lie
+    within 5e-2 of the teacher-forced logits' scale, on a drop-free copy
+    (capacity = n_experts: a teacher-forced pass routes other tokens
+    together than the serve's prefill and decode do)."""
+    from repro_torch.serve.graphs import replay_check
+
+    model, params = _smoke(card, arch=arch)
+    cfg = dataclasses.replace(model.cfg, capacity_factor=float(model.cfg.n_experts))
+    eng = GenerationEngine(Model(cfg), params, max_len=64, block_size=8, max_slots=2,
+                           decode_chunk=8, kv_quant="int8", device=card)
+    rng = np.random.default_rng(5)
+    for new in (9, 5, 3, 2):  # chunks of every length C in 8, 4, 2, 1
+        eng.submit(rng.integers(0, 256, 11).astype(np.int32), max_new_tokens=new)
+        eng.run_until_drained()
+    graphs = eng._chunk_graphs.graphs
+    assert sorted(key[2][0] for key in graphs) == [1, 2, 4, 8]
+    per_step = (4 + 3 * cfg.n_experts * cfg.experts_per_token) * cfg.n_layers + 1
+    for key, g in graphs.items():
+        assert g.launches[0] == key[2][0] * per_step
+        assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
+    prompt = np.random.default_rng(6).integers(0, 256, 21).astype(np.int32)
+    rid = eng.submit(prompt, max_new_tokens=10)
+    out = eng.run_until_drained()[rid]
+    assert _teacher_forced_gap(eng.model, eng.params, prompt, out, card) <= 5e-2
+
+
+@pytest.mark.gpu
+def test_moe_spec_launch_replays_bitwise(card):
+    """grok-1-314b-smoke's self-speculative engine on the card: the draft
+    tree re-encodes every expert through the decompression kernel (one
+    launch an expert), and the captured spec launch replays bitwise."""
+    from repro_torch.serve.graphs import replay_check
+
+    before = deca_decompress.decompress.launches
+    eng = _served_engine(card, "int8", spec=SpecConfig(k=3, draft_codec="nf4"),
+                         arch="grok-1-314b")
+    cfg = eng.cfg
+    experts = cfg.n_layers * cfg.n_experts * 3  # w_up, w_down, w_gate
+    assert deca_decompress.decompress.launches - before == experts + 4 * cfg.n_layers + 1
+    for key in eng._spec_graphs.graphs:
+        assert replay_check(eng._spec_graphs, key, eng.kv.pools) == [], key

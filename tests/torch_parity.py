@@ -15,18 +15,40 @@ import sys
 HERE = pathlib.Path(__file__).resolve().parent
 
 
+class Exact:
+    """`module.func(*args)` started in the exact-rounding process; `result()`
+    waits for it and returns its JSON result (the last line it prints).
+    Several may run at once."""
+
+    def __init__(self, module: str, func: str, *args, timeout: int = 600):
+        env = dict(
+            os.environ, JAX_PLATFORMS="cpu",
+            XLA_FLAGS="--xla_allow_excess_precision=false",
+            PYTHONPATH=os.pathsep.join([str(HERE.parent / "src"), str(HERE)]),
+        )
+        code = (f"import json, {module} as m; "
+                f"print(json.dumps(m.{func}(*{list(args)!r})))")
+        self.timeout = timeout
+        self.proc = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=HERE,
+                                     stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                     text=True)
+        self._result = None
+
+    def result(self):
+        if self._result is None:
+            try:
+                out, err = self.proc.communicate(timeout=self.timeout)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.communicate()
+                raise
+            if self.proc.returncode != 0:
+                raise RuntimeError(err[-4000:])
+            self._result = json.loads(out.strip().splitlines()[-1])
+        return self._result
+
+
 def run_exact(module: str, func: str, *args, timeout: int = 600):
     """`module.func(*args)` in the exact-rounding process; returns its JSON
     result (the last line it prints)."""
-    env = dict(
-        os.environ, JAX_PLATFORMS="cpu",
-        XLA_FLAGS="--xla_allow_excess_precision=false",
-        PYTHONPATH=os.pathsep.join([str(HERE.parent / "src"), str(HERE)]),
-    )
-    code = (f"import json, {module} as m; "
-            f"print(json.dumps(m.{func}(*{list(args)!r})))")
-    run = subprocess.run([sys.executable, "-c", code], env=env, cwd=HERE,
-                         capture_output=True, text=True, timeout=timeout)
-    if run.returncode != 0:
-        raise RuntimeError(run.stderr[-4000:])
-    return json.loads(run.stdout.strip().splitlines()[-1])
+    return Exact(module, func, *args, timeout=timeout).result()
