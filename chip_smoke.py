@@ -71,7 +71,16 @@ expert at a time: its kernels at its shapes and kimi-k2's, a 4-request
 serve with 833 GeMVs a decode step, replays bitwise and the token-slots
 each prefill drops, the kernel path against the plain path, a drop-free
 copy with its routes pinned held against teacher-forced logits, and a
-spec engine on 2 of its layers. The kernel bounds take their
+spec engine on 2 of its layers. Last, `recurrent` serves falcon-mamba-7b
+(64 Mamba-1 layers) and recurrentgemma-9b (RG-LRU and global MQA blocks,
+int8 ring KV) at full width and depth through the dense ring engine that
+`paged="auto"` picks for them: the build, the GeMV and GeMM at their
+shapes (K 256, N 288 and 256, f32 x), 4 prompts of 64 tokens x 32 new
+with 256 and 292 GeMVs a decode step, the step beside its bytes bound and
+a profiler split of it, the kernel path against the plain path, every
+token against teacher-forced logits of the full scan; then llama3.2-1b
+with `paged=False`, its tokens against its paged engine's up to a near
+tie. The kernel bounds take their
 rates from the same H100 profile (`core/roofsurface.py`), whose
 Roof-Surface lines print as an analytic line at the start.
 """
@@ -137,6 +146,14 @@ MOE_PATH_STEPS = 1  # decode steps of its kernel-vs-plain comparison (plain GeMV
 # verify's 16, a 1024-token prompt's bin at capacity 1.25 (160), a long prefill
 MOE_EXPERT_MS = (1, 4, 16, 160, 2048)
 KIMI = "kimi-k2-1t-a32b"  # its expert GeMVs and its attention at Dh 112, G 8
+# falcon-mamba-7b (Mamba-1) and recurrentgemma-9b (RG-LRU + MQA) at full
+# width and depth through the dense ring engine that `paged="auto"` picks
+# for them, then llama3.2-1b on it with `paged=False`: 4 prompts of 64
+# tokens, 32 new greedy tokens each
+RECURRENT = ("falcon-mamba-7b", "recurrentgemma-9b")
+RING_MODEL = TIED_MODEL
+RECURRENT_BATCH, RECURRENT_PROMPT, RECURRENT_NEW = 4, 64, 32
+RECURRENT_MS = (1, 4, 256)  # the GeMV at decode rows, the GeMM at the prefill's 4 x 64
 
 
 _LOG = []
@@ -655,6 +672,12 @@ def compare_paths(torch, model, params, report, key="path_comparison", steps=4,
             torch.cuda.synchronize()
             results[path] = outs
             del pools
+    report_paths(model, results, report, key, steps)
+
+
+def report_paths(model, results, report, key, steps):
+    """Log and record the kernel path's logits against the plain path's,
+    step by step; fail beyond LOGIT_TOL of max|plain|."""
     rows = []
     for j, (a, b) in enumerate(zip(results["kernel"], results["plain"])):
         err, rel = rel_err(a, b)
@@ -842,14 +865,18 @@ def gemv_per_step(rows, out):
 
 def gemvs_per_step(cfg) -> int:
     """GeMV launches of one decode step: one per FC matmul of each layer
-    (4 attention projections, and 3 in a gated MLP or 2 in a relu one; an
-    MoE layer runs every expert's FFN on its bin once per routing slot,
-    E x k of them) and one for an untied lm_head (a tied head is a cuBLAS
-    GEMM). grok-1 at 16 layers: 16 x (4 + 8 x 2 x 3) + 1 = 833."""
+    (4 attention projections, 4 in a Mamba block, 5 in an RG-LRU one, and
+    3 in a gated MLP or 2 in a relu one; an MoE layer runs every expert's
+    FFN on its bin once per routing slot, E x k of them; a Mamba layer has
+    no FFN) and one for an untied lm_head (a tied head is a cuBLAS GEMM).
+    grok-1 at 16 layers: 16 x (4 + 8 x 2 x 3) + 1 = 833; falcon-mamba-7b
+    64 x 4 = 256; recurrentgemma-9b 26 x (5 + 3) + 12 x (4 + 3) = 292."""
     ffn = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
     if cfg.n_experts:
         ffn *= cfg.n_experts * cfg.experts_per_token
-    return (4 + ffn) * cfg.n_layers + (0 if cfg.tie_embeddings else 1)
+    mixer = {"ssm": 4, "rec": 5}
+    return (sum(mixer.get(k, 4) + (0 if k == "ssm" else ffn) for k in cfg.layer_kinds())
+            + (0 if cfg.tie_embeddings else 1))
 
 
 def counters():
@@ -2209,8 +2236,16 @@ def build_compressed(torch, arch, n_layers=None):
     depth = "depth" if cfg.n_layers == full else f"{cfg.n_layers} of its {full} layers"
     moe = (f"{cfg.n_experts} experts top-{cfg.experts_per_token} capacity "
            f"{cfg.capacity_factor:g}, " if cfg.n_experts else "")
+    if cfg.family == "ssm":
+        mixer = (f"Mamba-1 blocks (d_inner {cfg.d_inner}, state {cfg.ssm_state}, dt_rank "
+                 f"{cfg.dt_rank}, conv {cfg.ssm_conv}), no FFN")
+    else:
+        mixer = f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, {moe}d_ff {cfg.d_ff} {cfg.mlp_act}"
+        if cfg.block_pattern:
+            mixer = (f"blocks {'/'.join(cfg.block_pattern)} (RG-LRU width "
+                     f"{cfg.lru_width}), " + mixer)
     log(f"{arch} full width and {depth} ({cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} q / {cfg.n_kv_heads} kv heads, {moe}d_ff {cfg.d_ff} {cfg.mlp_act}, vocab "
+        f"{mixer}, vocab "
         f"{cfg.vocab_size}, {cfg.pos_emb} positions, "
         f"{'tied' if cfg.tie_embeddings else 'untied'} head) built and compressed to "
         f"{SERVED_SPEC} on the card in {rec['build_s']:.1f} s: {rec['param_bytes'] / 1e9:.3f} GB "
@@ -2222,26 +2257,34 @@ def build_compressed(torch, arch, n_layers=None):
     return model, params, rec
 
 
-def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 2048)):
-    """The matmul kernels on every distinct FC shape of a served model (its
-    layer-0 leaves and lm_head, at the served codec): the GeMV at M = 1 and
-    4 and the GeMM at M = 2048 (an MoE expert at `expert_ms`, through the
-    last expert's `pick` view of the stacked leaf, whose planes start
-    furthest into the stack), and the attention kernel at its heads over
-    the served KV pool, each against its plain version and timed. Every
-    case runs before any failure is raised, so one run reports them all."""
+def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 2048),
+                        ms=(1, 4, 2048), attention=True):
+    """The matmul kernels on every distinct FC shape of a served model (the
+    compressed leaves of the first layer of each kind and lm_head, at the
+    served codec): the GeMV and GeMM at the rows `ms` (M <= 32 the GeMV),
+    by default M = 1 and 4 and 2048 (an MoE expert at `expert_ms`, through
+    the last expert's `pick` view of the stacked leaf, whose planes start
+    furthest into the stack), and, with `attention`, the attention kernel
+    at its heads over the served KV pool, each against its plain version
+    and timed. x is f32 (bf16-valued), the GeMV's f32-x path. Every case
+    runs before any failure is raised, so one run reports them all."""
     from repro_torch.core.compression import CompressedTensor
-    from repro_torch.kernels import deca_gemm, paged_attention, ref
+    from repro_torch.kernels import deca_gemm, ref
 
     cfg = model.cfg
-    layer = params["layers"][0]
-    named = [(n[2:] if n.startswith("w_") else n[1:], ct, False)
-             for n, ct in layer["attn"].items()]
-    for n, ct in layer.get("mlp", {}).items():
-        named.append((n[2:], ct, False))
-    for n, ct in layer.get("moe", {}).items():
-        if isinstance(ct, CompressedTensor):
-            named.append((f"expert {n[2:]}", ct.pick(ct.lead[0] - 1), True))
+    firsts = {}
+    for kind, layer in zip(model.kinds, params["layers"]):
+        firsts.setdefault(kind, layer)
+    named = []
+    for layer in firsts.values():
+        for group in ("attn", "mlp", "mamba", "rec"):
+            for n, ct in layer.get(group, {}).items():
+                if isinstance(ct, CompressedTensor):
+                    short = n[2:] if n.startswith("w_") else n[1:] if group == "attn" else n
+                    named.append((short, ct, False))
+        for n, ct in layer.get("moe", {}).items():
+            if isinstance(ct, CompressedTensor):
+                named.append((f"expert {n[2:]}", ct.pick(ct.lead[0] - 1), True))
     if "lm_head" in params:
         named.append(("lm_head", params["lm_head"], False))
     shapes = {}
@@ -2251,7 +2294,7 @@ def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 204
     mine = []
     for ((k, n), expert), group in shapes.items():
         role, ct = "/".join(name for name, _ in group), group[0][1]
-        for m in (expert_ms if expert else (1, 4, 2048)):
+        for m in (expert_ms if expert else ms):
             kind = "gemv" if m <= 32 else "gemm"
             kern = deca_gemm.decompress_gemv if kind == "gemv" else deca_gemm.decompress_gemm
             plain = ref.decompress_gemv if kind == "gemv" else ref.decompress_gemm
@@ -2265,6 +2308,24 @@ def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 204
             time_matmul(torch, timer, case, kern, plain, x, ct)
             mine.append(case)
         torch.cuda.empty_cache()
+    if attention:
+        check_attention_at(torch, timer, cfg, g, mine)
+    worst = max(c["rel_err"] for c in mine)
+    log(f"{cfg.name} kernels: {len(mine)} cases at its shapes, max rel err {worst:.2e} "
+        f"(tolerance {KERNEL_TOL}): " + ", ".join(
+            f"{c['kernel']} {c['role']}{' M=%d' % c['M'] if 'M' in c else ''} "
+            f"{c['rel_err']:.2e}" for c in mine))
+    cases += mine
+    bad = [c for c in mine if c["rel_err"] > KERNEL_TOL]
+    if bad:
+        raise AssertionError(f"{cfg.name}: kernels disagree with their plain versions: {bad}")
+
+
+def check_attention_at(torch, timer, cfg, g, mine):
+    """The attention kernel at a model's heads over the served KV pool,
+    against its plain version, timed; its case goes to `mine`."""
+    from repro_torch.kernels import paged_attention, ref
+
     q, pools, tables, kv_lens, q_pos = _attention_inputs(
         torch, SERVED_KV, g, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
     args = (q, pools, tables, kv_lens, q_pos)
@@ -2279,15 +2340,6 @@ def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 204
     mine.append(case)
     del args, pools, got, want
     torch.cuda.empty_cache()
-    worst = max(c["rel_err"] for c in mine)
-    log(f"{cfg.name} kernels: {len(mine)} cases at its shapes, max rel err {worst:.2e} "
-        f"(tolerance {KERNEL_TOL}): " + ", ".join(
-            f"{c['kernel']} {c['role']}{' M=%d' % c['M'] if 'M' in c else ''} "
-            f"{c['rel_err']:.2e}" for c in mine))
-    cases += mine
-    bad = [c for c in mine if c["rel_err"] > KERNEL_TOL]
-    if bad:
-        raise AssertionError(f"{cfg.name}: kernels disagree with their plain versions: {bad}")
 
 
 def check_tied_head(torch, model, params, report):
@@ -2946,6 +2998,295 @@ def snapshot_serve(torch, model, params, prompts, report, new=32):
     torch.cuda.empty_cache()
 
 
+def compare_dense_paths(torch, model, params, report, key, steps=2):
+    """The dense engine's prefill (4 prompts of RECURRENT_PROMPT tokens) and
+    `steps` decode steps over the first PATH_LAYERS layers: the kernel
+    path's logits against the plain path's, both fed the kernel path's
+    greedy tokens, from fresh `init_cache` caches."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import make_prefill_step
+
+    cut = Model(dataclasses.replace(model.cfg, n_layers=PATH_LAYERS))
+    head = dict(params, layers=params["layers"][:PATH_LAYERS])
+    g = torch.Generator(device="cuda").manual_seed(3)
+    b, n = RECURRENT_BATCH, RECURRENT_PROMPT
+    tokens = torch.randint(0, cut.cfg.vocab_size, (b, n), generator=g, device="cuda")
+    results, fed = {}, []
+    for path in ("kernel", "plain"):
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            logits, cache = make_prefill_step(cut, cache_len=n + steps)(head, tokens)
+            outs = [logits.float()]
+            for j in range(steps):
+                if path == "kernel":  # both paths are fed the kernel path's tokens
+                    fed.append(outs[-1].argmax(-1).to(torch.int32)[:, None])
+                pos = torch.full((b, 1), n + j, dtype=torch.int32, device="cuda")
+                lg, cache = cut.decode_step(head, fed[j], pos, cache)
+                outs.append(lg.float())
+            torch.cuda.synchronize()
+            results[path] = outs
+            del cache
+    report_paths(cut, results, report, key, steps)
+
+
+def decode_step_bytes(cfg, params, batch, kv_tokens):
+    """Bytes one dense-engine decode step must move, by part: the FC planes
+    (every compressed leaf read once), a tied head's embedding table, the
+    other dense leaves of the layers (norms, convs, the SSM's A and the
+    gates' biases) read once, each recurrent layer's conv buffer and f32
+    state read and written once, and each ring layer's KV of `kv_tokens`
+    valid tokens a row read once, with the step's token written."""
+    from repro_torch.core.compression import CompressedTensor
+    from repro_torch.core.decompress import _leaves
+    from repro_torch.models import layers as L
+
+    leaves = list(_leaves(params["layers"])) + [params["final_norm"]]
+    fc = sum(x.nbytes for x in leaves if isinstance(x, CompressedTensor))
+    fc += params["lm_head"].nbytes if "lm_head" in params else 0
+    small = sum(x.numel() * x.element_size() for x in leaves
+                if not isinstance(x, CompressedTensor))
+    head = params["embed"].numel() * params["embed"].element_size() if cfg.tie_embeddings else 0
+    state = kv = 0
+    codec = L.kv_codec(cfg.kv_quant)
+    for kind in cfg.layer_kinds():
+        if kind == "ssm":
+            state += batch * (2 * (cfg.ssm_conv - 1) * cfg.d_inner
+                              + 4 * cfg.d_inner * cfg.ssm_state)
+        elif kind == "rec":
+            r = cfg.lru_width or cfg.d_model
+            state += batch * (2 * (cfg.ssm_conv - 1) * r + 4 * r)
+        else:
+            dh = cfg.d_head
+            per = (2 * dh if codec is None
+                   else codec.kv_code_width(dh) + (2 if codec.has_scale else 0))
+            kv += batch * 2 * cfg.n_kv_heads * per * (kv_tokens + 1)
+    return {"fc": fc, "head": head, "small": small, "state": 2 * state, "kv": kv}
+
+
+def profile_dense_step(torch, model, params, report, key, n=3):
+    """`n` dense decode steps after a prefill of RECURRENT_BATCH prompts,
+    timed between CUDA events and traced with torch.profiler, the scan
+    loops (`layers.selective_scan`, `layers.linear_recurrence`) inside
+    record_function ranges: device time of the GeMV (with its split-K
+    reduce), of the scans' kernels, of the other kernels (norms, convs,
+    gates, the tied head), and the idle share of the traced window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from repro_torch.models import layers as L
+    from repro_torch.serve.engine import make_prefill_step
+
+    cfg = model.cfg
+    b, s = RECURRENT_BATCH, RECURRENT_PROMPT
+    g = torch.Generator(device="cuda").manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    _, cache = make_prefill_step(model, cache_len=s + 2 * n + 1)(params, tokens)
+    tok = tokens[:, -1:].to(torch.int32)
+
+    def step(i):
+        pos = torch.full((b, 1), s + i, dtype=torch.int32, device="cuda")
+        return model.decode_step(params, tok, pos, cache)[0]
+
+    step(0)  # warm
+    saved = L.selective_scan, L.linear_recurrence
+
+    def ranged(fn):
+        def run(*a):
+            with record_function("recurrent_scan"):
+                return fn(*a)
+        return run
+
+    L.selective_scan, L.linear_recurrence = (ranged(f) for f in saved)
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            a.record()
+            for i in range(n):
+                step(1 + i)
+            e.record()
+            e.synchronize()
+    finally:
+        L.selective_scan, L.linear_recurrence = saved
+    wall = a.elapsed_time(e) / n
+    rows = [evt for evt in prof.key_averages() if evt.device_type == DeviceType.CUDA
+            and evt.self_device_time_total > 0 and not evt.key.startswith("aten::")
+            and not getattr(evt, "is_user_annotation", False)]
+    busy = sum(r.self_device_time_total for r in rows) / 1e3 / n
+    gemv = sum(r.self_device_time_total for r in rows
+               if "::gemv_kernel" in r.key or "::splitk_reduce" in r.key) / 1e3 / n
+    scan = sum(getattr(ev, "device_time_total", 0) for ev in prof.events()
+               if ev.name == "recurrent_scan" and ev.device_type == DeviceType.CPU) / 1e3 / n
+    kernels = sum(r.count for r in rows) / n
+    split = {"gemv_ms": gemv, "scan_ms": scan, "other_ms": busy - gemv - scan}
+    top = sorted(rows, key=lambda r: -r.self_device_time_total)[:8]
+    log(f"{cfg.name} decode step profile (uncaptured, {n} steps traced): {wall:.3f} ms a step "
+        f"between events; device busy {busy:.3f} ms (GeMV {gemv:.3f}, scan {scan:.3f}, other "
+        f"{busy - gemv - scan:.3f}), {kernels:.0f} kernels a step; idle share "
+        f"{1 - busy / wall:.3f}")
+    for r in top:
+        log(f"  {r.self_device_time_total / 1e3 / n:8.3f} ms {r.count / n:7.0f}x  {r.key[:90]}")
+    report[key] = {"wall_ms": wall, "busy_ms": busy, "kernels": kernels,
+                   "idle_share": 1 - busy / wall, **split,
+                   "rows": [{"name": r.key, "device_ms": r.self_device_time_total / 1e3 / n,
+                             "count": r.count / n} for r in top]}
+    del cache
+
+
+def dense_serve(torch, model, params, report, key, prompts, new=RECURRENT_NEW, **engine_kw):
+    """One greedy `generate` of `prompts` (B, S) through the dense engine
+    (`paged="auto"` for a recurrent stack, `paged=False` given for an
+    attention one): the prefill's wall, each decode step's (uncaptured:
+    every op launched from the host), tok/s, the peak device memory over
+    the run, and the GeMM launches of the prefill and GeMV launches a
+    decode step, which must be one per FC matmul; the decode step beside
+    its bytes bound. Returns the tokens (B, new)."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    cfg = model.cfg
+    b, s = prompts.shape
+    eng = GenerationEngine(model, params, max_len=s + new, **engine_kw)
+    if eng.paged:
+        raise AssertionError(f"{cfg.name}: the engine is paged, not the dense ring engine")
+    walls = {"prefill": [], "decode": []}
+    prefill_peak = {}
+
+    def timed(fn, name):
+        def run(*a):
+            torch.cuda.synchronize()
+            if name == "prefill":
+                prefill_peak["base"] = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t)
+            if name == "prefill":
+                prefill_peak["peak"] = torch.cuda.max_memory_allocated()
+            return out
+        return run
+
+    eng._prefill, eng._decode = timed(eng._prefill, "prefill"), timed(eng._decode, "decode")
+    gc.collect()
+    torch.cuda.synchronize()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, new)  # the peak is reset before the prefill
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated()
+    pf_extra = prefill_peak["peak"] - prefill_peak["base"]
+    del eng
+    if outs.shape != (b, new) or not ((0 <= outs) & (outs < cfg.vocab_size)).all():
+        raise AssertionError(f"{cfg.name}: tokens {outs.shape} outside ({b}, {new}) or the vocabulary")
+    per = gemvs_per_step(cfg)
+    if launches["deca_gemv"] != per * new or launches["deca_gemm"] != per:
+        raise AssertionError(f"{cfg.name}: launches {launches}, not {per} GeMMs in the prefill "
+                             f"and {per} GeMVs in each of {new} decode steps")
+    if launches["deca_paged_attention"]:
+        raise AssertionError(f"{cfg.name}: the dense engine launched paged attention")
+    step_ms = sorted(1e3 * w for w in walls["decode"])
+    median = step_ms[len(step_ms) // 2]
+    parts = decode_step_bytes(cfg, params, b, s + (new + 1) / 2)
+    bound = 1e3 * sum(parts.values()) / HBM_BYTES_PER_S
+    log(f"{cfg.name} dense engine: {b} prompts of {s} x {new} new greedy tokens in {wall:.2f} s "
+        f"= {b * new / wall:.1f} tok/s; prefill {1e3 * walls['prefill'][0]:.1f} ms "
+        f"({launches['deca_gemm']} GeMMs at M = {b * s}); decode {median:.2f} ms a step "
+        f"(median of {len(step_ms)}, min {step_ms[0]:.2f}, uncaptured), {per} GeMVs a step; "
+        f"launches {launches}; peak device memory {peak / 1e9:.2f} GB over the serve, the "
+        f"prefill's {pf_extra / 1e9:.3f} GB over what it found allocated")
+    log(f"{cfg.name} decode step bytes bound {bound:.3f} ms = (" + " + ".join(
+        f"{k} {v / 1e9:.4f} GB" for k, v in parts.items()) + f") over "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s; the median step is {median / bound:.1f}x the bound "
+        f"({bound / median:.3f} of it)")
+    report[key] = {"prompt_len": s, "batch": b, "new": new, "wall_s": wall,
+                   "prefill_ms": 1e3 * walls["prefill"][0], "decode_ms": step_ms,
+                   "decode_median_ms": median, "tok_s": b * new / wall, "launches": launches,
+                   "gemvs_per_step": per, "peak_bytes": peak, "prefill_extra_bytes": pf_extra,
+                   "bound_ms": bound,
+                   "bound_parts_bytes": parts}
+    return outs
+
+
+def near_tie_rows(torch, model, params, prompts, outs, other, key_report):
+    """Rows of `outs` against `other` (two engines' tokens for the same
+    prompts): equal, or the first token where they part is a near tie,
+    its two candidates within LOGIT_TOL of max|logit| in a teacher-forced
+    forward over the shared prefix."""
+    equal, gaps = 0, []
+    for p, a, b in zip(prompts, outs, other):
+        if list(a) == list(b):
+            equal += 1
+            continue
+        j = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+        seq = torch.as_tensor(list(p) + list(a[:j]), device="cuda")
+        row = model.score(params, seq)[-1]
+        gaps.append(float((row[int(a[j])] - row[int(b[j])]).abs() / row.abs().max()))
+    key_report.update({"equal_rows": equal, "tie_gaps": gaps})
+    log(f"{model.cfg.name} dense (ring) against paged engine tokens: {equal}/{len(outs)} rows "
+        f"equal; the first differing token of each other row is a near tie of gap "
+        f"{[f'{x:.2e}' for x in gaps]} (tolerance {LOGIT_TOL})")
+    if any(x > LOGIT_TOL for x in gaps):
+        raise AssertionError(f"{model.cfg.name}: dense and paged tokens part beyond a near tie")
+
+
+def recurrent(torch, report):
+    """falcon-mamba-7b (64 Mamba-1 layers) and recurrentgemma-9b (38 layers
+    in the pattern rec, rec, attn; int8 ring KV) at full width and depth,
+    compressed to SERVED_SPEC on the card layer by layer: the build's
+    seconds, stored bytes and peak; the GeMV and GeMM at each model's
+    shapes (K 256, N 288 and 256, f32 x) against their plain versions and
+    timed; a greedy serve of RECURRENT_BATCH prompts of RECURRENT_PROMPT
+    tokens and RECURRENT_NEW new ones through `GenerationEngine`, whose
+    `paged="auto"` picks the dense ring engine, with its launches, walls,
+    peak and the decode step beside its bytes bound; a profiler split of
+    a decode step; the kernel path against the plain path over
+    PATH_LAYERS layers; each token against teacher-forced logits of the
+    full-sequence forward (the GeMM and the full scan). Then llama3.2-1b
+    with `paged=False` on an int8 ring: the token rule, and its tokens
+    against its paged engine's up to a near tie. Returns its kernel
+    cases."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    cases, res = [], {}
+    g = torch.Generator().manual_seed(4)
+    for arch in RECURRENT + (RING_MODEL,):
+        model, params, rec = build_compressed(torch, arch)
+        cfg = model.cfg
+        prompts = torch.randint(0, cfg.vocab_size, (RECURRENT_BATCH, RECURRENT_PROMPT),
+                                generator=g).numpy()
+        if arch in RECURRENT:
+            check_model_kernels(torch, timer, model, params, cases, ms=RECURRENT_MS,
+                                attention=False)
+            outs = dense_serve(torch, model, params, rec, "serve", prompts)
+            profile_dense_step(torch, model, params, rec, "decode_profile")
+            compare_dense_paths(torch, model, params, rec, "path_comparison")
+        else:
+            outs = dense_serve(torch, model, params, rec, "serve", prompts, paged=False)
+            paged = GenerationEngine(model, params, max_len=RECURRENT_PROMPT + RECURRENT_NEW,
+                                     max_slots=RECURRENT_BATCH, decode_chunk=8)
+            other = paged.generate(prompts, RECURRENT_NEW)
+            del paged
+            gc.collect()  # its graphs hold the engine in a cycle
+            rec["against_paged"] = {}
+            near_tie_rows(torch, model, params, prompts, outs, other, rec["against_paged"])
+        teacher_forced(torch, model, params, list(prompts), list(outs), rec,
+                       key=f"teacher_forced_{arch}")
+        res[arch] = rec
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"{arch} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    del timer
+    res["cases"], res["seconds"] = cases, time.perf_counter() - t0
+    log(f"recurrent: {res['seconds']:.1f} s")
+    report["recurrent"] = res
+    return cases
+
+
 def paper_models(torch, report):
     """The paper's two end-to-end models (Table 4) at full width and depth
     on one card, compressed to SERVED_SPEC, then a tied head: each built,
@@ -3225,6 +3566,9 @@ def main() -> int:
     # 15. grok-1-314b: top-2 of 8 experts, 16 of its 64 layers at full width
     moe_cases = moe(torch, report)
 
+    # 16. the dense ring engine: falcon-mamba-7b, recurrentgemma-9b, llama3.2-1b
+    recurrent_cases = recurrent(torch, report)
+
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
 
@@ -3261,7 +3605,8 @@ def main() -> int:
         ("deca_decompress", csrc + "deca_decompress.cu",
          "src/repro/kernels/deca_decompress.py:103", dc),
     ]
-    held = mm_cases + att_cases + new_cases + paper_cases + gemma_cases + moe_cases
+    held = (mm_cases + att_cases + new_cases + paper_cases + gemma_cases + moe_cases
+            + recurrent_cases)
     worst_abs = {  # over every case each kernel was held on
         "deca_gemv": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemv"),
         "deca_gemm": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemm"),
@@ -3275,8 +3620,15 @@ def main() -> int:
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"],
     } for name, src, rep, c in rows]
+    # the recurrent stacks' shapes (K 256, N 288 and 256, f32 x), each timed
+    for entry, matmul in zip(kernels[:2], ("gemv", "gemm")):
+        entry["recurrent_shapes"] = [
+            {k: c[k] for k in ("model", "role", "K", "N", "M", "max_abs_err", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")}
+            for c in recurrent_cases if c["kernel"] == matmul]
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0
 

@@ -122,6 +122,7 @@ class ModelConfig:
 
 
 _MODULES = {
+    "falcon-mamba-7b": "falcon_mamba_7b",
     "grok-1-314b": "grok_1_314b",
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "gemma2-2b": "gemma2_2b",
@@ -130,6 +131,7 @@ _MODULES = {
     "llama3-8b": "llama3_8b",
     "llama3.2-1b": "llama3_2_1b",
     "opt-66b": "opt_66b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 

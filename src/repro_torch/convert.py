@@ -6,7 +6,11 @@ port's params: the layer-stacked `blocks` of the scanned stack are unstacked
 into one dict per layer, including the lead-L planes of stacked compressed
 weights; an MoE layer's `moe` subtree keeps its (E, ...) share: the f32
 (d, E) router, and each expert weight as (E, K, N) dense or as one
-expert-stacked compressed leaf with (E, ng, ...) planes. The reference's compressed leaves are read by their attributes
+expert-stacked compressed leaf with (E, ng, ...) planes. A Mamba layer's
+`mamba` subtree (falcon-mamba's stacked `blocks`) and an RG-LRU layer's
+`rec` subtree (recurrentgemma's unrolled `layers`) come across leaf for
+leaf, their f32 leaves (`conv_w`, `conv_b`, `dt_bias`, `a_log`, `d_skip`,
+`b_a`, `b_x`, `a_param`) as f32. The reference's compressed leaves are read by their attributes
 (`codes`, `mask`, `scales`, `spec`, `shape`), so this module imports nothing
 of the reference. It lets both packages compute from the same numbers.
 """

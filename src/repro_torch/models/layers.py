@@ -1,14 +1,16 @@
-"""Layer library of the paged dense-attention decoder.
+"""Layer library of the port's decoders.
 
 Counterpart of the subset of `repro/models/layers.py` that compressed-
-weight paged serving of a dense GQA decoder runs: RMS norm, rotary
-embeddings with per-request positions (off under learned positions),
-grouped-query attention with f32 probabilities in the PV product, the
-block-paged quantized KV pool, the swiglu, geglu and relu MLPs, the
-top-k MoE FFN with capacity dispatch, and the tied head's logits.
-Functions take and return tensors; the paged pool is a dict of tensors
-per layer and is updated in place (the reference returns a new pool per
-write; in place saves a copy of every layer's pool per step).
+weight serving runs: RMS norm, rotary embeddings with per-request
+positions (off under learned positions), grouped-query attention with f32
+probabilities in the PV product over the block-paged quantized KV pool
+(the paged engine) or the quantized ring cache (the dense engine), the
+swiglu, geglu and relu MLPs, the top-k MoE FFN with capacity dispatch,
+the RG-LRU recurrent block (Griffin, recurrentgemma), the Mamba-1 block
+(falcon-mamba), and the tied head's logits. Functions take and return
+tensors; the paged pool, the ring cache and the recurrent state are dicts
+of tensors per layer and are updated in place (the reference returns new
+ones per write; in place saves a copy of every layer's cache per step).
 """
 from __future__ import annotations
 
@@ -239,6 +241,90 @@ def paged_gather_kv(
     return k, v, pos.reshape(b, mb * bs)
 
 
+def init_kv_cache(
+    b: int,
+    size: int,
+    hkv: int,
+    dh: int,
+    *,
+    device,
+    dtype=torch.bfloat16,
+    quant: str = "none",
+) -> Dict[str, torch.Tensor]:
+    """Ring KV cache of the dense engine: `size` rounded up to a multiple
+    of 32 slots per row, a position plane shared by the batch (empty slots
+    carry the sentinel) and the tokens written so far, `length`, a device
+    scalar. Quantized caches store codes (packed for 4-bit codecs); scaled
+    codecs add `k_scale`/`v_scale`, one bf16 scale per (row, slot, head)."""
+    size = (size + 31) // 32 * 32
+    codec = kv_codec(quant)
+    if codec is None:
+        kv_dtype, width = dtype, dh
+    else:
+        kv_dtype, width = torch.uint8, codec.kv_code_width(dh)
+    shape = (b, size, hkv, width)
+    cache = {
+        "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "v": torch.zeros(shape, dtype=kv_dtype, device=device),
+        "pos": torch.full((size,), CACHE_EMPTY_POS, dtype=torch.int32, device=device),
+        "length": torch.zeros((), dtype=torch.int32, device=device),
+    }
+    if codec is not None and codec.has_scale:
+        for name in ("k_scale", "v_scale"):
+            cache[name] = torch.zeros(shape[:3], dtype=torch.bfloat16, device=device)
+    return cache
+
+
+def update_cache(
+    cache: Dict[str, torch.Tensor],
+    k: torch.Tensor,    # (B, S, Hkv, Dh)
+    v: torch.Tensor,    # (B, S, Hkv, Dh)
+    pos: torch.Tensor,  # (S,) positions shared by the batch
+    quant: str = "none",
+) -> Dict[str, torch.Tensor]:
+    """Append S tokens to the ring, in place. Masking is by position, so
+    the slot order is free and a windowed cache wraps. S at or past the
+    ring's size keeps the last `size` tokens (the reference's static
+    prefill branch); otherwise the tokens land at `length % size`, the
+    start clamped so the S slots fit (`dynamic_update_slice`), from a
+    device index: nothing waits on the host. Quantized caches encode on
+    write."""
+    codec = kv_codec(quant)
+    _check_cache_quant(cache["k"].dtype, codec, quant)
+    ks = vs = None
+    if codec is not None:
+        k, ks = codec.kv_encode(k)
+        v, vs = codec.kv_encode(v)
+    size, s = cache["k"].shape[1], k.shape[1]
+    new = {"k": k, "v": v, "pos": pos, "k_scale": ks, "v_scale": vs}
+    if s >= size:
+        for name, t in new.items():
+            if t is not None:
+                cache[name].copy_(t[-size:] if name == "pos" else t[:, -size:])
+    else:
+        start = torch.clamp(cache["length"] % size, max=size - s)
+        idx = start + torch.arange(s, device=start.device)
+        for name, t in new.items():
+            if t is not None:
+                cache[name].index_copy_(0 if name == "pos" else 1, idx,
+                                        t.to(cache[name].dtype))
+    cache["length"].add_(s)
+    return cache
+
+
+def read_cache_kv(
+    cache: Dict[str, torch.Tensor], quant: str = "none"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dequantize-on-read of the ring cache, to bf16 (the planes
+    themselves when unquantized)."""
+    codec = kv_codec(quant)
+    _check_cache_quant(cache["k"].dtype, codec, quant)
+    if codec is None:
+        return cache["k"], cache["v"]
+    return (codec.kv_decode(cache["k"], cache.get("k_scale")).to(torch.bfloat16),
+            codec.kv_decode(cache["v"], cache.get("v_scale")).to(torch.bfloat16))
+
+
 def init_attention(generator, cfg: ModelConfig, device, dtype) -> Params:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     return {
@@ -305,6 +391,42 @@ def paged_attention_block(
     return mm(out.reshape(b, s, hq * dh), params["wo"]), cache
 
 
+def attention_block(
+    params: Params,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (B, S); the batch shares row 0's positions
+    local: bool,
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Attention layer of the dense engine: projections -> rope ->
+    (ring-cache write and dequantize-on-read) -> attention -> output
+    projection. The batch shares one row of positions, as the reference's
+    synthetic batches do; `attention_core` takes them per row, broadcast.
+    With no cache, the queries attend to their own keys."""
+    b, s, _ = x.shape
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = mm(x, params["wq"]).reshape(b, s, hq, dh)
+    k = mm(x, params["wk"]).reshape(b, s, hkv, dh)
+    v = mm(x, params["wv"]).reshape(b, s, hkv, dh)
+    q_pos = positions[:1].expand(b, s)
+    if cfg.pos_emb == "rope":
+        q = apply_rope_batched(q, q_pos, cfg.rope_theta)
+        k = apply_rope_batched(k, q_pos, cfg.rope_theta)
+    if cache is not None:
+        cache = update_cache(cache, k, v, positions[0], quant=cfg.kv_quant)
+        k, v = read_cache_kv(cache, quant=cfg.kv_quant)
+        k_pos = cache["pos"][None].expand(b, -1)
+    else:
+        k_pos = q_pos
+    out = attention_core(
+        q, k, v, q_pos=q_pos, k_pos=k_pos, causal=cfg.causal,
+        window=cfg.window if local else 0, softcap=cfg.attn_softcap,
+    )
+    return mm(out.reshape(b, s, hq * dh), params["wo"]), cache
+
+
 _GATED = ("swiglu", "geglu")
 
 
@@ -322,10 +444,24 @@ def init_mlp(generator, cfg: ModelConfig, device, dtype) -> Params:
     }
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.sigmoid` as XLA expands it, each op rounded in the input
+    dtype: 1 / (1 + exp(-x)). `torch.sigmoid` is another formula."""
+    return 1 / (1 + torch.exp(-x))
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """x * sigmoid(x) as `jax.nn.silu` computes it, each op rounded in the
     input dtype: x * (1 / (1 + exp(-x)))."""
-    return x * (1 / (1 + torch.exp(-x)))
+    return x * sigmoid(x)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.softplus`, which is `jnp.logaddexp(x, 0)`, op for op:
+    max(x, 0) + log1p(exp(-|x|)), and x itself where x is NaN.
+    `torch.nn.functional.softplus` returns x above a threshold instead."""
+    body = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, body)
 
 
 @functools.lru_cache(maxsize=None)
@@ -523,3 +659,190 @@ def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     else:
         out = x2.float() @ embed.float().t()
     return out.reshape(*x.shape[:-1], embed.shape[0])
+
+
+# ---------------------------------------------------------------------------
+# the recurrent blocks: RG-LRU (Griffin / recurrentgemma) and Mamba-1
+# ---------------------------------------------------------------------------
+
+def _softplus_inverse(value: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.expm1(value))
+
+
+def init_rglru(generator, cfg: ModelConfig, device, dtype) -> Params:
+    """The reference's `init_rglru` leaves: bf16 projections, an f32
+    depthwise conv, zero f32 gate biases and `a_param` = softplus^-1 of
+    linspace(0.9, 0.999) ** (1 / 8), so a = sigmoid-gated decay starts
+    near 0.9-0.999 (Griffin's c = 8)."""
+    d, r = cfg.d_model, cfg.lru_width or cfg.d_model
+    f32 = torch.float32
+    lin = torch.linspace(0.9, 0.999, r, dtype=f32, device=device)
+    return {
+        "w_in": dense_init(generator, (d, r), device, dtype),
+        "w_gate_branch": dense_init(generator, (d, r), device, dtype),
+        "conv_w": dense_init(generator, (cfg.ssm_conv, r), device, f32),
+        "w_a": dense_init(generator, (r, r), device, dtype),
+        "w_x": dense_init(generator, (r, r), device, dtype),
+        "b_a": torch.zeros(r, device=device),
+        "b_x": torch.zeros(r, device=device),
+        "a_param": _softplus_inverse(lin ** (1 / 8.0)),
+        "w_out": dense_init(generator, (r, d), device, dtype),
+    }
+
+
+def init_mamba(generator, cfg: ModelConfig, device, dtype) -> Params:
+    """The reference's `init_mamba` leaves: bf16 in/x/dt/out projections,
+    an f32 depthwise conv with its bias, `dt_bias` = softplus^-1(0.01),
+    `a_log` = log(1..state) per channel (S4D-real) and a unit D skip."""
+    d, di, st, dr = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    f32 = torch.float32
+    a_init = torch.arange(1, st + 1, dtype=f32, device=device)[None, :].repeat(di, 1)
+    return {
+        "in_proj": dense_init(generator, (d, 2 * di), device, dtype),
+        "conv_w": dense_init(generator, (cfg.ssm_conv, di), device, f32),
+        "conv_b": torch.zeros(di, device=device),
+        "x_proj": dense_init(generator, (di, dr + 2 * st), device, dtype),
+        "dt_proj": dense_init(generator, (dr, di), device, dtype),
+        "dt_bias": _softplus_inverse(torch.full((di,), 0.01, device=device)),
+        "a_log": torch.log(a_init),
+        "d_skip": torch.ones(di, device=device),
+        "out_proj": dense_init(generator, (di, d), device, dtype),
+    }
+
+
+def causal_conv(u: torch.Tensor, conv_w: torch.Tensor,
+                state: Optional[Dict[str, torch.Tensor]]):
+    """Depthwise causal conv1d along time as the reference's ck shifted
+    f32 products summed in its order (no (B, S, ck, R) tensor): u (B, S,
+    R) after the state's last ck - 1 inputs (zeros without a state).
+    Returns (f32 sum (B, S, R), the new conv buffer: the last ck - 1
+    inputs)."""
+    ck, s = conv_w.shape[0], u.shape[1]
+    if state is not None:
+        head = state["conv"].to(u.dtype)
+    else:
+        head = torch.zeros((u.shape[0], ck - 1, u.shape[2]), dtype=u.dtype, device=u.device)
+    u_ext = torch.cat([head, u], dim=1)
+    acc = sum(u_ext[:, i:i + s].to(torch.float32) * conv_w[i] for i in range(ck))
+    return acc, u_ext[:, -(ck - 1):]
+
+
+def _keep_state(state, conv: torch.Tensor, h: torch.Tensor):
+    """Write the new conv buffer and recurrent state into `state` in place;
+    None without a state (the reference returns none then)."""
+    if state is None:
+        return None
+    state["conv"].copy_(conv)
+    state["h"].copy_(h)
+    return state
+
+
+def rglru_scan(
+    params: Params,
+    u: torch.Tensor,   # (B, S, R) conv output
+    h0: torch.Tensor,  # (B, R)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t h_{t-1} + sqrt(1 - a_t^2) (i_t u_t), the reference's
+    formulas op for op: a_t = exp(r_t * -8 softplus(a_param)), the gates
+    r_t and i_t sigmoids of u_t W_a + b_a and u_t W_x + b_x on the f32 u.
+    Both gate weights go through `mm`: on a dense tree f32 u times the
+    f32 weight, as the reference; on a compressed one the DECA GeMV/GeMM,
+    whose bf16(x) is exact on the bf16-valued u. Returns (hs in u's dtype,
+    the last f32 h)."""
+    c = 8.0
+    log_a_base = -c * softplus(params["a_param"])  # (R,) negative
+    u32 = u.to(torch.float32)
+    r_gate = sigmoid(mm(u32, params["w_a"]) + params["b_a"])
+    i_gate = sigmoid(mm(u32, params["w_x"]) + params["b_x"])
+    a = torch.exp(r_gate * log_a_base)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_gate * u32)
+    hs, h = linear_recurrence(a, gated, h0.to(torch.float32))
+    return hs.to(u.dtype), h
+
+
+def linear_recurrence(a: torch.Tensor, x: torch.Tensor,
+                      h0: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h_t = a_t h_{t-1} + x_t over axis 1 of a and x (B, S, ...), the
+    reference's `lax.scan`: (every h_t stacked on axis 1, the last h)."""
+    h, hs = h0, []
+    for t in range(a.shape[1]):
+        h = a[:, t] * h + x[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1), h
+
+
+def rglru_block(
+    params: Params,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Griffin's recurrent block: gelu_tanh(x W_gate_branch) times the
+    RG-LRU of the causal conv of x W_in, then W_out. `state` {conv (B,
+    ck - 1, R), h (B, R) f32} carries a request across calls, in place."""
+    b = x.shape[0]
+    r = cfg.lru_width or cfg.d_model
+    gate = gelu_tanh(mm(x, params["w_gate_branch"]))  # (B, S, R)
+    u = mm(x, params["w_in"])
+    acc, conv = causal_conv(u, params["conv_w"], state)
+    u = acc.to(x.dtype)
+    h0 = state["h"] if state is not None else torch.zeros(
+        (b, r), dtype=torch.float32, device=x.device)
+    hs, h = rglru_scan(params, u, h0)
+    return mm(hs * gate, params["w_out"]), _keep_state(state, conv, h)
+
+
+def selective_scan(
+    dt: torch.Tensor,     # (B, S, di) f32
+    a: torch.Tensor,      # (di, st) f32, negative
+    b_mat: torch.Tensor,  # (B, S, st)
+    c_mat: torch.Tensor,  # (B, S, st)
+    u: torch.Tensor,      # (B, S, di)
+    h0: torch.Tensor,     # (B, di, st) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-1's scan h_t = exp(dt_t A) h_{t-1} + (dt_t B_t) u_t, y_t =
+    C_t h_t, as a loop over time. The reference builds exp(dt A), dt B,
+    their product with u and every h_t as (B, S, di, st) f32 tensors (2.1
+    GB each at batch 4 of 1024 falcon-mamba tokens); each step here makes
+    step t's slice by the same elementwise ops, so the values are the
+    same and the memory is O(B di st). Returns (y (B, S, di) f32, the
+    last h)."""
+    b32, c32, u32 = (t.to(torch.float32) for t in (b_mat, c_mat, u))
+    h, ys = h0, []
+    for t in range(dt.shape[1]):
+        dt_t = dt[:, t, :, None]
+        da = torch.exp(dt_t * a)
+        dbu = (dt_t * b32[:, t, None, :]) * u32[:, t, :, None]
+        h = da * h + dbu
+        ys.append((h * c32[:, t, None, :]).sum(dim=-1))
+    return torch.stack(ys, dim=1), h
+
+
+def mamba_block(
+    params: Params,
+    x: torch.Tensor,  # (B, S, D)
+    cfg: ModelConfig,
+    state: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
+    """Selective SSM (falcon-mamba): x W_in splits into u and the gate z;
+    u goes through the causal conv with its bias and silu, then sets the
+    input-dependent dt = softplus(dt_r W_dt + dt_bias), B and C (u W_x
+    split at dt_rank and dt_rank + state); the scan's y plus D u, times
+    silu(z), goes out through W_out. All four projections go through
+    `mm`, so a compressed `x_proj` or `dt_proj` (eligible at full width)
+    runs the DECA kernels. `state` {conv (B, ck - 1, di), h (B, di, st)
+    f32} carries a request across calls, in place."""
+    b = x.shape[0]
+    di, st, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    u, z = torch.chunk(mm(x, params["in_proj"]), 2, dim=-1)
+    acc, conv = causal_conv(u, params["conv_w"], state)
+    u = silu(acc + params["conv_b"]).to(x.dtype)
+    proj = mm(u, params["x_proj"])  # (B, S, dr + 2 st)
+    dt_r, b_mat, c_mat = torch.split(proj, [dr, st, st], dim=-1)
+    dt = softplus(mm(dt_r, params["dt_proj"]).to(torch.float32) + params["dt_bias"])
+    a = -torch.exp(params["a_log"])  # (di, st)
+    h0 = state["h"] if state is not None else torch.zeros(
+        (b, di, st), dtype=torch.float32, device=x.device)
+    y, h = selective_scan(dt, a, b_mat, c_mat, u, h0)
+    y = (y + params["d_skip"] * u.to(torch.float32)).to(x.dtype)
+    return mm(y * silu(z), params["out_proj"]), _keep_state(state, conv, h)

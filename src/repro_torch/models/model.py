@@ -1,29 +1,41 @@
-"""The dense GQA decoder over the block-paged KV pool.
+"""Config-driven model assembly of the port.
 
-Counterpart of `repro/models/model.py` for the paged serving path of a
-dense attention stack: llama3-8b, llama2-70b, llama3.2-1b and granite-3-8b
-(rope, swiglu; the last two with a tied head), opt-66b (learned
-positions, a relu MLP, full MHA) and gemma2-2b (geglu, local and global
-layers in turn, attention and final logit softcaps, post-attention and
-post-MLP norms, an embedding scaled by sqrt(d_model), a tied head), and
-the MoE family: grok-1-314b (geglu experts, softcaps) and kimi-k2-1t-a32b
-(swiglu experts), a top-k MoE FFN in every layer (`layers.moe_block`).
-Layers are kept per layer in a list
-rather than stacked for `lax.scan`; `decode_chunk_paged` runs its C steps
-and `spec_decode_chunk` its draft/verify rounds as Python loops with the
-done flags on the device and no host sync inside, so only the sampled
-tokens cross to the host, once per chunk, and on the card the engine
-captures each loop whole as one CUDA graph (`serve/graphs.py`). Every FC matmul goes through `core.decompress.mm` (the
-DECA GeMM/GeMV kernels for compressed weights) and decode attention
-through the fused paged-attention kernel.
+Counterpart of `repro/models/model.py`. One `Model` serves the families
+the port has taken: dense attention stacks (llama3-8b, llama2-70b,
+llama3.2-1b and granite-3-8b with rope and swiglu, the last two with a
+tied head; opt-66b with learned positions, a relu MLP and full MHA;
+gemma2-2b with geglu, local and global layers in turn, attention and
+final logit softcaps, post norms, an embedding scaled by sqrt(d_model)),
+the MoE family (grok-1-314b, kimi-k2-1t-a32b: a top-k MoE FFN in every
+layer, `layers.moe_block`), the ssm family (falcon-mamba-7b: a Mamba-1
+block a layer, no FFN) and the hybrid family (recurrentgemma-9b: RG-LRU
+and attention blocks in the pattern rec, rec, attn, each with an FFN).
+
+Two cache regimes, as in the reference. `forward(paged=...)` runs an
+attention stack over the block-paged KV pool (`init_paged_cache`):
+`decode_chunk_paged` runs its C steps and `spec_decode_chunk` its
+draft/verify rounds as Python loops with the done flags on the device and
+no host sync inside, so only the sampled tokens cross to the host, once
+per chunk, and on the card the engine captures each loop whole as one
+CUDA graph (`serve/graphs.py`). Without `paged`, `forward(cache=...)` runs
+any stack over the dense engine's per-layer caches (`init_cache`): a ring
+KV cache per attention layer, the conv buffer and f32 state per
+recurrent one; `decode_step` is one token of it, and `cache=None` is the
+full-sequence forward. Layers are kept per layer in a list rather than
+stacked for `lax.scan`. Every FC matmul goes through `core.decompress.mm`
+(the DECA GeMM/GeMV kernels for compressed weights) and paged decode
+attention through the fused paged-attention kernel.
 
 Params are a dict of tensors: {"embed", "final_norm", "lm_head" (absent
 when the head is tied to `embed`), "pos_embed" (learned positions only),
-"layers": [{"pre_norm", "attn": {wq, wk, wv, wo}, "post_attn_norm"
-(post norms only), "pre_mlp_norm", "mlp": {w_gate (swiglu and geglu),
-w_up, w_down} or, with experts, "moe": {router (D, E) f32, w_up, w_down,
-w_gate: (E, K, N) each, or one expert-stacked compressed leaf},
-"post_mlp_norm" (post norms only)}, ...]}.
+"layers": [{"pre_norm", then "attn": {wq, wk, wv, wo} and "post_attn_norm"
+(post norms only), or "mamba": {in_proj, conv_w, conv_b, x_proj, dt_proj,
+dt_bias, a_log, d_skip, out_proj}, or "rec": {w_in, w_gate_branch,
+conv_w, w_a, w_x, b_a, b_x, a_param, w_out}; then, except after a mamba
+block, "pre_mlp_norm", "mlp": {w_gate (swiglu and geglu), w_up, w_down}
+or, with experts, "moe": {router (D, E) f32, w_up, w_down, w_gate: (E, K,
+N) each, or one expert-stacked compressed leaf}, and "post_mlp_norm"
+(post norms only)}, ...]}.
 """
 from __future__ import annotations
 
@@ -39,22 +51,24 @@ from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
 Pools = List[Dict[str, torch.Tensor]]
+_ATTN = ("attn", "attn_local")
 
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
     """Config features outside the port so far, each with the step of
     ROADMAP Queue A item 10 (remaining model families) that ports it. The
     MoE family (grok-1-314b, kimi-k2-1t-a32b: an MoE FFN in every layer of
-    an attention stack) is ported; experts in a dense family, or an MoE
-    family without them, are not."""
+    an attention stack) and the ssm and hybrid families (falcon-mamba-7b,
+    recurrentgemma-9b, attention-free or not) are ported; experts in
+    another family, or an MoE family without them, are not; the vlm and
+    audio families, M-RoPE and the gelu MLP of the encoder are step 10.7."""
     experts = cfg.n_experts > 0
     checks = {
-        "family": (cfg.family not in ("dense", "moe"), "10.6-10.7"),
+        "family": (cfg.family not in ("dense", "moe", "ssm", "hybrid"), "10.7"),
         # experts only in an MoE family, an MoE family only with them, and
         # 1 <= experts_per_token <= n_experts
         "n_experts": ((cfg.family == "moe") != experts or (experts and not (
             0 < cfg.experts_per_token <= cfg.n_experts)), "10.5"),
-        "attn_pattern": (cfg.attn_pattern not in ("global", "local_global"), "10.6"),
         "mrope_sections": (bool(cfg.mrope_sections), "10.7"),
         "mlp_act": (cfg.mlp_act not in ("swiglu", "geglu", "relu"), "10.7"),
     }
@@ -75,27 +89,40 @@ class Model:
         # array per weight, and its compression floor counts that array
         uniform = len(set(self.kinds)) == 1 and cfg.scan_layers
         self.layer_stack = cfg.n_layers if uniform else 1
+        # only attention stacks page; recurrent state is O(1) a request
+        self.attn_only = all(k in _ATTN for k in self.kinds)
 
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
-    def init_block(self, generator: torch.Generator, *, device, dtype,
-                   spec: Optional[CompressionSpec] = None) -> Params:
-        """One layer's leaves. With `spec`, MoE expert weights come back
-        compressed, one expert at a time (`L.init_moe`); the rest dense."""
+    def init_block(self, generator: torch.Generator, kind: str = "attn", *, device,
+                   dtype, spec: Optional[CompressionSpec] = None) -> Params:
+        """One layer's leaves for its `kind` (attn, attn_local, ssm, rec),
+        as the reference's `_init_block`: a mamba block has no FFN. With
+        `spec`, MoE expert weights come back compressed, one expert at a
+        time (`L.init_moe`); the rest dense."""
         cfg = self.cfg
         norm = lambda: torch.zeros(cfg.d_model, device=device)
-        p = {"pre_norm": norm(), "attn": L.init_attention(generator, cfg, device, dtype)}
-        if cfg.post_norms:
-            p["post_attn_norm"] = norm()
-        p["pre_mlp_norm"] = norm()
-        if cfg.n_experts:
-            p["moe"] = L.init_moe(generator, cfg, device, dtype, spec=spec,
-                                  stack=self.layer_stack)
+        p = {"pre_norm": norm()}
+        if kind in _ATTN:
+            p["attn"] = L.init_attention(generator, cfg, device, dtype)
+            if cfg.post_norms:
+                p["post_attn_norm"] = norm()
+        elif kind == "ssm":
+            p["mamba"] = L.init_mamba(generator, cfg, device, dtype)
+        elif kind == "rec":
+            p["rec"] = L.init_rglru(generator, cfg, device, dtype)
         else:
-            p["mlp"] = L.init_mlp(generator, cfg, device, dtype)
-        if cfg.post_norms:
-            p["post_mlp_norm"] = norm()
+            raise ValueError(f"unknown layer kind {kind!r}")
+        if cfg.d_ff and kind != "ssm":
+            p["pre_mlp_norm"] = norm()
+            if cfg.n_experts:
+                p["moe"] = L.init_moe(generator, cfg, device, dtype, spec=spec,
+                                      stack=self.layer_stack)
+            else:
+                p["mlp"] = L.init_mlp(generator, cfg, device, dtype)
+            if cfg.post_norms:
+                p["post_mlp_norm"] = norm()
         return p
 
     def init(
@@ -136,10 +163,36 @@ class Model:
                 lm_head = compress_tree(lm_head, spec)
             params["lm_head"] = lm_head["lm_head"]
         params["layers"] = [
-            shrink(self.init_block(generator, device=device, dtype=dtype, spec=spec))
-            for _ in range(cfg.n_layers)
+            shrink(self.init_block(generator, kind, device=device, dtype=dtype, spec=spec))
+            for kind in self.kinds
         ]
         return params
+
+    # ------------------------------------------------------------------
+    # the dense engine's caches
+    # ------------------------------------------------------------------
+    def _block_cache(self, kind: str, b: int, max_len: int, device, dtype):
+        cfg = self.cfg
+        if kind in _ATTN:
+            size = min(max_len, cfg.window) if kind == "attn_local" else max_len
+            return L.init_kv_cache(b, size, cfg.n_kv_heads, cfg.d_head, device=device,
+                                   dtype=dtype, quant=cfg.kv_quant)
+        if kind == "ssm":
+            width, h = cfg.d_inner, (b, cfg.d_inner, cfg.ssm_state)
+        else:  # rec
+            width = cfg.lru_width or cfg.d_model
+            h = (b, width)
+        return {"conv": torch.zeros((b, cfg.ssm_conv - 1, width), dtype=dtype, device=device),
+                "h": torch.zeros(h, dtype=torch.float32, device=device)}
+
+    def init_cache(self, batch: int, max_len: int, *, device="cuda",
+                   dtype=torch.bfloat16) -> Pools:
+        """One cache per layer for `batch` rows: a ring KV cache of
+        `max_len` slots (a local layer's at most its window), rounded up
+        to 32, quantized with `cfg.kv_quant`; a recurrent layer's conv
+        buffer (its last ck - 1 inputs) and f32 state h."""
+        device = resolve(device)
+        return [self._block_cache(k, batch, max_len, device, dtype) for k in self.kinds]
 
     # ------------------------------------------------------------------
     # paged KV pools
@@ -149,8 +202,12 @@ class Model:
         dtype=torch.bfloat16,
     ) -> Pools:
         """One pool per layer: `num_blocks` allocatable pages plus the null
-        page (device row 0), quantized with `cfg.kv_quant`."""
+        page (device row 0), quantized with `cfg.kv_quant`. Only attention
+        stacks page: recurrent state is O(1) a request."""
         cfg = self.cfg
+        if not self.attn_only:
+            bad = sorted(set(self.kinds) - set(_ATTN))
+            raise NotImplementedError(f"paged KV serving needs an attention stack, got {bad}")
         device = resolve(device)
         return [
             L.init_paged_kv_cache(
@@ -176,20 +233,30 @@ class Model:
     def _block_apply(self, p, x, kind, positions, cache, paged):
         cfg = self.cfg
         h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
-        out, cache = L.paged_attention_block(
-            p["attn"], h, cfg, positions=positions,
-            local=(kind == "attn_local"), cache=cache,
-            block_tables=paged["block_tables"],
-            write_slots=paged["write_slots"],
-            write_pos=paged["write_pos"],
-            fresh_pages=paged.get("fresh_pages"),
-            kv_lens=paged.get("kv_lens"),
-            copy_pages=paged.get("copy_pages"),
-            window_override=paged.get("window_override"),
-        )
-        if cfg.post_norms:
+        if kind in _ATTN and paged is not None:
+            out, cache = L.paged_attention_block(
+                p["attn"], h, cfg, positions=positions,
+                local=(kind == "attn_local"), cache=cache,
+                block_tables=paged["block_tables"],
+                write_slots=paged["write_slots"],
+                write_pos=paged["write_pos"],
+                fresh_pages=paged.get("fresh_pages"),
+                kv_lens=paged.get("kv_lens"),
+                copy_pages=paged.get("copy_pages"),
+                window_override=paged.get("window_override"),
+            )
+        elif kind in _ATTN:
+            out, cache = L.attention_block(p["attn"], h, cfg, positions=positions,
+                                           local=(kind == "attn_local"), cache=cache)
+        elif kind == "ssm":
+            out, cache = L.mamba_block(p["mamba"], h, cfg, state=cache)
+        else:
+            out, cache = L.rglru_block(p["rec"], h, cfg, state=cache)
+        if cfg.post_norms and kind in _ATTN:
             out = L.rms_norm(p["post_attn_norm"], out, cfg.norm_eps)
         x = x + out
+        if not cfg.d_ff or kind == "ssm":
+            return x, cache
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
         if cfg.n_experts:
             out, _ = L.moe_block(p["moe"], h, cfg)  # aux: a training loss term
@@ -203,28 +270,38 @@ class Model:
         self,
         params: Params,
         *,
-        tokens: torch.Tensor,     # (B, S) int
-        positions: torch.Tensor,  # (B, S) per-request positions
-        cache: Pools,
-        paged: Dict[str, torch.Tensor],
-    ) -> Tuple[torch.Tensor, Pools]:
-        """Returns (logits (B, S, V) f32, pools updated in place).
+        tokens: torch.Tensor,                      # (B, S) int
+        positions: Optional[torch.Tensor] = None,  # (B, S)
+        cache: Optional[Pools] = None,
+        paged: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, Optional[Pools]]:
+        """Returns (logits (B, S, V) f32, caches updated in place).
 
-        `paged` holds {block_tables (B, MB), write_slots (B, S), write_pos
-        (B, S)} and optionally fresh_pages (F,), copy_pages (C, 2), a
-        kv_lens (B,) vector that routes S == 1 steps through the fused
-        paged-attention kernel and a window_override that caps its
-        attention window (the spec-decode draft)."""
+        With `paged`, `cache` is an `init_paged_cache` pool list and
+        `positions` the per-request positions; `paged` holds {block_tables
+        (B, MB), write_slots (B, S), write_pos (B, S)} and optionally
+        fresh_pages (F,), copy_pages (C, 2), a kv_lens (B,) vector that
+        routes S == 1 steps through the fused paged-attention kernel and a
+        window_override that caps its attention window (the spec-decode
+        draft). Without it, `cache` is an `init_cache` list (the dense
+        engine) or None (the full-sequence forward, caches None), and the
+        batch shares the positions of row 0, by default 0 .. S - 1."""
         cfg = self.cfg
+        if paged is not None and cache is None:
+            raise ValueError("a paged forward needs an init_paged_cache pool")
         x = params["embed"][tokens.long()]
+        b, s = tokens.shape
+        if positions is None:
+            positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
         if cfg.embed_scale:
             x = L.embed_scale(x, cfg.d_model)
         x = x.to(torch.bfloat16)
         if cfg.pos_emb == "learned":
             idx = torch.clamp(positions.long(), 0, cfg.pos_table - 1)
             x = x + params["pos_embed"][idx].to(torch.bfloat16)
+        caches = cache if cache is not None else [None] * len(self.kinds)
         new_cache = []
-        for p, kind, cache_l in zip(params["layers"], self.kinds, cache):
+        for p, kind, cache_l in zip(params["layers"], self.kinds, caches):
             x, cache_l = self._block_apply(p, x, kind, positions, cache_l, paged)
             new_cache.append(cache_l)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
@@ -234,13 +311,29 @@ class Model:
             logits = mm(x.to(torch.float32), params["lm_head"])
         if cfg.final_softcap:
             logits = L.softcap(logits, cfg.final_softcap)
-        return logits, new_cache
+        return logits, (new_cache if cache is not None else None)
+
+    def decode_step(
+        self,
+        params: Params,
+        tokens: torch.Tensor,     # (B, 1)
+        positions: torch.Tensor,  # (B, 1)
+        cache: Pools,
+    ) -> Tuple[torch.Tensor, Pools]:
+        """One next-token step of the dense engine against its filled
+        `init_cache` caches: (logits (B, V) f32, caches)."""
+        logits, cache = self.forward(params, tokens=tokens, positions=positions, cache=cache)
+        return logits[:, -1, :], cache
 
     def score(self, params: Params, tokens: torch.Tensor, *,
               block_size: int = 32) -> torch.Tensor:
         """Teacher-forced logits (S, V) f32 of one token sequence (S,),
-        through a paged pool of its own on the tokens' device: row i is the
-        next-token distribution after tokens[: i + 1]."""
+        through a paged pool of its own on the tokens' device for an
+        attention stack, or the full-sequence forward (the full scan) for a
+        recurrent one: row i is the next-token distribution after
+        tokens[: i + 1]."""
+        if not self.attn_only:
+            return self.forward(params, tokens=tokens[None])[0][0]
         s, bs = tokens.shape[0], block_size
         pages = -(-s // bs)
         dev = tokens.device

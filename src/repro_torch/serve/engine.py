@@ -1,9 +1,17 @@
-"""Serving: the paged prefill / decode-chunk steps and the generation engine.
+"""Serving: the prefill / decode steps and the generation engine.
 
-Counterpart of the paged path of `repro/serve/engine.py`: continuous
-batching over a block-paged, quantized KV pool with DECA-compressed
-weights. Requests go in through `submit()` and come out of
-`run_until_drained()`; `generate()` submits one request per prompt row.
+Counterpart of `repro/serve/engine.py`, with its two cache regimes:
+
+  paged (the default for attention stacks)
+      continuous batching over a block-paged, quantized KV pool with
+      DECA-compressed weights. Requests go in through `submit()` and come
+      out of `run_until_drained()`; `generate()` submits one request per
+      prompt row.
+  dense (`paged=False`, and what `paged="auto"` picks for ssm and hybrid
+  stacks, whose recurrent state is O(1) a request)
+      the fixed-slot ring cache: `generate()` prefills one (B, S) batch
+      and decodes it to the end one `Model.decode_step` a token
+      (`make_prefill_step`, `make_decode_step`), uncaptured.
 
 At temperature 0 sampling is greedy: the token with the largest logit
 (the first on ties, as `jnp.argmax`). Above it every row is sampled with
@@ -45,6 +53,30 @@ from repro_torch.serve.host_tier import HostTier, TierPayload, apply_page_planes
 from repro_torch.serve.paged_cache import PagedKVCache, _RadixNode
 from repro_torch.serve.scheduler import Request, Scheduler
 from repro_torch.serve.slo import RequestStatus
+
+
+def make_prefill_step(model: Model, cache_len: Optional[int] = None) -> Callable:
+    """prefill(params, tokens (B, S)) -> (last logits (B, V), caches): a
+    fresh `init_cache` of `cache_len` slots (S by default) on the tokens'
+    device, filled by one forward."""
+
+    def prefill(params, tokens):
+        b, s = tokens.shape
+        cache = model.init_cache(b, cache_len or s, device=tokens.device)
+        logits, cache = model.forward(params, tokens=tokens, cache=cache)
+        return logits[:, -1, :], cache
+
+    return prefill
+
+
+def make_decode_step(model: Model) -> Callable:
+    """serve_step(params, tokens (B, 1), positions (B, 1), caches) ->
+    (logits (B, V), caches)."""
+
+    def serve_step(params, tokens, positions, cache):
+        return model.decode_step(params, tokens, positions, cache)
+
+    return serve_step
 
 
 def make_paged_prefill_step(model: Model) -> Callable:
@@ -181,8 +213,14 @@ class GenerationEngine:
     `SpecConfig.draft_codec` (decompressing every compressed leaf with the
     DECA decompression kernel on the card), drafts k tokens per round
     through the fused paged walk, verifies the k+1 positions in one target
-    forward and rolls rejected pages back. Only the paged engine exists in
-    the port; `paged=False` raises.
+    forward and rolls rejected pages back.
+
+    `paged` ("auto" by default) picks the paged engine exactly when every
+    layer is attention, as the reference; False (or an ssm or hybrid
+    stack) gives the dense ring-cache engine, whose only request API is
+    `generate`, and which refuses `spec_decode`, `sla`, `injector`,
+    `watchdog` and `host_tier` with the reference's errors (there is no
+    admission loop to gate and no pool to tier).
 
     `prefix_cache=True` turns on multi-tenant prefix sharing: a radix index
     over `block_size`-token prompt chunks maps cached prefixes to
@@ -249,16 +287,21 @@ class GenerationEngine:
         injector=None,
         watchdog=None,
         host_tier=None,
-        paged: bool = True,
+        paged="auto",
         device="cuda",
     ):
-        if not paged:
+        if paged == "auto":
+            paged = model.attn_only
+        self.paged = bool(paged)
+        if not self.paged:
             if spec_decode is not None:
                 raise ValueError("spec_decode requires the paged engine")
-            raise ValueError(
-                "the dense ring-cache engine is not ported (ROADMAP Queue A "
-                "item 10); the port serves the paged path only"
-            )
+            if sla is not None or injector is not None or watchdog is not None:
+                raise ValueError(
+                    "sla / injector / watchdog require the paged engine "
+                    "(the dense ring cache has no admission loop to gate)")
+            if host_tier:
+                raise ValueError("host_tier requires the paged engine")
         self.device = resolve(device)
         embed_dev = params["embed"].device
         if embed_dev.type != self.device.type:
@@ -277,6 +320,16 @@ class GenerationEngine:
         self._key = sampling.prng_key(seed, self.device)
         self._temp = torch.tensor(self.temperature, dtype=torch.float32,
                                   device=self.device)
+        self.draft_params = None
+        self.spec = spec_decode
+        self.obs = obs
+        if not self.paged:
+            self.tier = self.kv = self.scheduler = None
+            self._prefill = make_prefill_step(model, cache_len=max_len)
+            self._decode = make_decode_step(model)
+            if obs is not None and obs.rooflens is not None:
+                self._bind_rooflens(obs.rooflens, max_slots)
+            return
         self.block_size = block_size
         self.max_blocks = math.ceil(max_len / block_size)
         if num_blocks is None:
@@ -290,8 +343,6 @@ class GenerationEngine:
         )
         self._paged_prefill = make_paged_prefill_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
-        self.draft_params = None
-        self.spec = spec_decode
         self.spec_rounds = 0
         if spec_decode is not None:
             self.draft_params = make_draft_tree(
@@ -305,7 +356,6 @@ class GenerationEngine:
                 model, k=spec_decode.k, rounds=self.spec_rounds,
                 draft_window=spec_decode.draft_window, block_size=block_size,
             )
-        self.obs = obs
         if obs is not None and obs.rooflens is not None:
             self._bind_rooflens(obs.rooflens, max_slots)
         self._chunk_graphs = self._spec_graphs = None
@@ -458,6 +508,7 @@ class GenerationEngine:
         `deadline_s` drops the request (EXPIRED, or PREEMPTED once parked)
         when it can no longer be served in time; `priority` orders
         park-victim selection under pool pressure."""
+        self._require_paged("submit")
         return self.scheduler.submit(
             prompt, max_new_tokens=max_new_tokens, eos_id=eos_id,
             deadline_s=deadline_s, priority=priority,
@@ -472,7 +523,13 @@ class GenerationEngine:
 
     def run_until_drained(self) -> Dict[int, np.ndarray]:
         """Step the scheduler until every submitted request completes."""
+        self._require_paged("run_until_drained")
         return self.scheduler.run_until_drained()
+
+    def _require_paged(self, what: str) -> None:
+        if not self.paged:
+            raise ValueError(f"{what} requires the paged engine; the dense engine "
+                             "serves through generate()")
 
     # ------------------------------------------------------------------
     # crash-safe persistence
@@ -635,9 +692,29 @@ class GenerationEngine:
 
     def generate(self, prompts: np.ndarray, n_steps: int) -> np.ndarray:
         """prompts (B, S) int -> generated tokens (B, n_steps)."""
+        if not self.paged:
+            return self._generate_dense(np.asarray(prompts), n_steps)
         rids = [
             self.submit(np.asarray(p, np.int32), max_new_tokens=n_steps)
             for p in prompts
         ]
         done = self.run_until_drained()
         return np.stack([done[r] for r in rids], axis=0)
+
+    def _generate_dense(self, prompts: np.ndarray, n_steps: int) -> np.ndarray:
+        """The dense engine, as the reference's: one prefill of the (B, S)
+        batch into fresh `max_len`-slot caches, then `n_steps` decode steps
+        at positions S, S + 1, ...; row i's token j is sampled under the
+        key (seed, i, j), greedy at temperature 0. Each sampled token is
+        the one copy back to the host a step."""
+        b, s = prompts.shape
+        rows = np.arange(b)
+        logits, cache = self._prefill(self.params, self._t(prompts))
+        tok = self._sample_rows(logits, rows, np.zeros(b))
+        out = []
+        for i in range(n_steps):
+            out.append(tok)
+            pos = torch.full((b, 1), s + i, dtype=torch.int32, device=self.device)
+            logits, cache = self._decode(self.params, self._t(tok[:, None]), pos, cache)
+            tok = self._sample_rows(logits, rows, np.full(b, i + 1))
+        return np.stack(out, axis=1)

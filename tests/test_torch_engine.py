@@ -23,7 +23,7 @@ from repro.serve.engine import GenerationEngine as JEngine
 from repro_torch.configs.base import get_smoke_config
 from repro_torch.convert import params_from_jax
 from repro_torch.models.model import Model
-from repro_torch.serve.engine import GenerationEngine
+from repro_torch.serve.engine import GenerationEngine, SpecConfig
 from repro_torch.serve.scheduler import STAT_UNITS
 from torch_parity import run_exact
 
@@ -181,9 +181,10 @@ def test_generate_and_request_validation():
 
 def test_temperature_sampling_is_refused_with_its_roadmap_item():
     """Temperature sampling (Queue A item 4b) is no longer refused: the
-    engine serves at T > 0, every token in the vocabulary. What the port
-    still refuses names its roadmap item (the dense ring-cache engine,
-    item 10), and params on another device than the engine's raise."""
+    engine serves at T > 0, every token in the vocabulary. The dense
+    ring-cache engine (item 10.4) is ported too: `paged=False` serves, and
+    refuses spec decoding as the reference's does; params on another
+    device than the engine's raise."""
     cfg = get_smoke_config("llama3-8b")
     model = Model(cfg)
     params = model.init(torch.Generator().manual_seed(0), device="cpu")
@@ -191,8 +192,11 @@ def test_temperature_sampling_is_refused_with_its_roadmap_item():
                            **ENGINE)
     out = eng.generate(np.stack([p[:4] for p in _prompts()[:2]]), 4)
     assert out.shape == (2, 4) and ((0 <= out) & (out < cfg.vocab_size)).all()
-    with pytest.raises(ValueError, match="Queue A item 10"):
-        GenerationEngine(model, params, temperature=0.7, paged=False, device="cpu")
+    dense = GenerationEngine(model, params, temperature=0.7, paged=False, max_len=16,
+                             device="cpu")
+    assert dense.generate(np.stack([p[:4] for p in _prompts()[:2]]), 4).shape == (2, 4)
+    with pytest.raises(ValueError, match="spec_decode requires the paged engine"):
+        GenerationEngine(model, params, paged=False, spec_decode=SpecConfig(), device="cpu")
     on_meta = dict(params, embed=params["embed"].to("meta"))
     with pytest.raises(ValueError, match="lie on"):
         GenerationEngine(model, on_meta, device="cpu")

@@ -44,6 +44,9 @@ from test_torch_model import NB, _logit_tol, _prefill_inputs, _same_leaf
 from torch_parity import run_exact
 
 ARCHS = ("llama2-70b", "opt-66b", "llama3.2-1b", "granite-3-8b")
+# the recurrent stacks (item 10.6): configs and trees here, serving in
+# tests/test_torch_ssm.py (the dense engine)
+TREE_ARCHS = ARCHS + ("falcon-mamba-7b", "recurrentgemma-9b")
 KV_KINDS = ("none", "int8")
 LENGTHS = (4, 19, 11, 26, 7)
 ENGINE = dict(max_len=64, block_size=8, max_slots=3, num_blocks=10, decode_chunk=4)
@@ -140,7 +143,7 @@ def test_greedy_tokens_match_reference(exact_report, arch, kind):
 # configs and parameter trees
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TREE_ARCHS)
 def test_configs_are_the_references_and_the_model_accepts_them(arch):
     for port, ref in ((get_config(arch), jget_config(arch)),
                       (get_smoke_config(arch), jget_smoke_config(arch))):
@@ -149,18 +152,21 @@ def test_configs_are_the_references_and_the_model_accepts_them(arch):
     assert get_config(arch).param_count() == jget_config(arch).param_count()
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", TREE_ARCHS)
 def test_init_and_compress_tree_match_the_references_trees(arch):
     """The port's `Model.init` draws the reference's leaves at the
     reference's shapes (`pos_embed` under learned positions, no `lm_head`
-    under a tied head, no gate in a relu MLP), `params_from_jax` carries
+    under a tied head, no gate in a relu MLP, a mamba block and no FFN in
+    an ssm layer, an RG-LRU block in a rec one), `params_from_jax` carries
     both trees, and the port's `compress_tree` of the reference's dense
-    tree is the reference's compressed tree, leaf for leaf and plane for
-    plane."""
+    tree (the floor counting the reference's stacked array: `layer_stack`)
+    is the reference's compressed tree, leaf for leaf and plane for
+    plane; `Model.init(spec=)` compresses the same leaves."""
     cfg = get_smoke_config(arch)
+    model = Model(cfg)
     jdense = JModel(jget_smoke_config(arch)).init(jax.random.PRNGKey(0))
     dense = params_from_jax(jax.device_get(jdense), cfg, device="cpu")
-    mine = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu")
+    mine = model.init(torch.Generator().manual_seed(0), device="cpu")
 
     def shapes(tree):
         if isinstance(tree, dict):
@@ -172,46 +178,64 @@ def test_init_and_compress_tree_match_the_references_trees(arch):
     assert shapes(mine) == shapes(dense)
     assert ("pos_embed" in mine) == (cfg.pos_emb == "learned")
     assert ("lm_head" in mine) == (not cfg.tie_embeddings)
-    assert ("w_gate" in mine["layers"][0]["mlp"]) == (cfg.mlp_act == "swiglu")
+    for layer, kind in zip(mine["layers"], model.kinds):
+        assert ("mamba" in layer) == (kind == "ssm") and ("rec" in layer) == (kind == "rec")
+        assert ("mlp" in layer) == (kind != "ssm")
+        if "mlp" in layer:
+            assert ("w_gate" in layer["mlp"]) == (cfg.mlp_act in ("swiglu", "geglu"))
     want = params_from_jax(jax.device_get(_reference_params(arch)), cfg, device="cpu")
-    got = compress_tree(dense, get_spec("bf8_50"))
+    got = compress_tree(dense, get_spec("bf8_50"), layer_stack=model.layer_stack)
     assert set(got) == set(want)
     for name in set(got) - {"layers"}:
         assert _same_leaf(got[name], want[name]), name
     assert not isinstance(got["embed"], CompressedTensor)
     for got_l, want_l in zip(got["layers"], want["layers"]):
-        for group in ("attn", "mlp"):
-            assert set(got_l[group]) == set(want_l[group])
-            for name, leaf in got_l[group].items():
+        assert set(got_l) == set(want_l)
+        for group, leaves in got_l.items():
+            if not isinstance(leaves, dict):
+                assert _same_leaf(leaves, want_l[group]), group
+                continue
+            assert set(leaves) == set(want_l[group])
+            for name, leaf in leaves.items():
                 assert _same_leaf(leaf, want_l[group][name]), (group, name)
-    spec_init = Model(cfg).init(torch.Generator().manual_seed(0), device="cpu",
-                                spec=get_spec("bf8_50"))
+    spec_init = model.init(torch.Generator().manual_seed(0), device="cpu",
+                           spec=get_spec("bf8_50"))
     assert shapes(spec_init["embed"]) == shapes(mine["embed"])
-    assert all(isinstance(v, CompressedTensor) for v in spec_init["layers"][0]["mlp"].values())
+    for init_l, got_l in zip(spec_init["layers"], got["layers"]):
+        for group, leaves in got_l.items():
+            if isinstance(leaves, dict):
+                assert {n: isinstance(v, CompressedTensor) for n, v in init_l[group].items()} \
+                    == {n: isinstance(v, CompressedTensor) for n, v in leaves.items()}, group
 
 
 _REFUSED = {
     # the MoE family is ported (item 10.5); an MoE family without experts is not
-    "moe": {"family": "moe"},
-    "gelu": {"mlp_act": "gelu"},
-    "mrope": {"mrope_sections": (2, 3, 3)},
-    "attention_free": {"attn_pattern": "none"},
+    "moe": ({"family": "moe"}, "10.5"),
+    # the encoder and the multimodal families are step 10.7
+    "gelu": ({"mlp_act": "gelu"}, "10.7"),
+    "mrope": ({"mrope_sections": (2, 3, 3)}, "10.7"),
+    "vlm": ({"family": "vlm"}, "10.7"),
+    "audio": ({"family": "audio"}, "10.7"),
 }
-# gemma2-2b's features (item 10.3), refused until the port took them
+# gemma2-2b's features (item 10.3) and the recurrent stacks' (10.6),
+# refused until the port took them
 _ACCEPTED = {
     "post_norms": {"post_norms": True},
     "embed_scale": {"embed_scale": True},
     "final_softcap": {"final_softcap": 30.0},
     "local_global": {"attn_pattern": "local_global"},
     "geglu": {"mlp_act": "geglu"},
+    "attention_free": {"attn_pattern": "none"},
 }
 
 
 @pytest.mark.parametrize("feature", sorted(_REFUSED))
 def test_model_still_refuses_unported_features_with_their_item(feature):
-    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), **_REFUSED[feature])
-    with pytest.raises(NotImplementedError, match="Queue A item 10"):
+    change, step = _REFUSED[feature]
+    cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), **change)
+    with pytest.raises(NotImplementedError, match="Queue A item 10") as err:
         Model(cfg)
+    assert f"step {step}" in str(err.value)
 
 
 @pytest.mark.parametrize("feature", sorted(_ACCEPTED))

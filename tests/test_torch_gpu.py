@@ -1193,3 +1193,75 @@ def test_moe_spec_launch_replays_bitwise(card):
     assert deca_decompress.decompress.launches - before == experts + 4 * cfg.n_layers + 1
     for key in eng._spec_graphs.graphs:
         assert replay_check(eng._spec_graphs, key, eng.kv.pools) == [], key
+
+
+# the recurrent stacks' shapes the kernels had not met: falcon-mamba-7b's
+# dt_proj (K 256: 8 groups, the GeMV's split-K plan and the GeMM's TMA
+# ring over 4 stages) and x_proj (N 288, a partial column block),
+# recurrentgemma-9b's MQA wk / wv (N 256), and its gates' 4096 x 4096
+# w_a / w_x, which take f32 x
+_RECURRENT_SHAPES = [(256, 8192), (8192, 288), (4096, 256), (4096, 4096)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", _RECURRENT_SHAPES, ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("density", [1.0, 0.5])
+@pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
+def test_gemv_and_gemm_at_the_recurrent_shapes_match_plain(card, quant, density, shape):
+    k, n = shape
+    g = torch.Generator(device=card).manual_seed(k + n)
+    ct = compress(torch.randn(k, n, generator=g, device=card) / k ** 0.5,
+                  CompressionSpec(quant, density))
+    for m in (1, 4, 256):  # decode rows, and the 4 x 64 prefill
+        x = torch.randn(m, k, generator=g, device=card)  # f32, not bf16-valued
+        got = ops.decompress_gemm(x, ct, out_dtype=torch.float32)
+        plain = ref.decompress_gemv if m <= ops.GEMV_MAX_M else ref.decompress_gemm
+        want = plain(x, ct, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        assert got.shape == (m, n) and _close(got, want), (m, shape)
+
+
+def _plain_matmuls(monkeypatch):
+    monkeypatch.setattr(deca_gemm, "decompress_gemv", ref.decompress_gemv)
+    monkeypatch.setattr(deca_gemm, "decompress_gemm", ref.decompress_gemm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "falcon-mamba-7b@512",
+                                  "recurrentgemma-9b", "llama3-8b"])
+def test_dense_engine_steps_on_the_card_match_the_plain_path(card, arch, monkeypatch):
+    """A smoke config's dense-engine prefill (2 prompts of 12 tokens) and
+    three decode steps on the card, bf8_50 weights compressed there: the
+    kernel path's logits against the plain path's on the same tokens, to
+    5e-2 of their scale; every decode step launched the GeMV. At d_model
+    512 falcon-mamba's x_proj and dt_proj are compressed too."""
+    from repro_torch.serve.engine import make_prefill_step
+
+    name, _, width = arch.partition("@")
+    cfg = dataclasses.replace(get_smoke_config(name), kv_quant="int8")
+    if width:
+        cfg = dataclasses.replace(cfg, d_model=int(width))
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=card).manual_seed(0), device=card,
+                        spec=get_spec("bf8_50"))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12),
+                           generator=torch.Generator(device=card).manual_seed(1), device=card)
+    outs = {}
+    for path in ("kernel", "plain"):
+        if path == "plain":
+            _plain_matmuls(monkeypatch)
+        else:
+            deca_gemm.decompress_gemv.launches = 0
+        logits, cache = make_prefill_step(model, cache_len=16)(params, tokens)
+        rows = [logits]
+        for j in range(3):
+            tok = outs["kernel"][j].argmax(-1)[:, None] if path == "plain" else (
+                rows[-1].argmax(-1)[:, None])
+            pos = torch.full((2, 1), 12 + j, dtype=torch.int32, device=card)
+            rows.append(model.decode_step(params, tok.to(torch.int32), pos, cache)[0])
+        torch.cuda.synchronize()
+        outs[path] = rows
+        if path == "kernel":
+            assert deca_gemm.decompress_gemv.launches >= 3
+    for got, want in zip(outs["kernel"], outs["plain"]):
+        assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
