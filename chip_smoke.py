@@ -66,9 +66,9 @@ replayed decode step beside its bytes bound, launches, a replay's
 breakdown, tokens against teacher-forced logits), and its kernel path held
 against the plain path over its first 4 layers; then llama3.2-1b the same
 way, whose head is tied to the embedding. Last, `moe` serves grok-1-314b
-(8 experts, top-2) at full width and 16 of its 64 layers, built one
+(8 experts, top-2) at full width and 8 of its 64 layers, built one
 expert at a time: its kernels at its shapes and kimi-k2's, a 4-request
-serve with 833 GeMVs a decode step, replays bitwise and the token-slots
+serve with 417 GeMVs a decode step, replays bitwise and the token-slots
 each prefill drops, the kernel path against the plain path, a drop-free
 copy with its routes pinned held against teacher-forced logits, and a
 spec engine on 2 of its layers. Last, `recurrent` serves falcon-mamba-7b
@@ -80,7 +80,20 @@ with 256 and 292 GeMVs a decode step, the step beside its bytes bound and
 a profiler split of it, the kernel path against the plain path, every
 token against teacher-forced logits of the full scan; then llama3.2-1b
 with `paged=False`, its tokens against its paged engine's up to a near
-tie. The kernel bounds take their
+tie. Last, `vlm_audio` serves qwen2-vl-7b (M-RoPE over three position
+streams, G 7) and hubert-xlarge (a bidirectional encoder with learned
+positions over 32768, Dh 80, a gelu MLP, 504 targets) at full width and
+depth: qwen2-vl's kernels at its shapes, 4 requests through captured
+graphs with 197 GeMVs and 28 attention calls a step (replays bitwise,
+tokens against teacher-forced logits), its kernel path against the plain
+path, a spec engine, and a forward on one image's 32 x 32 patch
+embeddings with Qwen2-VL's three streams; hubert's GeMV at its decode
+rows (M = 4) and GeMM at M = 4096 and 32768 (lm_head N = 504 on the
+direct path), attention at Dh 80 with
+causal=0, encoder passes at 4 x 1024 and 1 x 32768 (289 GeMMs a pass,
+beside the FLOP bound), its kernel path against the plain path,
+bidirectionality, and a paged serve of 4 x 64 tokens
+(`tools/vlm_audio_serve.py` runs it alone). The kernel bounds take their
 rates from the same H100 profile (`core/roofsurface.py`), whose
 Roof-Surface lines print as an analytic line at the start.
 """
@@ -134,11 +147,12 @@ GEMMA_MAX_LEN = 8192
 # hubert-xlarge's lm_head width: code rows of 504 bytes, no TMA box
 ODD_N, ODD_K = 504, 1280
 # grok-1-314b at full width, cut in depth: one card holds 16 of its 64
-# layers with all 8 experts (about 51 GB at bf8_50), a whole period of a
-# uniform stack; a drop-free copy (capacity = n_experts) with its routes
-# pinned carries the token rule, and its spec engine runs at MOE_SPEC_LAYERS
+# layers with all 8 experts (about 51 GB at bf8_50), a uniform stack; the
+# script runs 8 of them (about 26 GB) to keep within its time budget; a
+# drop-free copy (capacity = n_experts) with its routes pinned carries the
+# token rule, and its spec engine runs at MOE_SPEC_LAYERS
 MOE = "grok-1-314b"
-MOE_LAYERS = 16
+MOE_LAYERS = 8
 MOE_NEW = 64
 MOE_SPEC_LAYERS = 2
 MOE_PATH_STEPS = 1  # decode steps of its kernel-vs-plain comparison (plain GeMV ~0.1 s a call)
@@ -154,6 +168,20 @@ RECURRENT = ("falcon-mamba-7b", "recurrentgemma-9b")
 RING_MODEL = TIED_MODEL
 RECURRENT_BATCH, RECURRENT_PROMPT, RECURRENT_NEW = 4, 64, 32
 RECURRENT_MS = (1, 4, 256)  # the GeMV at decode rows, the GeMM at the prefill's 4 x 64
+# qwen2-vl-7b (M-RoPE, G 7) and hubert-xlarge (a bidirectional encoder, Dh
+# 80, learned positions over 32768, a gelu MLP, 504 targets) at full width
+# and depth: qwen's matmuls at decode rows, the spec verify's 16 and a
+# prefill; one image of a 32 x 32 patch grid between 16 + 16 text
+# embeddings; hubert's GeMV at its served decode rows (4), its GeMM at a
+# 4 x 1024 pass and the reference's prefill_32k length (its batch of 32
+# cut to 1), served paged as the reference serves it: 4 prompts of 64
+# tokens, 8 new each
+VLM, AUDIO = "qwen2-vl-7b", "hubert-xlarge"
+VLM_MS = (1, 4, 16, 2048)
+IMAGE_TEXT, IMAGE_GRID = 16, 32
+AUDIO_MS = (4, 4096, 32768)
+AUDIO_PASSES = ((4, 1024), (1, 32768))
+AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = 4, 64, 8
 
 
 _LOG = []
@@ -408,26 +436,31 @@ def time_attention(torch, timer, case, args):
     host time, its plain version, SDPA over the K/V gathered beforehand to
     bf16 (the library call) and the bound: every page the slots walk, the
     queries, the output and the tables moved once, or 4 Hq Dh operations
-    a token. Returns the bf16 arguments."""
+    a token. `case["causal"]` False times the bidirectional walk (and SDPA
+    under the sentinel mask alone). Returns the bf16 arguments."""
     from repro_torch.core.codecs import get_codec
     from repro_torch.kernels import paged_attention, ref
     from repro_torch.models import layers
 
-    kind = case["kind"]
+    kind, causal = case["kind"], case.get("causal", True)
     q, pools, tables, kv_lens, q_pos = args
     b, hq, dh = q.shape
     bs, hkv = pools["kp"].shape[1:3]
     qb = q.bfloat16()
     bargs = (qb,) + args[1:]
-    case["ms"] = timer(lambda: paged_attention.paged_attention(*bargs, quant=kind))
+    case["ms"] = timer(lambda: paged_attention.paged_attention(*bargs, quant=kind,
+                                                               causal=causal))
     case["device_ms"], case["host_ms"] = timer.split(
-        lambda: paged_attention.paged_attention(*bargs, quant=kind))
-    case["plain_ms"] = timer(lambda: ref.paged_decode_attention(*bargs, quant=kind), reps=3)
+        lambda: paged_attention.paged_attention(*bargs, quant=kind, causal=causal))
+    case["plain_ms"] = timer(lambda: ref.paged_decode_attention(*bargs, quant=kind,
+                                                                causal=causal), reps=3)
     kg, vg, kpos = layers.paged_gather_kv(pools, tables, kind)
     # (B, Hq, T, Dh): each KV head serves its group of query heads
     kt = kg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
     vt = vg.transpose(1, 2).repeat_interleave(hq // hkv, dim=1)
-    mask = (kpos <= q_pos[:, None]) & (kpos != ref.CACHE_EMPTY_POS)
+    mask = kpos != ref.CACHE_EMPTY_POS
+    if causal:
+        mask = mask & (kpos <= q_pos[:, None])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     case["library_ms"] = timer(lambda: sdpa(
         qb[:, :, None], kt, vt, attn_mask=mask[:, None, None]))
@@ -869,7 +902,7 @@ def gemvs_per_step(cfg) -> int:
     3 in a gated MLP or 2 in a relu one; an MoE layer runs every expert's
     FFN on its bin once per routing slot, E x k of them; a Mamba layer has
     no FFN) and one for an untied lm_head (a tied head is a cuBLAS GEMM).
-    grok-1 at 16 layers: 16 x (4 + 8 x 2 x 3) + 1 = 833; falcon-mamba-7b
+    grok-1 at 8 layers: 8 x (4 + 8 x 2 x 3) + 1 = 417; falcon-mamba-7b
     64 x 4 = 256; recurrentgemma-9b 26 x (5 + 3) + 12 x (4 + 3) = 292."""
     ffn = 3 if cfg.mlp_act in ("swiglu", "geglu") else 2
     if cfg.n_experts:
@@ -2323,19 +2356,24 @@ def check_model_kernels(torch, timer, model, params, cases, expert_ms=(1, 4, 204
 
 def check_attention_at(torch, timer, cfg, g, mine):
     """The attention kernel at a model's heads over the served KV pool,
-    against its plain version, timed; its case goes to `mine`."""
+    against its plain version, timed; its case goes to `mine`. A
+    bidirectional model's (`causal=False`) queries sit at a third of their
+    slots' lengths, so the keys after them count."""
     from repro_torch.kernels import paged_attention, ref
 
     q, pools, tables, kv_lens, q_pos = _attention_inputs(
         torch, SERVED_KV, g, cfg.n_heads, cfg.n_kv_heads, cfg.d_head)
+    if not cfg.causal:
+        q_pos = kv_lens // 3
     args = (q, pools, tables, kv_lens, q_pos)
-    got = paged_attention.paged_attention(*args, quant=SERVED_KV)
-    want = ref.paged_decode_attention(*args, quant=SERVED_KV)
+    got = paged_attention.paged_attention(*args, quant=SERVED_KV, causal=cfg.causal)
+    want = ref.paged_decode_attention(*args, quant=SERVED_KV, causal=cfg.causal)
     torch.cuda.synchronize()
     err, rel = rel_err(got, want)
-    role = f"G={cfg.n_heads // cfg.n_kv_heads} Hkv={cfg.n_kv_heads} Dh={cfg.d_head}"
+    role = (f"G={cfg.n_heads // cfg.n_kv_heads} Hkv={cfg.n_kv_heads} Dh={cfg.d_head}"
+            + ("" if cfg.causal else " causal=0"))
     case = {"model": cfg.name, "kernel": "attention", "kind": SERVED_KV, "variant": "plain",
-            "role": role, "max_abs_err": err, "rel_err": rel}
+            "role": role, "causal": cfg.causal, "max_abs_err": err, "rel_err": rel}
     time_attention(torch, timer, case, args)
     mine.append(case)
     del args, pools, got, want
@@ -2488,6 +2526,8 @@ def serve_paper_model(torch, model, params, report, batches, lens=None, max_len=
                f"the experts read once instead of {cfg.experts_per_token} times) the bound "
                f"would be {once:.3f} ms, {replay_ms / once:.2f}x" if fc != fc_once else ""))
         out[what] = {"prompt_lens": [len(p) for p in batch], "tokens": run["tokens"],
+                     "prompts": [[int(t) for t in p] for p in batch],
+                     "outs": [[int(t) for t in o] for o in outs],
                      "wall_s": run["wall_s"], "prefills": pf, "replayed_ms_per_step": replay_ms,
                      "bound_ms": bound, "one_read_bound_ms": once, "fc_bytes": fc,
                      "fc_stored_bytes": fc_once, "head_bytes": head,
@@ -2844,7 +2884,7 @@ def moe(torch, report):
     SERVED_SPEC on the card one expert at a time: its build and peak, its
     kernels at its shapes (the experts through `pick` views) and kimi-k2's,
     a 4-request greedy serve of MOE_NEW tokens at its capacity 1.25 (each
-    decode chunk replayed bitwise, 833 GeMVs a step, the replayed step
+    decode chunk replayed bitwise, 417 GeMVs a step, the replayed step
     beside its bytes bound with every expert read once per routing slot,
     the token-slots each prefill drops, of all and of the prompt tokens);
     the kernel path against the plain path over PATH_LAYERS layers at the
@@ -3014,7 +3054,7 @@ def compare_dense_paths(torch, model, params, report, key, steps=2):
     results, fed = {}, []
     for path in ("kernel", "plain"):
         with plain_kernels() if path == "plain" else contextlib.nullcontext():
-            logits, cache = make_prefill_step(cut, cache_len=n + steps)(head, tokens)
+            logits, cache = make_prefill_step(cut, cache_len=n + steps)(head, {"tokens": tokens})
             outs = [logits.float()]
             for j in range(steps):
                 if path == "kernel":  # both paths are fed the kernel path's tokens
@@ -3079,7 +3119,7 @@ def profile_dense_step(torch, model, params, report, key, n=3):
     b, s = RECURRENT_BATCH, RECURRENT_PROMPT
     g = torch.Generator(device="cuda").manual_seed(5)
     tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
-    _, cache = make_prefill_step(model, cache_len=s + 2 * n + 1)(params, tokens)
+    _, cache = make_prefill_step(model, cache_len=s + 2 * n + 1)(params, {"tokens": tokens})
     tok = tokens[:, -1:].to(torch.int32)
 
     def step(i):
@@ -3284,6 +3324,275 @@ def recurrent(torch, report):
     res["cases"], res["seconds"] = cases, time.perf_counter() - t0
     log(f"recurrent: {res['seconds']:.1f} s")
     report["recurrent"] = res
+    return cases
+
+
+def image_positions(torch, text: int, grid: int):
+    """Qwen2-VL's three position streams (3, 1, S) for `text` text tokens,
+    one image of a grid x grid patch grid, then `text` more (the paper's
+    rule for one image): text tokens have t = h = w = their index; the
+    patches share t = `text` and take h = `text` + row, w = `text` +
+    column; the text after them resumes at the largest id plus one."""
+    before = torch.arange(text).expand(3, text)
+    rows = torch.arange(grid).repeat_interleave(grid)
+    cols = torch.arange(grid).repeat(grid)
+    image = text + torch.stack([torch.zeros_like(rows), rows, cols])
+    after = int(image.max()) + 1 + torch.arange(text).expand(3, text)
+    return torch.cat([before, image, after], dim=1)[:, None].to(torch.int32).cuda()
+
+
+def patch_forward(torch, model, params, rec):
+    """The cache-free forward on one sequence of IMAGE_TEXT text embeddings
+    (rows of `embed`), a IMAGE_GRID x IMAGE_GRID grid of patch embeddings
+    (0.02 x standard normal, as the reference's pipeline makes them) and
+    IMAGE_TEXT more, in f32, with `image_positions`' three streams: all
+    layers' logits finite, and the kernel path against the plain path
+    over PATH_LAYERS layers."""
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(14)
+    text = lambda: params["embed"][torch.randint(0, cfg.vocab_size, (IMAGE_TEXT,), generator=g,
+                                                 device="cuda")].float()
+    patches = torch.randn(IMAGE_GRID * IMAGE_GRID, cfg.d_model, generator=g,
+                          device="cuda") * 0.02
+    embeds = torch.cat([text(), patches, text()])[None]
+    pos = image_positions(torch, IMAGE_TEXT, IMAGE_GRID)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, embeds=embeds, positions=pos)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    cut = Model(dataclasses.replace(cfg, n_layers=PATH_LAYERS))
+    head = dict(params, layers=params["layers"][:PATH_LAYERS])
+    results = {}
+    for path in ("kernel", "plain"):
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            lg, _ = cut.forward(head, embeds=embeds, positions=pos)
+            results[path] = [lg[0].float()]
+    torch.cuda.synchronize()
+    s = embeds.shape[1]
+    log(f"{cfg.name} patch forward: {IMAGE_TEXT} text + {IMAGE_GRID}x{IMAGE_GRID} patches + "
+        f"{IMAGE_TEXT} text = {s} f32 embeddings, streams t/h/w up to "
+        f"{pos.max(dim=-1).values.flatten().tolist()}; {cfg.n_layers} layers in {1e3 * wall:.1f} "
+        f"ms, logits all finite: {finite}")
+    rec["patch_forward"] = {"tokens": s, "wall_ms": 1e3 * wall, "finite": finite}
+    report_paths(cut, results, rec, "patch_path_comparison", 0)
+    if not finite:
+        raise AssertionError(f"{cfg.name}: the patch forward's logits are not finite")
+
+
+def encoder_pass(torch, model, params, rec, b, s, warm=True):
+    """One cache-free forward of the encoder over (b, s) tokens: its wall
+    (after one warm call unless `warm` is False), the peak allocation over
+    what it found, one
+    GeMM per FC matmul (289 at hubert-xlarge's 48 layers) and the pass
+    beside its bound: the FC matmuls' 2 M K N plus 4 S^2 Dh H of
+    attention a layer and sequence over the bf16 tensor-core rate, or the
+    compressed planes and the activations once over the memory rate."""
+    from repro_torch.core.compression import CompressedTensor
+    from repro_torch.core.decompress import _leaves
+
+    cfg = model.cfg
+    g = torch.Generator(device="cuda").manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    if warm:
+        model.forward(params, tokens=tokens)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    logits, _ = model.forward(params, tokens=tokens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(logits).all())
+    del logits
+    fcs = [x for x in _leaves(params) if isinstance(x, CompressedTensor)]
+    fc_flops = sum(2.0 * b * s * x.shape[0] * x.shape[1] for x in fcs)
+    attn_flops = cfg.n_layers * b * 4.0 * s * s * cfg.d_head * cfg.n_heads
+    moved = sum(x.nbytes for x in fcs) + 2 * b * s * cfg.d_model + 4 * b * s * cfg.vocab_size
+    bound, by = bound_ms(moved, fc_flops + attn_flops)
+    per = gemvs_per_step(cfg)
+    log(f"{cfg.name} encoder pass {b} x {s}: {1e3 * wall:.1f} ms, {b * s / wall:.0f} tokens/s; "
+        f"launches {launches} ({per} FC matmuls); peak {peak / 1e9:.3f} GB over the "
+        f"{base / 1e9:.3f} GB it found; bound {bound:.2f} ms ({by}: FC {fc_flops / 1e12:.2f} + "
+        f"attention {attn_flops / 1e12:.2f} TFLOP at {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s), "
+        f"the pass {wall * 1e3 / bound:.1f}x it; logits finite {finite}")
+    rec[f"pass_{b}x{s}"] = {"wall_ms": 1e3 * wall, "launches": launches, "peak_extra_bytes": peak,
+                            "fc_tflop": fc_flops / 1e12, "attention_tflop": attn_flops / 1e12,
+                            "bound_ms": bound, "bound_by": by, "finite": finite}
+    if launches["deca_gemm"] != per or launches["deca_gemv"] or not finite:
+        raise AssertionError(f"{cfg.name} {b} x {s}: launches {launches}, not {per} GeMMs "
+                             f"and no GeMV, or logits not finite ({finite})")
+
+
+def encoder_checks(torch, model, params, rec):
+    """The encoder at 4 x 1024: its first PATH_LAYERS layers' logits on the
+    kernel path against the plain path, and bidirectionality: changing the
+    last token of each row changes position 0's logits."""
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    b, s = AUDIO_PASSES[0]
+    g = torch.Generator(device="cuda").manual_seed(16)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    cut = Model(dataclasses.replace(cfg, n_layers=PATH_LAYERS))
+    head = dict(params, layers=params["layers"][:PATH_LAYERS])
+    results = {}
+    for path in ("kernel", "plain"):
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            results[path] = [cut.forward(head, tokens=tokens)[0].float()]
+    report_paths(cut, results, rec, "path_comparison", 0)
+    other = tokens.clone()
+    other[:, -1] = (other[:, -1] + 1) % cfg.vocab_size
+    first = model.forward(params, tokens=tokens)[0][:, 0]
+    moved = (model.forward(params, tokens=other)[0][:, 0] - first).abs().amax(dim=-1)
+    rec["bidirectional_first_row_change"] = moved.tolist()
+    log(f"{cfg.name} bidirectional: changing each row's last token (position {s - 1}) moves "
+        f"position 0's logits by {[f'{x:.3e}' for x in moved.tolist()]} (max abs)")
+    if not bool((moved > 0).all()):
+        raise AssertionError(f"{cfg.name}: position 0 does not see the last token")
+
+
+def audio_serve(torch, model, params, rec):
+    """hubert-xlarge through the paged engine, as the reference serves it:
+    AUDIO_BATCH prompts of AUDIO_PROMPT tokens (whole pages, one prefill
+    of AUDIO_BATCH rows: no pad row), AUDIO_NEW new each; each decode step
+    one GeMV per FC matmul and the attention kernel at Dh 80, G 1,
+    causal=0 in every layer; each captured graph's replay against the
+    uncaptured chunk, bitwise, and a replay's wall and breakdown alone;
+    and the attention kernel on the served pool
+    (the last chunk's tables and lengths) against its plain version."""
+    from repro_torch.kernels import paged_attention, ref
+    from repro_torch.serve.engine import GenerationEngine
+
+    cfg = model.cfg
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=AUDIO_BATCH,
+                           block_size=32, max_len=256, decode_chunk=8)
+    g = torch.Generator().manual_seed(17)
+    prompts = [torch.randint(0, cfg.vocab_size, (AUDIO_PROMPT,), generator=g).numpy()
+               for _ in range(AUDIO_BATCH)]
+    last = {}
+    inner = eng.scheduler._decode_chunk
+
+    def chunk(*a):
+        last["tables"], last["kv_lens"] = a[1], a[6]
+        return inner(*a)
+
+    eng.scheduler._decode_chunk = chunk
+    outs, run = serve_waves(torch, eng, [prompts], AUDIO_NEW)
+    launches = run["launches"]
+    steps = launches["deca_paged_attention"] // cfg.n_layers  # one call a layer a step
+    per = gemvs_per_step(cfg)
+    log(f"{cfg.name} paged serve: prompts {[len(p) for p in prompts]} x {AUDIO_NEW} new in "
+        f"{run['wall_s']:.2f} s; prefill "
+        + ", ".join(f"{c['rows']}x{c['span']} {1e3 * c['wall_s']:.1f} ms" for c in run["prefills"])
+        + f"; {steps} decode steps; launches {launches} ({per} GeMVs and {cfg.n_layers} "
+        f"bidirectional attention calls a step)")
+    rec["serve"] = {"prompt_lens": [len(p) for p in prompts], "wall_s": run["wall_s"],
+                    "prefills": run["prefills"], "chunks": run["chunks"],
+                    "launches": launches, "decode_steps": steps,
+                    "graphs": graph_costs(eng._chunk_graphs, run["chunks"], f"{cfg.name} decode")}
+    if any(len(o) != AUDIO_NEW or not all(0 <= int(t) < cfg.vocab_size for t in o)
+           for o in outs):
+        raise AssertionError(f"{cfg.name}: a request did not emit {AUDIO_NEW} tokens in the vocab")
+    if (launches["deca_gemv"] != per * steps or steps < AUDIO_NEW - 1
+            or launches["deca_gemm"] != per * len(run["prefills"])):
+        raise AssertionError(f"{cfg.name}: launches {launches} for {steps} steps")
+    if any(c["rows"] != AUDIO_BATCH for c in run["prefills"]):
+        raise AssertionError(f"{cfg.name}: a prefill call padded its rows")
+    check_replays(torch, eng, eng._chunk_graphs, f"{cfg.name} decode chunk", rec)
+    profile_replays(torch, eng._chunk_graphs, f"{cfg.name} decode chunk", rec)
+    tables = torch.as_tensor(last["tables"], device="cuda").to(torch.int32)
+    kv_lens = torch.as_tensor(last["kv_lens"][-1], device="cuda").to(torch.int32)
+    q = torch.randn(AUDIO_BATCH, cfg.n_heads, cfg.d_head,
+                    generator=torch.Generator(device="cuda").manual_seed(18), device="cuda")
+    args = (q, eng.kv.pools[0], tables, kv_lens, kv_lens // 3)
+    got = paged_attention.paged_attention(*args, quant=SERVED_KV, causal=False)
+    want = ref.paged_decode_attention(*args, quant=SERVED_KV, causal=False)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    rec["served_pool_attention"] = {"max_abs_err": err, "rel_err": rel}
+    log(f"{cfg.name} attention kernel (Dh {cfg.d_head}, G 1, causal=0) on the served pool's "
+        f"layer 0 (KV lengths {kv_lens.tolist()}): rel err {rel:.2e} against its plain "
+        f"version (tolerance {KERNEL_TOL})")
+    del eng
+    gc.collect()
+    if rel > KERNEL_TOL:
+        raise AssertionError(f"{cfg.name}: attention on the served pool disagrees: {rel}")
+    return {"kernel": "attention", "model": cfg.name, "role": "served pool causal=0",
+            "max_abs_err": err, "rel_err": rel}
+
+
+def vlm_audio(torch, report):
+    """qwen2-vl-7b (M-RoPE over three streams, 28 q / 4 kv heads: G 7) and
+    hubert-xlarge (a bidirectional encoder) at full width and depth,
+    compressed to SERVED_SPEC on the card layer by layer. qwen2-vl: its
+    kernels at its shapes (M in VLM_MS), 4 requests of seeded lengths
+    served greedily through captured graphs (197 GeMVs and 28 attention
+    calls at G 7 a step, 197 GeMMs a prefill call, replays bitwise, every
+    token against teacher-forced logits of `score` with M-RoPE), the kernel
+    path against the plain path over PATH_LAYERS layers, a spec engine
+    (nf4 draft, k = 3) at full depth, and the patch-embedding forward with
+    an image's three streams. hubert-xlarge: its GeMV and GeMM at M in
+    AUDIO_MS (the served decode rows and the passes; lm_head N = 504 on
+    the GeMM's direct path) and attention at Dh 80, G 1,
+    causal=0; encoder passes at AUDIO_PASSES; the kernel path against the
+    plain path and bidirectionality at 4 x 1024; the paged serve.
+    Returns its kernel cases."""
+    import numpy as np
+
+    from repro_torch.models.model import Model
+
+    t0 = time.perf_counter()
+    timer = Timer(torch)
+    cases, res = [], {}
+
+    model, params, rec = build_compressed(torch, VLM)
+    check_model_kernels(torch, timer, model, params, cases, ms=VLM_MS)
+    no_dense_lm_head(torch, model.cfg, params, rec)
+    rec["serves"] = serve_paper_model(torch, model, params, report, (4,), check_all=True)
+    served = rec["serves"]["batch 4"]
+    per = gemvs_per_step(model.cfg)
+    if served["launches"]["deca_gemm"] != per * len(served["prefills"]):
+        raise AssertionError(f"{VLM}: {served['launches']['deca_gemm']} GeMMs over "
+                             f"{len(served['prefills'])} prefill calls, not {per} a call")
+    cut = Model(dataclasses.replace(model.cfg, n_layers=PATH_LAYERS))
+    compare_paths(torch, cut, dict(params, layers=params["layers"][:PATH_LAYERS]), rec)
+    spec_eng, _, _ = serve_spec(torch, model, params,
+                                [np.asarray(p, np.int32) for p in served["prompts"]],
+                                served["outs"], rec)
+    del spec_eng
+    gc.collect()
+    patch_forward(torch, model, params, rec)
+    res[VLM] = rec
+    del model, params, cut
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{VLM} freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    model, params, rec = build_compressed(torch, AUDIO)
+    check_model_kernels(torch, timer, model, params, cases, ms=AUDIO_MS)
+    del timer
+    for i, (b, s) in enumerate(AUDIO_PASSES):  # the first pass warms the second's path
+        encoder_pass(torch, model, params, rec, b, s, warm=i == 0)
+    encoder_checks(torch, model, params, rec)
+    cases.append(audio_serve(torch, model, params, rec))
+    res[AUDIO] = rec
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["cases"], res["seconds"] = cases, time.perf_counter() - t0
+    log(f"vlm_audio: {res['seconds']:.1f} s; freed: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        f"allocated")
+    report["vlm_audio"] = res
     return cases
 
 
@@ -3563,11 +3872,15 @@ def main() -> int:
     # 14. gemma2-2b: local and global layers, Dh 256, geglu, softcaps
     gemma_cases = gemma2(torch, report)
 
-    # 15. grok-1-314b: top-2 of 8 experts, 16 of its 64 layers at full width
+    # 15. grok-1-314b: top-2 of 8 experts, 8 of its 64 layers at full width
     moe_cases = moe(torch, report)
 
     # 16. the dense ring engine: falcon-mamba-7b, recurrentgemma-9b, llama3.2-1b
     recurrent_cases = recurrent(torch, report)
+
+    # 17. M-RoPE and patch embeddings (qwen2-vl-7b), the bidirectional encoder
+    # (hubert-xlarge)
+    vlm_audio_cases = vlm_audio(torch, report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")
@@ -3606,7 +3919,7 @@ def main() -> int:
          "src/repro/kernels/deca_decompress.py:103", dc),
     ]
     held = (mm_cases + att_cases + new_cases + paper_cases + gemma_cases + moe_cases
-            + recurrent_cases)
+            + recurrent_cases + vlm_audio_cases)
     worst_abs = {  # over every case each kernel was held on
         "deca_gemv": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemv"),
         "deca_gemm": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemm"),
@@ -3620,12 +3933,18 @@ def main() -> int:
         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": c["bound_by"],
         "library_ms": c["library_ms"],
     } for name, src, rep, c in rows]
-    # the recurrent stacks' shapes (K 256, N 288 and 256, f32 x), each timed
-    for entry, matmul in zip(kernels[:2], ("gemv", "gemm")):
-        entry["recurrent_shapes"] = [
-            {k: c[k] for k in ("model", "role", "K", "N", "M", "max_abs_err", "ms", "plain_ms",
-                               "bound_ms", "bound_by", "library_ms")}
-            for c in recurrent_cases if c["kernel"] == matmul]
+    # the recurrent stacks' shapes (K 256, N 288 and 256, f32 x), and
+    # qwen2-vl-7b's and hubert-xlarge's (N 152064 and 504, M up to 32768;
+    # attention at G 7 and at Dh 80, causal=0), each timed
+    keys = ("model", "role", "K", "N", "M", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
+    for entry, matmul in zip(kernels[:3], ("gemv", "gemm", "attention")):
+        for name, shapes in (("recurrent_shapes", recurrent_cases),
+                             ("vlm_audio_shapes", vlm_audio_cases)):
+            timed = [{k: c[k] for k in keys if k in c} for c in shapes
+                     if c["kernel"] == matmul and "ms" in c]
+            if timed:
+                entry[name] = timed
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,8 @@
 """Model configuration dataclass and the registry of ported architectures.
 
 Port-owned copy of `repro/configs/base.py`: the `ModelConfig` fields are
-the reference's, so a config converts field by field; only the
-architectures the port serves are registered."""
+the reference's, so a config converts field by field. Every architecture
+of the reference's `ARCH_IDS` is registered."""
 from __future__ import annotations
 
 import dataclasses
@@ -127,10 +127,12 @@ _MODULES = {
     "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
     "gemma2-2b": "gemma2_2b",
     "granite-3-8b": "granite_3_8b",
+    "hubert-xlarge": "hubert_xlarge",
     "llama2-70b": "llama2_70b",
     "llama3-8b": "llama3_8b",
     "llama3.2-1b": "llama3_2_1b",
     "opt-66b": "opt_66b",
+    "qwen2-vl-7b": "qwen2_vl_7b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 

@@ -2,10 +2,11 @@
 
 Counterpart of the subset of `repro/models/layers.py` that compressed-
 weight serving runs: RMS norm, rotary embeddings with per-request
-positions (off under learned positions), grouped-query attention with f32
+positions (off under learned positions) and Qwen2-VL's M-RoPE on three
+position streams, grouped-query attention (causal or bidirectional) with f32
 probabilities in the PV product over the block-paged quantized KV pool
 (the paged engine) or the quantized ring cache (the dense engine), the
-swiglu, geglu and relu MLPs, the top-k MoE FFN with capacity dispatch,
+swiglu, geglu, gelu and relu MLPs, the top-k MoE FFN with capacity dispatch,
 the RG-LRU recurrent block (Griffin, recurrentgemma), the Mamba-1 block
 (falcon-mamba), and the tied head's logits. Functions take and return
 tensors; the paged pool, the ring cache and the recurrent state are dicts
@@ -65,6 +66,50 @@ def apply_rope_batched(
     sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
     x1, x2 = torch.chunk(x, 2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_mrope(
+    x: torch.Tensor,          # (B, S, H, Dh)
+    positions: torch.Tensor,  # (3, B, S) temporal / height / width ids
+    theta: float,
+    sections: Tuple[int, ...],
+) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE: frequency i of the rotary half-dim
+    turns by the position stream of its section (`repeat(arange(3),
+    sections)`, cut or padded with the last id to Dh/2, as
+    `jnp.repeat(total_repeat_length=)`). x is rotated in f32 with f32
+    cos / sin and cast back to its dtype; `apply_rope_batched` rounds cos
+    / sin to x's dtype instead, so the two differ even on equal streams.
+    The angles gather their streams as views, not through an index
+    tensor, so nothing is copied from the host inside a captured step."""
+    half = x.shape[-1] // 2
+    ids = [i for i, n in enumerate(sections) for _ in range(n)][:half]
+    ids += ids[-1:] * (half - len(ids))
+    pos = positions.to(torch.float32)  # (3, B, S)
+    angles = torch.stack([pos[i] for i in ids], dim=-1) * rope_freqs(
+        2 * half, theta, x.device)  # (B, S, Dh/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1).to(x.dtype)
+
+
+def rotate(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig):
+    """q and k rotated for `cfg` at `positions` (B, S) or (3, B, S), and
+    the token positions (B, S) that the cache, the mask and the kernel
+    read. M-RoPE (`mrope_sections`) broadcasts (B, S) to three equal
+    streams and takes the temporal one, stream 0, as the token's
+    position; rope rotates by the positions themselves (stream 0 of three);
+    learned or no positions leave q and k as they are."""
+    if cfg.mrope_sections:
+        mpos = positions if positions.dim() == 3 else positions.expand(3, *positions.shape)
+        return (apply_mrope(q, mpos, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, mpos, cfg.rope_theta, cfg.mrope_sections), mpos[0])
+    tok_pos = positions if positions.dim() == 2 else positions[0]
+    if cfg.pos_emb == "rope":  # learned positions were added to the embedding
+        q = apply_rope_batched(q, tok_pos, cfg.rope_theta)
+        k = apply_rope_batched(k, tok_pos, cfg.rope_theta)
+    return q, k, tok_pos
 
 
 def _scores_mask(q_pos, k_pos, causal: bool, window: int) -> torch.Tensor:
@@ -340,7 +385,7 @@ def paged_attention_block(
     x: torch.Tensor,  # (B, S, D)
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,     # (B, S) per-request positions
+    positions: torch.Tensor,     # (B, S) or (3, B, S) per-request positions
     local: bool,
     cache: Dict[str, torch.Tensor],
     block_tables: torch.Tensor,  # (B, MB)
@@ -352,7 +397,9 @@ def paged_attention_block(
     window_override: Optional[int] = None,       # cap the window (spec draft)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention layer against the paged pool: projections -> per-request
-    rope -> write into the pool -> attention -> output projection.
+    rope (M-RoPE on three streams: the pool, the mask and the kernel take
+    the temporal one) -> write into the pool -> attention -> output
+    projection.
 
     Decode shapes (S == 1 with a `kv_lens` vector) go through the fused
     paged-attention kernel, which decodes the quantized pages inside its
@@ -365,9 +412,7 @@ def paged_attention_block(
     q = mm(x, params["wq"]).reshape(b, s, hq, dh)
     k = mm(x, params["wk"]).reshape(b, s, hkv, dh)
     v = mm(x, params["wv"]).reshape(b, s, hkv, dh)
-    if cfg.pos_emb == "rope":  # learned positions were added to the embedding
-        q = apply_rope_batched(q, positions, cfg.rope_theta)
-        k = apply_rope_batched(k, positions, cfg.rope_theta)
+    q, k, tok_pos = rotate(q, k, positions, cfg)
 
     cache = paged_update_cache(
         cache, k, v, write_pos, write_slots, fresh_pages, copy_pages,
@@ -378,14 +423,14 @@ def paged_attention_block(
         window = min(window, window_override) if window else window_override
     if kv_lens is not None and s == 1:
         out = ops.paged_attention(
-            q[:, 0], cache, block_tables, kv_lens, positions[:, 0],
+            q[:, 0], cache, block_tables, kv_lens, tok_pos[:, 0],
             quant=cfg.kv_quant, causal=cfg.causal, window=window,
             softcap=cfg.attn_softcap,
         )[:, None]
     else:
         k_all, v_all, k_pos = paged_gather_kv(cache, block_tables, cfg.kv_quant)
         out = attention_core(
-            q, k_all, v_all, q_pos=positions, k_pos=k_pos,
+            q, k_all, v_all, q_pos=tok_pos, k_pos=k_pos,
             causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
         )
     return mm(out.reshape(b, s, hq * dh), params["wo"]), cache
@@ -396,26 +441,29 @@ def attention_block(
     x: torch.Tensor,  # (B, S, D)
     cfg: ModelConfig,
     *,
-    positions: torch.Tensor,  # (B, S); the batch shares row 0's positions
+    positions: torch.Tensor,  # (B, S), or (3, B, S) for M-RoPE
     local: bool,
     cache: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Attention layer of the dense engine: projections -> rope ->
     (ring-cache write and dequantize-on-read) -> attention -> output
-    projection. The batch shares one row of positions, as the reference's
-    synthetic batches do; `attention_core` takes them per row, broadcast.
-    With no cache, the queries attend to their own keys."""
+    projection. The batch shares one row of token positions, as the
+    reference's synthetic batches do; `attention_core` takes them per row,
+    broadcast. Rope rotates by that shared row, M-RoPE by each row's own
+    three streams (the reference's `apply_rope` and `apply_mrope`), and the
+    ring and the mask take the temporal stream of row 0. With no cache, the
+    queries attend to their own keys."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     q = mm(x, params["wq"]).reshape(b, s, hq, dh)
     k = mm(x, params["wk"]).reshape(b, s, hkv, dh)
     v = mm(x, params["wv"]).reshape(b, s, hkv, dh)
-    q_pos = positions[:1].expand(b, s)
-    if cfg.pos_emb == "rope":
-        q = apply_rope_batched(q, q_pos, cfg.rope_theta)
-        k = apply_rope_batched(k, q_pos, cfg.rope_theta)
+    if not cfg.mrope_sections:
+        positions = (positions if positions.dim() == 2 else positions[0])[:1].expand(b, s)
+    q, k, tok_pos = rotate(q, k, positions, cfg)
+    q_pos = tok_pos[:1].expand(b, s)
     if cache is not None:
-        cache = update_cache(cache, k, v, positions[0], quant=cfg.kv_quant)
+        cache = update_cache(cache, k, v, tok_pos[0], quant=cfg.kv_quant)
         k, v = read_cache_kv(cache, quant=cfg.kv_quant)
         k_pos = cache["pos"][None].expand(b, -1)
     else:
@@ -432,7 +480,7 @@ _GATED = ("swiglu", "geglu")
 
 def init_mlp(generator, cfg: ModelConfig, device, dtype) -> Params:
     d, f = cfg.d_model, cfg.d_ff
-    if cfg.mlp_act not in _GATED:  # relu has no gate
+    if cfg.mlp_act not in _GATED:  # relu and gelu have no gate
         return {
             "w_up": dense_init(generator, (d, f), device, dtype),
             "w_down": dense_init(generator, (f, d), device, dtype),
@@ -493,18 +541,18 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-# the reference's `_act`: silu for swiglu, gelu (tanh) for geglu, relu
-_ACTS = {"swiglu": silu, "geglu": gelu_tanh, "relu": torch.relu}
+# the reference's `_act`: silu for swiglu, gelu (tanh) for geglu and gelu, relu
+_ACTS = {"swiglu": silu, "geglu": gelu_tanh, "gelu": gelu_tanh, "relu": torch.relu}
 
 
 def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """swiglu FFN: silu(x Wg) * (x Wu), then W_down; geglu: gelu_tanh(x Wg)
-    * (x Wu), then W_down; relu FFN: relu(x Wu), then W_down. Each op
-    rounds in the product's dtype, as the reference's."""
+    * (x Wu), then W_down; the ungated gelu and relu FFNs: act(x Wu), then
+    W_down. Each op rounds in the product's dtype, as the reference's."""
     if cfg.mlp_act in _GATED:
         h = _ACTS[cfg.mlp_act](mm(x, params["w_gate"])) * mm(x, params["w_up"])
     else:
-        h = torch.relu(mm(x, params["w_up"]))
+        h = _ACTS[cfg.mlp_act](mm(x, params["w_up"]))
     return mm(h, params["w_down"])
 
 

@@ -8,8 +8,13 @@ gemma2-2b with geglu, local and global layers in turn, attention and
 final logit softcaps, post norms, an embedding scaled by sqrt(d_model)),
 the MoE family (grok-1-314b, kimi-k2-1t-a32b: a top-k MoE FFN in every
 layer, `layers.moe_block`), the ssm family (falcon-mamba-7b: a Mamba-1
-block a layer, no FFN) and the hybrid family (recurrentgemma-9b: RG-LRU
-and attention blocks in the pattern rec, rec, attn, each with an FFN).
+block a layer, no FFN), the hybrid family (recurrentgemma-9b: RG-LRU
+and attention blocks in the pattern rec, rec, attn, each with an FFN),
+the vlm family (qwen2-vl-7b: M-RoPE over three position streams,
+`layers.apply_mrope`, and patch embeddings from a stubbed frontend as
+`forward(embeds=...)`) and the audio family (hubert-xlarge: a
+bidirectional encoder, `causal=False`, with learned positions and an
+ungated gelu MLP; the engines serve it as the reference's do).
 
 Two cache regimes, as in the reference. `forward(paged=...)` runs an
 attention stack over the block-paged KV pool (`init_paged_cache`):
@@ -55,22 +60,17 @@ _ATTN = ("attn", "attn_local")
 
 
 def _unsupported(cfg: ModelConfig) -> List[str]:
-    """Config features outside the port so far, each with the step of
-    ROADMAP Queue A item 10 (remaining model families) that ports it. The
-    MoE family (grok-1-314b, kimi-k2-1t-a32b: an MoE FFN in every layer of
-    an attention stack) and the ssm and hybrid families (falcon-mamba-7b,
-    recurrentgemma-9b, attention-free or not) are ported; experts in
-    another family, or an MoE family without them, are not; the vlm and
-    audio families, M-RoPE and the gelu MLP of the encoder are step 10.7."""
+    """Config features outside the port, each with the step of ROADMAP
+    Queue A item 10 (remaining model families) that ports it. Every family
+    of the reference is ported (dense, moe, ssm, hybrid, and since step
+    10.7 vlm and audio with M-RoPE and the gelu MLP); experts in another
+    family, or an MoE family without them, are not (step 10.5)."""
     experts = cfg.n_experts > 0
     checks = {
-        "family": (cfg.family not in ("dense", "moe", "ssm", "hybrid"), "10.7"),
         # experts only in an MoE family, an MoE family only with them, and
         # 1 <= experts_per_token <= n_experts
         "n_experts": ((cfg.family == "moe") != experts or (experts and not (
             0 < cfg.experts_per_token <= cfg.n_experts)), "10.5"),
-        "mrope_sections": (bool(cfg.mrope_sections), "10.7"),
-        "mlp_act": (cfg.mlp_act not in ("swiglu", "geglu", "relu"), "10.7"),
     }
     return [f"{name} (step {step})" for name, (bad, step) in checks.items() if bad]
 
@@ -270,12 +270,21 @@ class Model:
         self,
         params: Params,
         *,
-        tokens: torch.Tensor,                      # (B, S) int
-        positions: Optional[torch.Tensor] = None,  # (B, S)
+        tokens: Optional[torch.Tensor] = None,     # (B, S) int
+        embeds: Optional[torch.Tensor] = None,     # (B, S, D) frontend stub
+        positions: Optional[torch.Tensor] = None,  # (B, S) or (3, B, S)
         cache: Optional[Pools] = None,
         paged: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, Optional[Pools]]:
         """Returns (logits (B, S, V) f32, caches updated in place).
+
+        The input is `tokens`, or `embeds` (the stubbed vision or audio
+        frontend's output, any float dtype) in their place. Under learned
+        positions the position rows are added before the cast to bf16, as
+        the reference adds them: f32 `embeds` add in f32 and round once.
+        `positions` may be (3, B, S) for an M-RoPE config (temporal,
+        height and width ids); the token positions are then the temporal
+        stream.
 
         With `paged`, `cache` is an `init_paged_cache` pool list and
         `positions` the per-request positions; `paged` holds {block_tables
@@ -289,16 +298,17 @@ class Model:
         cfg = self.cfg
         if paged is not None and cache is None:
             raise ValueError("a paged forward needs an init_paged_cache pool")
-        x = params["embed"][tokens.long()]
-        b, s = tokens.shape
+        x = params["embed"][tokens.long()] if embeds is None else embeds
+        b, s = x.shape[:2]
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
         if cfg.embed_scale:
             x = L.embed_scale(x, cfg.d_model)
-        x = x.to(torch.bfloat16)
         if cfg.pos_emb == "learned":
-            idx = torch.clamp(positions.long(), 0, cfg.pos_table - 1)
-            x = x + params["pos_embed"][idx].to(torch.bfloat16)
+            tok_pos = positions if positions.dim() == 2 else positions[0]
+            idx = torch.clamp(tok_pos.long(), 0, cfg.pos_table - 1)
+            x = x + params["pos_embed"][idx]
+        x = x.to(torch.bfloat16)
         caches = cache if cache is not None else [None] * len(self.kinds)
         new_cache = []
         for p, kind, cache_l in zip(params["layers"], self.kinds, caches):
@@ -321,8 +331,10 @@ class Model:
         cache: Pools,
     ) -> Tuple[torch.Tensor, Pools]:
         """One next-token step of the dense engine against its filled
-        `init_cache` caches: (logits (B, V) f32, caches)."""
-        logits, cache = self.forward(params, tokens=tokens, positions=positions, cache=cache)
+        `init_cache` caches: (logits (B, V) f32, caches). An M-RoPE config
+        takes (B, 1) positions as three equal streams (`layers.rotate`)."""
+        logits, cache = self.forward(params, tokens=tokens,
+                                     positions=positions, cache=cache)
         return logits[:, -1, :], cache
 
     def score(self, params: Params, tokens: torch.Tensor, *,
@@ -331,7 +343,8 @@ class Model:
         through a paged pool of its own on the tokens' device for an
         attention stack, or the full-sequence forward (the full scan) for a
         recurrent one: row i is the next-token distribution after
-        tokens[: i + 1]."""
+        tokens[: i + 1]. An M-RoPE config reads the positions 0 .. S - 1
+        as three equal streams (`layers.rotate`), as its engines serve them."""
         if not self.attn_only:
             return self.forward(params, tokens=tokens[None])[0][0]
         s, bs = tokens.shape[0], block_size
@@ -350,7 +363,7 @@ class Model:
         self,
         params: Params,
         tokens: torch.Tensor,        # (B, 1)
-        positions: torch.Tensor,     # (B, 1)
+        positions: torch.Tensor,     # (B, 1) or (3, B, 1)
         cache: Pools,
         block_tables: torch.Tensor,  # (B, MB)
         write_slots: torch.Tensor,   # (B, 1)
@@ -393,7 +406,8 @@ class Model:
         inactive slot writes to the null page under the empty sentinel, so
         the pool ends bitwise as C single steps would leave it. Returns
         (tokens (C, B), pools); tokens past a slot's done point are junk
-        the host discards."""
+        the host discards. An M-RoPE config takes each step's positions as
+        three equal streams (`layers.rotate`, a view: no kernel added)."""
         done = ~active
         tok = tokens0
         toks = []

@@ -13,6 +13,13 @@ Counterpart of `repro/serve/engine.py`, with its two cache regimes:
       and decodes it to the end one `Model.decode_step` a token
       (`make_prefill_step`, `make_decode_step`), uncaptured.
 
+Both regimes serve every config of the reference, the bidirectional
+encoder (hubert-xlarge) too, as the reference's engines do; an M-RoPE
+config (qwen2-vl-7b) gets three equal position streams wherever the
+reference broadcasts them (the paged prefill, each decode step, the spec
+forwards, the dense engine's prefill and steps): `layers.rotate` expands
+every (B, S) position tensor it is given.
+
 At temperature 0 sampling is greedy: the token with the largest logit
 (the first on ties, as `jnp.argmax`). Above it every row is sampled with
 the reference's keyed stream (`serve/sampling.py`): the key of a token is
@@ -56,14 +63,19 @@ from repro_torch.serve.slo import RequestStatus
 
 
 def make_prefill_step(model: Model, cache_len: Optional[int] = None) -> Callable:
-    """prefill(params, tokens (B, S)) -> (last logits (B, V), caches): a
-    fresh `init_cache` of `cache_len` slots (S by default) on the tokens'
-    device, filled by one forward."""
+    """prefill(params, batch) -> (last logits (B, V), caches), the
+    reference's batch: {"tokens" (B, S) or "embeds" (B, S, D), and
+    optionally "positions" (B, S) or (3, B, S)}; a fresh `init_cache` of
+    `cache_len` slots (S by default) on the input's device, filled by one
+    forward."""
 
-    def prefill(params, tokens):
-        b, s = tokens.shape
-        cache = model.init_cache(b, cache_len or s, device=tokens.device)
-        logits, cache = model.forward(params, tokens=tokens, cache=cache)
+    def prefill(params, batch):
+        tokens, embeds = batch.get("tokens"), batch.get("embeds")
+        x = tokens if tokens is not None else embeds
+        b, s = x.shape[:2]
+        cache = model.init_cache(b, cache_len or s, device=x.device)
+        logits, cache = model.forward(params, tokens=tokens, embeds=embeds,
+                                      positions=batch.get("positions"), cache=cache)
         return logits[:, -1, :], cache
 
     return prefill
@@ -706,15 +718,18 @@ class GenerationEngine:
         batch into fresh `max_len`-slot caches, then `n_steps` decode steps
         at positions S, S + 1, ...; row i's token j is sampled under the
         key (seed, i, j), greedy at temperature 0. Each sampled token is
-        the one copy back to the host a step."""
+        the one copy back to the host a step. An M-RoPE config gets its
+        positions as three equal streams (`layers.rotate`), as the
+        reference passes them."""
         b, s = prompts.shape
         rows = np.arange(b)
-        logits, cache = self._prefill(self.params, self._t(prompts))
+        logits, cache = self._prefill(self.params, {"tokens": self._t(prompts)})
         tok = self._sample_rows(logits, rows, np.zeros(b))
         out = []
         for i in range(n_steps):
             out.append(tok)
             pos = torch.full((b, 1), s + i, dtype=torch.int32, device=self.device)
-            logits, cache = self._decode(self.params, self._t(tok[:, None]), pos, cache)
+            logits, cache = self._decode(self.params, self._t(tok[:, None]),
+                                         pos, cache)
             tok = self._sample_rows(logits, rows, np.full(b, i + 1))
         return np.stack(out, axis=1)

@@ -44,9 +44,10 @@ from test_torch_model import NB, _logit_tol, _prefill_inputs, _same_leaf
 from torch_parity import run_exact
 
 ARCHS = ("llama2-70b", "opt-66b", "llama3.2-1b", "granite-3-8b")
-# the recurrent stacks (item 10.6): configs and trees here, serving in
-# tests/test_torch_ssm.py (the dense engine)
-TREE_ARCHS = ARCHS + ("falcon-mamba-7b", "recurrentgemma-9b")
+# the recurrent stacks (item 10.6) and the M-RoPE decoder and the encoder
+# (10.7): configs and trees here, serving in tests/test_torch_ssm.py (the
+# dense engine), tests/test_torch_mrope.py and tests/test_torch_encoder.py
+TREE_ARCHS = ARCHS + ("falcon-mamba-7b", "recurrentgemma-9b", "qwen2-vl-7b", "hubert-xlarge")
 KV_KINDS = ("none", "int8")
 LENGTHS = (4, 19, 11, 26, 7)
 ENGINE = dict(max_len=64, block_size=8, max_slots=3, num_blocks=10, decode_chunk=4)
@@ -62,28 +63,36 @@ def _reference_params(arch):
     return _CACHE[arch]
 
 
+def _port_params(arch):
+    """`_reference_params(arch)` carried into the port on the CPU."""
+    return params_from_jax(jax.device_get(_reference_params(arch)), get_smoke_config(arch),
+                           device="cpu")
+
+
 def _prompts(vocab):
     rng = np.random.default_rng(1)
     return [rng.integers(0, vocab, n).astype(np.int32) for n in LENGTHS]
 
 
-def _serve(arch, kind):
-    """Both engines over the same requests; returns (reference, port)
-    dicts of tokens, call logs, stats and per-request page peaks."""
-    jparams = _reference_params(arch)
-    jeng = JEngine(JModel(jget_smoke_config(arch)), jparams, paged=True, kv_quant=kind,
-                   **ENGINE)
+def _serve(arch, kind, prompts=None, new=6, engine=ENGINE):
+    """Both paged engines (`engine` their arguments) over the same
+    requests, by default `_prompts`, `new` tokens each; returns
+    (reference, port) dicts of tokens, call logs, stats and per-request
+    page peaks."""
     tcfg = get_smoke_config(arch)
-    tparams = params_from_jax(jax.device_get(jparams), tcfg, device="cpu")
-    teng = GenerationEngine(Model(tcfg), tparams, kv_quant=kind, device="cpu", **ENGINE)
+    jeng = JEngine(JModel(jget_smoke_config(arch)), _reference_params(arch), paged=True,
+                   kv_quant=kind, **engine)
+    teng = GenerationEngine(Model(tcfg), _port_params(arch), kv_quant=kind, device="cpu",
+                            **engine)
+    prompts = _prompts(tcfg.vocab_size) if prompts is None else prompts
     out = []
     for eng, port in ((jeng, False), (teng, True)):
         log = _record(eng, port)
-        rids = [eng.submit(p, max_new_tokens=6) for p in _prompts(tcfg.vocab_size)]
+        rids = [eng.submit(p, max_new_tokens=new) for p in prompts]
         done = eng.run_until_drained()
         st = eng.scheduler.stats()
         out.append({
-            "tokens": [done[r].tolist() for r in rids],
+            "tokens": [np.asarray(done[r]).tolist() for r in rids],
             "log": log,
             "stats": {k: st[k] for k in STAT_UNITS},
             "peaks": dict(eng.scheduler.request_peaks),
@@ -149,19 +158,27 @@ def test_configs_are_the_references_and_the_model_accepts_them(arch):
                       (get_smoke_config(arch), jget_smoke_config(arch))):
         assert dataclasses.asdict(port) == dataclasses.asdict(ref)
         assert Model(port).cfg is port
-    assert get_config(arch).param_count() == jget_config(arch).param_count()
+    full = get_config(arch)
+    assert full.param_count() == jget_config(arch).param_count()
+    if full.mrope_sections:  # qwen2-vl-7b: groups of 7, sections over the rotary half
+        assert (full.n_heads // full.n_kv_heads, sum(full.mrope_sections)) == (
+            7, full.d_head // 2)
+    if not full.causal:  # hubert-xlarge, the bidirectional encoder
+        assert (full.pos_table, full.vocab_size, full.d_head, full.mlp_act) == (
+            32768, 504, 80, "gelu")
 
 
 @pytest.mark.parametrize("arch", TREE_ARCHS)
 def test_init_and_compress_tree_match_the_references_trees(arch):
     """The port's `Model.init` draws the reference's leaves at the
     reference's shapes (`pos_embed` under learned positions, no `lm_head`
-    under a tied head, no gate in a relu MLP, a mamba block and no FFN in
-    an ssm layer, an RG-LRU block in a rec one), `params_from_jax` carries
-    both trees, and the port's `compress_tree` of the reference's dense
-    tree (the floor counting the reference's stacked array: `layer_stack`)
-    is the reference's compressed tree, leaf for leaf and plane for
-    plane; `Model.init(spec=)` compresses the same leaves."""
+    under a tied head, no gate in a relu or gelu MLP, a mamba block and no
+    FFN in an ssm layer, an RG-LRU block in a rec one, no leaf for
+    M-RoPE), `params_from_jax` carries both trees, and the port's
+    `compress_tree` of the reference's dense tree (the floor counting the
+    reference's stacked array: `layer_stack`) is the reference's
+    compressed tree, leaf for leaf and plane for plane; `Model.init(spec=)`
+    compresses the same leaves."""
     cfg = get_smoke_config(arch)
     model = Model(cfg)
     jdense = JModel(jget_smoke_config(arch)).init(jax.random.PRNGKey(0))
@@ -183,7 +200,7 @@ def test_init_and_compress_tree_match_the_references_trees(arch):
         assert ("mlp" in layer) == (kind != "ssm")
         if "mlp" in layer:
             assert ("w_gate" in layer["mlp"]) == (cfg.mlp_act in ("swiglu", "geglu"))
-    want = params_from_jax(jax.device_get(_reference_params(arch)), cfg, device="cpu")
+    want = _port_params(arch)
     got = compress_tree(dense, get_spec("bf8_50"), layer_stack=model.layer_stack)
     assert set(got) == set(want)
     for name in set(got) - {"layers"}:
@@ -211,14 +228,10 @@ def test_init_and_compress_tree_match_the_references_trees(arch):
 _REFUSED = {
     # the MoE family is ported (item 10.5); an MoE family without experts is not
     "moe": ({"family": "moe"}, "10.5"),
-    # the encoder and the multimodal families are step 10.7
-    "gelu": ({"mlp_act": "gelu"}, "10.7"),
-    "mrope": ({"mrope_sections": (2, 3, 3)}, "10.7"),
-    "vlm": ({"family": "vlm"}, "10.7"),
-    "audio": ({"family": "audio"}, "10.7"),
 }
-# gemma2-2b's features (item 10.3) and the recurrent stacks' (10.6),
-# refused until the port took them
+# gemma2-2b's features (item 10.3), the recurrent stacks' (10.6) and the
+# encoder's and the multimodal family's (10.7), refused until the port
+# took them
 _ACCEPTED = {
     "post_norms": {"post_norms": True},
     "embed_scale": {"embed_scale": True},
@@ -226,6 +239,10 @@ _ACCEPTED = {
     "local_global": {"attn_pattern": "local_global"},
     "geglu": {"mlp_act": "geglu"},
     "attention_free": {"attn_pattern": "none"},
+    "gelu": {"mlp_act": "gelu"},
+    "mrope": {"mrope_sections": (2, 3, 3)},
+    "vlm": {"family": "vlm"},
+    "audio": {"family": "audio"},
 }
 
 
@@ -239,7 +256,7 @@ def test_model_still_refuses_unported_features_with_their_item(feature):
 
 
 @pytest.mark.parametrize("feature", sorted(_ACCEPTED))
-def test_model_accepts_gemma2_features(feature):
+def test_model_accepts_ported_features(feature):
     cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), **_ACCEPTED[feature])
     assert Model(cfg).cfg is cfg
 

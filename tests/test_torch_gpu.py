@@ -279,6 +279,54 @@ def test_paged_attention_at_head_dim_256_and_any_group_matches_plain(card, case,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", KV_KINDS)
+def test_paged_attention_bidirectional_at_hubert_heads_matches_plain(card, kind):
+    """hubert-xlarge's decode attention: 16 heads at Dh 80 (G 1), causal=0,
+    with and without a window. Each slot's query sits at a third of its
+    length, so the keys after it count (a causal walk would drop them);
+    empty slots stay masked (the sentinel). Every (slot, head) row against
+    the plain version's."""
+    q, pools, tables, kv_lens, _ = _pools(kind, card, seed=13, b=4, hq=16, hkv=16, dh=80,
+                                          bs=16, mb=24, lens=(380, 257, 100, 3))
+    args = (q, pools, tables, kv_lens, kv_lens // 3)
+    for window in (0, 100):
+        got = paged_attention.paged_attention(*args, quant=kind, causal=False, window=window)
+        want = ref.paged_decode_attention(*args, quant=kind, causal=False, window=window)
+        causal = ref.paged_decode_attention(*args, quant=kind, causal=True, window=window)
+        torch.cuda.synchronize()
+        assert got.shape == (4, 16, 80)
+        err = (got.float() - want.float()).abs().amax(dim=-1)
+        bad = (err > TOL * float(want.float().abs().max())).nonzero().tolist()
+        assert not bad, (window, bad)
+        assert not _close(causal, want), window  # the flag changes the answer
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [5120, 504])
+def test_gemm_at_hubert_long_pass_rows_matches_plain(card, n):
+    """hubert-xlarge's 32768-token encoder pass: M = 32768 rows (128 row
+    tiles), K = 1280, N = 5120 (the TMA path; 167.8 M outputs) and N = 504
+    (lm_head, the direct path), bf8_50, f32 and bf16 outputs."""
+    k, m = 1280, 32768
+    g = torch.Generator(device=card).manual_seed(n)
+    ct = compress(torch.randn(k, n, generator=g, device=card) * 0.05, get_spec("bf8_50"))
+    x = torch.randn(m, k, generator=g, device=card).bfloat16()
+    launches = deca_gemm.decompress_gemm.launches
+    want = ref.decompress_gemm(x, ct, out_dtype=torch.float32)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        got = deca_gemm.decompress_gemm(x, ct, out_dtype=out_dtype)
+        torch.cuda.synchronize()
+        assert got.dtype == out_dtype and got.shape == (m, n)
+        if out_dtype == torch.float32:
+            assert _close(got, want)
+        else:
+            bound = 2.0**-8 * want.abs() + TOL * want.abs().max()
+            assert torch.all((got.float() - want).abs() <= bound)
+        del got
+    assert deca_gemm.decompress_gemm.launches == launches + 2
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("n", [504, 259])
 @pytest.mark.parametrize("density", [1.0, 0.5, 0.05])
 @pytest.mark.parametrize("quant", ["bf16", "bf8", "mxfp4", "int8", "int4", "nf4"])
@@ -608,6 +656,22 @@ def test_decode_graphs_of_the_new_families_replay_bitwise(card, arch):
     per_step = (6 if cfg.mlp_act == "relu" else 7) * cfg.n_layers + (not cfg.tie_embeddings)
     for key, g in graphs.items():
         assert g.launches[0] == key[2][0] * per_step
+        assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
+
+
+@pytest.mark.gpu
+def test_mrope_decode_graphs_replay_bitwise(card):
+    """qwen2-vl-7b smoke: each decode step broadcasts its positions to
+    M-RoPE's three streams (a view) and rotates q and k in f32 inside the
+    captured chunk; every replay is the uncaptured chunk bitwise, with 7
+    GeMVs a layer plus the head each step."""
+    from repro_torch.serve.graphs import replay_check
+
+    eng = _served_engine(card, "int8", arch="qwen2-vl-7b")
+    graphs = eng._chunk_graphs.graphs
+    assert sorted(key[2][0] for key in graphs) == [1, 2, 4, 8]
+    for key, g in graphs.items():
+        assert g.launches[0] == key[2][0] * (7 * eng.cfg.n_layers + 1)
         assert replay_check(eng._chunk_graphs, key, eng.kv.pools) == [], key
 
 
@@ -1252,7 +1316,7 @@ def test_dense_engine_steps_on_the_card_match_the_plain_path(card, arch, monkeyp
             _plain_matmuls(monkeypatch)
         else:
             deca_gemm.decompress_gemv.launches = 0
-        logits, cache = make_prefill_step(model, cache_len=16)(params, tokens)
+        logits, cache = make_prefill_step(model, cache_len=16)(params, {"tokens": tokens})
         rows = [logits]
         for j in range(3):
             tok = outs["kernel"][j].argmax(-1)[:, None] if path == "plain" else (

@@ -4,13 +4,13 @@
     python3 tools/moe_serve.py
 
 Builds the kernels (`kernels/cuda.build`, a no-op when they are built),
-then runs only the phase: grok-1-314b at full width and 16 of its 64
+then runs only the phase: grok-1-314b at full width and 8 of its 64
 layers, all 8 experts, with bf8_50 weights compressed on the card one
 expert at a time (build time, stored bytes against the dense bf16 size,
 the build's peak), the kernels against their plain versions at its shapes
 (the experts through their `pick` views) and at kimi-k2's (expert GeMVs,
 attention at Dh 112), a 4-request greedy serve at capacity 1.25 through
-captured decode graphs (replays bitwise, 833 GeMVs a step, the replayed
+captured decode graphs (replays bitwise, 417 GeMVs a step, the replayed
 step beside its bytes bound, the token-slots each prefill drops), the
 kernel path against the plain path over the first 4 layers at capacity
 1.25 and drop-free (the plain path on the kernel path's routes), a
