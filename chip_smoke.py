@@ -93,7 +93,14 @@ direct path), attention at Dh 80 with
 causal=0, encoder passes at 4 x 1024 and 1 x 32768 (289 GeMMs a pass,
 beside the FLOP bound), its kernel path against the plain path,
 bidirectionality, and a paged serve of 4 x 64 tokens
-(`tools/vlm_audio_serve.py` runs it alone). The kernel bounds take their
+(`tools/vlm_audio_serve.py` runs it alone). Last, `train` trains: one
+AdamW step of llama3.2-1b smoke on the card against the CPU, the
+crash-and-restart through `ResilientTrainer` on the card (bitwise under
+deterministic algorithms), llama3.2-1b at full width and depth for 8 steps
+through `train_loop` on 2 x 4096 tokens with remat and AdamW (losses, the
+median step, tokens/s, 6 N T FLOPs against the bf16 peak, peak memory,
+no DECA kernel launched), and one Adafactor step (`tools/train_run.py`
+runs it alone). The kernel bounds take their
 rates from the same H100 profile (`core/roofsurface.py`), whose
 Roof-Surface lines print as an analytic line at the start.
 """
@@ -182,6 +189,16 @@ IMAGE_TEXT, IMAGE_GRID = 16, 32
 AUDIO_MS = (4, 4096, 32768)
 AUDIO_PASSES = ((4, 1024), (1, 32768))
 AUDIO_BATCH, AUDIO_PROMPT, AUDIO_NEW = 4, 64, 8
+# training (the `train` phase): llama3.2-1b at full width and depth on
+# SHAPES["train_4k"]'s 4096-token rows, its global batch of 256 cut to one
+# card's TRAIN_BATCH; TRAIN_STEPS steps of cfg.optimizer with remat on a
+# schedule that warms up in TRAIN_WARMUP steps to TRAIN_PEAK_LR
+TRAIN_MODEL = TIED_MODEL
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_WARMUP, TRAIN_PEAK_LR = 2, 8, 2, 1e-4  # 1e-3 and 2e-4 overshoot: the loss jumps at step 3 or 4
+TRAIN_SMOKE_LR = 1e-3  # the card-vs-CPU step at smoke size
+TRAIN_LOSS_RTOL = 1e-3  # card against CPU: the loss
+TRAIN_GRAD_SHARE = 5e-2  # card against CPU: each gradient leaf, of its largest magnitude
+TRAIN_PARAM_SHARE = 1e-2  # card against CPU: params an update apart, of all elements
 
 
 _LOG = []
@@ -3596,6 +3613,299 @@ def vlm_audio(torch, report):
     return cases
 
 
+class GradTap:
+    """An optimizer that keeps a host copy of the grads it is handed, then
+    updates as `opt` does."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.grads = None
+
+    def init(self, params):
+        return self.opt.init(params)
+
+    def update(self, grads, state, params, step):
+        from repro_torch.checkpoint.ckpt import flatten
+
+        self.grads = {k: v.float().cpu() for k, v in flatten(grads).items()}
+        return self.opt.update(grads, state, params, step)
+
+
+def train_card_vs_cpu(torch, rec):
+    """(a) One AdamW step of llama3.2-1b smoke on the card and on the CPU
+    from the same params and batch: the loss within TRAIN_LOSS_RTOL, each
+    gradient leaf within TRAIN_GRAD_SHARE of its largest magnitude, and the
+    updated params: AdamW's first step moves each by lr times the sign of
+    its gradient, so an element whose tiny gradient changes sign lands 2 lr
+    away; at most TRAIN_PARAM_SHARE of the elements may differ by more than
+    a bf16 ulp of themselves, none by more than 2 lr and an ulp."""
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import AdamW, tree_map
+    from repro_torch.train.trainer import device_batch, make_train_step
+
+    cfg = get_smoke_config(TRAIN_MODEL)
+    model = Model(cfg)
+    start = model.init(torch.Generator().manual_seed(0), device="cpu")
+    batch = SyntheticPipeline(cfg, ShapeConfig("t", "train", 64, 4), seed=1).batch(0)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        params = tree_map(lambda p: p.to(dev, copy=True), start)
+        tap = GradTap(AdamW(lr=TRAIN_SMOKE_LR))
+        params, _, m = make_train_step(model, tap)(params, tap.init(params),
+                                                  device_batch(batch, dev), 0)
+        runs[dev] = (float(m["loss"]), tap.grads,
+                     {k: v.float().cpu() for k, v in flatten(params).items()})
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = runs["cpu"], runs["cuda"]
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    grad_share = max(float((g_card[k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+                     for k, g in g_cpu.items())
+    n = apart = 0
+    worst = 0.0
+    for k, p in p_cpu.items():
+        d = (p_card[k] - p).abs()
+        ulp = p.abs().clamp(min=1e-30) * 2.0 ** -8
+        apart += int((d > ulp).sum())
+        n += d.numel()
+        worst = max(worst, float((d - ulp).max()) / TRAIN_SMOKE_LR)
+    rec["card_vs_cpu"] = {"loss_cpu": l_cpu, "loss_card": l_card, "loss_rel": loss_rel,
+                          "grad_share": grad_share, "params_apart": apart, "params": n,
+                          "worst_over_ulp_in_lr": worst}
+    log(f"train (a) card vs CPU, {TRAIN_MODEL} smoke, one AdamW step at 4 x 64: loss "
+        f"{l_card:.6f} / {l_cpu:.6f} (rel {loss_rel:.3e}, limit {TRAIN_LOSS_RTOL}); worst "
+        f"gradient leaf {grad_share:.3e} of its largest magnitude (limit {TRAIN_GRAD_SHARE}); "
+        f"params more than a bf16 ulp apart: {apart} of {n}; the worst beyond an ulp "
+        f"{worst:.3f} lr (limit 2)")
+    if not (loss_rel <= TRAIN_LOSS_RTOL and grad_share <= TRAIN_GRAD_SHARE
+            and apart <= TRAIN_PARAM_SHARE * n and worst <= 2.0 + 1e-3):
+        raise AssertionError(f"train (a): the card's step departs from the CPU's: "
+                             f"{rec['card_vs_cpu']}")
+
+
+def train_restart(torch, rec):
+    """(b) llama3.2-1b smoke through `ResilientTrainer` on the card under
+    `torch.use_deterministic_algorithms(True)`: a crash at step 6, after the
+    step-4 checkpoint, resumed, must end with params and AdamW state
+    bitwise the uninterrupted run's, and the same losses. The checkpoints
+    are written under chiprun_out/train_ckpt and removed after."""
+    import os
+    import shutil
+
+    from repro_torch.checkpoint.ckpt import Checkpointer, flatten
+    from repro_torch.configs.base import ShapeConfig, get_smoke_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.dist.fault import FaultInjector, ResilientTrainer
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import AdamW
+    from repro_torch.train.trainer import make_train_step
+
+    cfg = get_smoke_config(TRAIN_MODEL)
+    model = Model(cfg)
+    opt = AdamW(lr=TRAIN_SMOKE_LR)
+    pipe = SyntheticPipeline(cfg, ShapeConfig("t", "train", 64, 4), seed=5)
+
+    def init_fn():
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        return params, opt.init(params)
+
+    root = OUT / "train_ckpt"
+    # cuBLAS is deterministic with a fixed workspace; torch asks for it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    try:
+        runs = []
+        for name, inj in (("uninterrupted", None), ("crash_at_6", FaultInjector(plan={6: "crash"}))):
+            tr = ResilientTrainer(model, lambda: make_train_step(model, opt), pipe,
+                                  Checkpointer(str(root / name), async_save=False),
+                                  checkpoint_every=4, injector=inj)
+            params, state = tr.run(init_fn, 10)
+            runs.append((tr, flatten({"params": params, "opt_state": state})))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(root, ignore_errors=True)
+    (ref, want), (tr, got) = runs
+    differ = [k for k in want if not torch.equal(want[k], got[k])]
+    rec["restart"] = {"restarts": tr.restarts, "leaves": len(want), "leaves_differ": differ,
+                      "losses": [m["loss"] for _, m in tr.history],
+                      "history_equal": tr.history == ref.history,
+                      "seconds": time.perf_counter() - t0}
+    log(f"train (b) restart on the card, {TRAIN_MODEL} smoke, deterministic algorithms: "
+        f"{tr.restarts} restart after a crash at step 6; {len(want) - len(differ)} of "
+        f"{len(want)} leaves (params and AdamW state) bitwise the uninterrupted run's; "
+        f"history equal: {rec['restart']['history_equal']}; "
+        f"{rec['restart']['seconds']:.1f} s")
+    if tr.restarts != 1 or differ or not rec["restart"]["history_equal"]:
+        raise AssertionError(f"train (b): the restarted run is not the uninterrupted one's: "
+                             f"{differ[:8]}")
+
+
+def profile_train_step(torch, step_fn, params, state, batch, step, rec):
+    """One more train step traced with torch.profiler, events around it:
+    the kernels' device time by group (GEMMs, softmax, reductions, the
+    rest: elementwise and copies) and the idle share of its wall. Returns
+    (params, state)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
+        params, state, m = step_fn(params, state, batch, step)
+        b.record()
+        b.synchronize()
+    wall = a.elapsed_time(b)
+    rows = sorted(({"name": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+                   and not e.key.startswith("aten::")), key=lambda r: -r["device_ms"])
+    busy = sum(r["device_ms"] for r in rows)
+    groups = {"gemm": ("gemm", "nvjet", "cutlass", "xmma"), "softmax": ("softmax",),
+              "reduce": ("reduce",)}
+    split = {}
+    for r in rows:
+        name = r["name"].lower()
+        g = next((k for k, v in groups.items() if any(t in name for t in v)), "other")
+        split[g] = split.get(g, 0.0) + r["device_ms"]
+    kernels = sum(r["count"] for r in rows)
+    rec["profile"] = {"wall_ms": wall, "busy_ms": busy, "split_ms": split, "kernels": kernels,
+                      "loss": float(m["loss"]), "rows": rows[:30]}
+    log(f"  one traced step: {wall:.1f} ms; device busy {busy:.1f} ms ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(split.items(), key=lambda kv: -kv[1]))
+        + f"), {kernels} kernels; idle share {1 - busy / wall:.3f}")
+    for r in rows[:8]:
+        log(f"  {r['device_ms']:9.2f} ms {r['count']:6d}x  {r['name'][:90]}")
+    return params, state
+
+
+def state_bytes(tree) -> int:
+    from repro_torch.checkpoint.ckpt import flatten
+
+    return sum(t.numel() * t.element_size() for t in flatten(tree).values())
+
+
+def train(torch, report):
+    """Training on the card. (a) one AdamW step of llama3.2-1b smoke on the
+    card against the CPU; (b) the crash-and-restart through
+    `ResilientTrainer`, bitwise under deterministic algorithms; (c)
+    llama3.2-1b at full width and depth (16 layers, d 2048, 32 / 8 heads,
+    d_ff 8192, vocab 128256, tied head, dense bf16) trained TRAIN_STEPS
+    steps through `train_loop` on TRAIN_BATCH x 4096 tokens with remat and
+    cfg.optimizer (AdamW): each step's loss, the median step after the
+    first, tokens/s, 6 N T model FLOPs (attention not counted) against the
+    bf16 peak, peak memory, and no launch of the four kernels (a dense tree
+    multiplies through torch.matmul, as the reference's einsums), then one
+    more step traced by the profiler; (d) one Adafactor step of the same
+    model, its state bytes against AdamW's. A
+    full-width checkpoint would be ~17 GB, so (b) stays at smoke size."""
+    import functools
+    import statistics
+
+    from repro_torch.configs.base import SHAPES, ShapeConfig, get_config
+    from repro_torch.data.pipeline import SyntheticPipeline
+    from repro_torch.models.model import Model
+    from repro_torch.optim.optimizers import make_optimizer, warmup_cosine
+    from repro_torch.train.trainer import device_batch, make_train_step, train_loop
+
+    t0 = time.perf_counter()
+    rec = {}
+    log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+    train_card_vs_cpu(torch, rec)
+    train_restart(torch, rec)
+
+    # (c) full width and depth
+    cfg = get_config(TRAIN_MODEL)
+    model = Model(cfg)
+    shape = SHAPES["train_4k"]
+    pipe = SyntheticPipeline(cfg, ShapeConfig("train_4k_one_card", "train", shape.seq_len,
+                                              TRAIN_BATCH), seed=0)
+    lr = functools.partial(warmup_cosine, peak_lr=TRAIN_PEAK_LR, warmup=TRAIN_WARMUP,
+                           total=TRAIN_STEPS)
+    opt = make_optimizer(cfg.optimizer, lr=lr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    p_bytes, adamw_bytes = state_bytes(params), state_bytes(state)
+    for fn in counters().values():
+        fn.launches = 0
+    step_fn = make_train_step(model, opt, remat=True)
+    params, state, hist = train_loop(model, params, state, pipe, n_steps=TRAIN_STEPS,
+                                     train_step=step_fn)
+    launches = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [m["loss"] for _, m, _ in hist]
+    secs = [dt for _, _, dt in hist]
+    step_s = statistics.median(secs[1:])
+    tokens = TRAIN_BATCH * shape.seq_len
+    n_params = cfg.param_count()
+    flops = 6 * n_params * tokens
+    full = {"batch": TRAIN_BATCH, "seq": shape.seq_len, "steps": TRAIN_STEPS,
+            "losses": losses, "step_s": secs, "median_step_s": step_s,
+            "tokens_per_s": tokens / step_s, "model_flops": flops,
+            "flop_share": flops / step_s / BF16_FLOP_PER_S, "peak_bytes": peak,
+            "param_bytes": p_bytes, "adamw_state_bytes": adamw_bytes, "launches": launches,
+            "metrics": [m for _, m, _ in hist]}
+    rec["full"] = full
+    log(f"train (c) {TRAIN_MODEL} full width and depth ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, tied; {n_params / 1e9:.3f} B params, {p_bytes / 1e9:.2f} GB bf16, "
+        f"AdamW state {adamw_bytes / 1e9:.2f} GB) at {TRAIN_BATCH} x {shape.seq_len} tokens "
+        f"(train_4k's global batch {shape.global_batch} cut to {TRAIN_BATCH}), remat, "
+        f"{cfg.optimizer}:")
+    log("  loss by step: " + ", ".join(f"{x:.4f}" for x in losses))
+    log(f"  step walls {', '.join(f'{x:.3f}' for x in secs)} s; median after the first "
+        f"{step_s:.3f} s = {tokens / step_s:.0f} tokens/s; 6 N T = {flops / 1e12:.1f} TFLOP a "
+        f"step (attention FLOPs not counted) = {flops / step_s / 1e12:.1f} TFLOP/s, "
+        f"{100 * full['flop_share']:.1f} % of the bf16 peak {BF16_FLOP_PER_S / 1e12:.0f}; "
+        f"peak allocated {peak / 1e9:.2f} GB over what the phase found; kernel launches "
+        f"{launches}")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"train (c): the loss is not finite and falling: {losses}")
+    if any(launches.values()):
+        raise AssertionError(f"train (c): the dense training path launched a DECA kernel: "
+                             f"{launches}")
+    params, state = profile_train_step(torch, step_fn, params, state,
+                                       device_batch(pipe.batch(TRAIN_STEPS), "cuda"),
+                                       TRAIN_STEPS, full)
+
+    # (d) one Adafactor step of the same model
+    del state, opt
+    gc.collect()
+    torch.cuda.empty_cache()
+    ada = make_optimizer("adafactor", lr=lr, stacked=model.layer_stack > 1)
+    a_state = ada.init(params)
+    ada_bytes = state_bytes(a_state)
+    probe = params["layers"][0]["mlp"]["w_up"].clone()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    params, a_state, m = make_train_step(model, ada)(
+        params, a_state, device_batch(pipe.batch(TRAIN_STEPS + 1), "cuda"), TRAIN_STEPS + 1)
+    loss = float(m["loss"])
+    ada_s = time.perf_counter() - t1
+    moved = not torch.equal(probe, params["layers"][0]["mlp"]["w_up"])
+    rec["adafactor"] = {"state_bytes": ada_bytes, "adamw_state_bytes": adamw_bytes,
+                        "loss": loss, "step_s": ada_s, "moved": moved}
+    log(f"train (d) one Adafactor step (stacked over {model.layer_stack} layers): loss "
+        f"{loss:.4f}, {ada_s:.3f} s; state {ada_bytes / 1e6:.1f} MB against AdamW's "
+        f"{adamw_bytes / 1e9:.2f} GB ({adamw_bytes / ada_bytes:.0f}x)")
+    if not math.isfinite(loss) or not moved:
+        raise AssertionError(f"train (d): loss {loss}, params moved: {moved}")
+    del params, a_state, probe
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"train: {rec['seconds']:.1f} s")
+    report["train"] = rec
+
+
 def paper_models(torch, report):
     """The paper's two end-to-end models (Table 4) at full width and depth
     on one card, compressed to SERVED_SPEC, then a tied head: each built,
@@ -3881,6 +4191,10 @@ def main() -> int:
     # 17. M-RoPE and patch embeddings (qwen2-vl-7b), the bidirectional encoder
     # (hubert-xlarge)
     vlm_audio_cases = vlm_audio(torch, report)
+
+    # 18. training: llama3.2-1b at full width and depth, card against CPU,
+    # the restart on the card, one Adafactor step
+    train(torch, report)
 
     (OUT / "chip_smoke.json").write_text(json.dumps(report, indent=1, default=str))
     log(f"total {time.perf_counter() - t_start:.1f} s; details in chiprun_out/chip_smoke.json")

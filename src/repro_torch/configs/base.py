@@ -2,12 +2,14 @@
 
 Port-owned copy of `repro/configs/base.py`: the `ModelConfig` fields are
 the reference's, so a config converts field by field. Every architecture
-of the reference's `ARCH_IDS` is registered."""
+of the reference's `ARCH_IDS` is registered, and `SHAPES` holds the
+reference's named run shapes (`ShapeConfig`), which the synthetic data
+pipeline reads."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Tuple
+from typing import Dict, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -53,6 +55,10 @@ class ModelConfig:
     optimizer: str = "adamw"        # adamw | adafactor (the 1T-param archs)
     remat: str = "full"             # none | full (activation checkpointing)
     scan_layers: bool = True        # lax.scan over stacked layer params
+
+    @property
+    def is_encoder(self) -> bool:
+        return not self.causal
 
     @property
     def d_inner(self) -> int:
@@ -119,6 +125,22 @@ class ModelConfig:
         per_expert = 3 * d * f if self.mlp_act in ("swiglu", "geglu") else 2 * d * f
         inactive = (self.n_experts - self.experts_per_token) * per_expert
         return self.param_count() - self.n_layers * inactive
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
 
 
 _MODULES = {

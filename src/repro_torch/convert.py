@@ -13,6 +13,13 @@ leaf, their f32 leaves (`conv_w`, `conv_b`, `dt_bias`, `a_log`, `d_skip`,
 `b_a`, `b_x`, `a_param`) as f32. The reference's compressed leaves are read by their attributes
 (`codes`, `mask`, `scales`, `spec`, `shape`), so this module imports nothing
 of the reference. It lets both packages compute from the same numbers.
+A leaf may also be a torch tensor (a bf16 leaf that `checkpoint.ckpt`
+read from the reference's checkpoint comes back as one).
+
+`opt_state_from_jax(state, cfg)` carries an optimizer state across the
+same way: AdamW's three params-shaped trees as params, and Adafactor's
+factors with the reference's uniform stack kept stacked (the layout of
+`optim.optimizers.Adafactor(stacked=True)`).
 """
 from __future__ import annotations
 
@@ -50,6 +57,8 @@ def _leaf(leaf: Any, layer: Optional[int], device):
     def plane(a):
         if a is None:
             return None
+        if isinstance(a, torch.Tensor):
+            return (a if layer is None else a[layer]).to(device, copy=True)
         a = np.asarray(a)
         return to_tensor(a if layer is None else a[layer], device)
 
@@ -82,3 +91,21 @@ def params_from_jax(tree: Any, cfg: ModelConfig, *, device="cuda") -> dict:
             _map(tree["layers"][str(i)], None, device) for i in range(cfg.n_layers)
         ]
     return out
+
+
+def opt_state_from_jax(state: Any, cfg: ModelConfig, *, device="cuda") -> dict:
+    """The reference's AdamW or Adafactor state -> the port's on `device`.
+    Adafactor's `v` tree keeps a uniform stack of more than one layer as
+    one (n_layers, ...) factor set a leaf under "layers"."""
+    if "master" in state:  # AdamW: mu, nu and master mirror the params
+        return {k: params_from_jax(state[k], cfg, device=device) for k in ("mu", "nu", "master")}
+    device = resolve(device)
+    v = state["v"]
+    out = {k: _map(t, None, device) for k, t in v.items() if k not in ("blocks", "layers")}
+    if "blocks" in v and cfg.n_layers > 1:
+        out["layers"] = _map(v["blocks"], None, device)
+    elif "blocks" in v:
+        out["layers"] = [_map(v["blocks"], 0, device)]
+    else:
+        out["layers"] = [_map(v["layers"][str(i)], None, device) for i in range(cfg.n_layers)]
+    return {"v": out}

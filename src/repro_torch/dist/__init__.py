@@ -1,5 +1,5 @@
-"""repro_torch.dist: the serving half of the reference's fault module
-(`repro/dist/fault.py`): deterministic fault injection and straggler
-detection for the scheduler's round loop. Checkpoint-restart training
-(`ResilientTrainer`) waits for training (ROADMAP Queue A item 11); the
-sharding and gradient-compression modules for item 12."""
+"""repro_torch.dist: the reference's fault module (`repro/dist/fault.py`):
+deterministic fault injection and straggler detection for the scheduler's
+round loop and the train loop, and checkpoint-restart training
+(`ResilientTrainer`). The sharding and gradient-compression modules wait
+for ROADMAP Queue A item 12."""

@@ -1,19 +1,27 @@
-"""Deterministic fault injection and straggler detection for the serving
-scheduler (the serving half of `repro/dist/fault.py`; numpy only).
+"""Deterministic fault injection, straggler detection and checkpoint-
+restart training (the port of `repro/dist/fault.py`).
 
-A `FaultInjector` plan names scheduler rounds and the fault each one
-suffers; `p_fail` draws crash steps from a stream that is a pure function
-of (seed, step), so two injectors with one seed fail the same steps. The
-scheduler consumes the `SERVING_FAULTS` kinds through `take` at the point
-in its round where each applies; a `StragglerWatchdog` flags rounds whose
-wall time exceeds a multiple of the running mean.
+A `FaultInjector` plan names scheduler rounds or train steps and the fault
+each one suffers; `p_fail` draws crash steps from a stream that is a pure
+function of (seed, step), so two injectors with one seed fail the same
+steps. The scheduler consumes the `SERVING_FAULTS` kinds through `take` at
+the point in its round where each applies; a `StragglerWatchdog` flags
+rounds or steps whose wall time exceeds a multiple of the running mean.
+
+`ResilientTrainer` drives training through injected crashes: a run
+interrupted and resumed from its latest complete checkpoint ends with
+params bit-identical to an uninterrupted run's. What makes that hold lies
+elsewhere: a data pipeline that is a pure function of (seed, step),
+checkpoints that round-trip every bit, and deterministic kernels.
 """
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
+
+from repro_torch.train.trainer import device_batch, params_device
 
 
 class InjectedFault(RuntimeError):
@@ -144,3 +152,76 @@ class StragglerWatchdog:
             "mean_step_s": (sum(self.durations) / n) if n else 0.0,
             "threshold_factor": self.factor,
         }
+
+
+class ResilientTrainer:
+    """Checkpoint-restart wrapper around a train step.
+
+    An InjectedFault aborts the attempt; the next attempt re-inits
+    (`init_fn`), restores the latest complete checkpoint onto the fresh
+    params' device, rebuilds the step (`make_step`, as a real restart
+    would) and replays from the checkpointed step. Because the pipeline is
+    a pure function of (seed, step) and checkpoints round-trip bits, the
+    replayed steps reproduce the uninterrupted run bit for bit."""
+
+    def __init__(
+        self,
+        model: Any,
+        make_step: Callable[[], Callable],
+        pipeline: Any,
+        checkpointer: Any,
+        *,
+        checkpoint_every: int = 0,
+        injector: Optional[FaultInjector] = None,
+        watchdog: Optional[StragglerWatchdog] = None,
+        max_restarts: int = 16,
+    ):
+        self.model = model
+        self.make_step = make_step
+        self.pipeline = pipeline
+        self.checkpointer = checkpointer
+        self.checkpoint_every = checkpoint_every
+        self.injector = injector
+        self.watchdog = watchdog
+        self.max_restarts = max_restarts
+        self.restarts = 0
+        self.history: List[Tuple[int, Dict[str, float]]] = []
+
+    def run(self, init_fn: Callable[[], Tuple[Any, Any]], n_steps: int):
+        """Train to `n_steps`, surviving injected faults. Returns the final
+        (params, opt_state)."""
+        while True:
+            try:
+                return self._attempt(init_fn, n_steps)
+            except InjectedFault:
+                self.restarts += 1
+                if self.restarts > self.max_restarts:
+                    raise
+
+    def _attempt(self, init_fn, n_steps: int):
+        params, opt_state = init_fn()
+        start = 0
+        if self.checkpointer is not None and self.checkpointer.latest_step() is not None:
+            start, tree = self.checkpointer.restore({"params": params, "opt_state": opt_state})
+            params, opt_state = tree["params"], tree["opt_state"]
+        # replayed steps overwrite their pre-crash entries, not duplicate them
+        self.history = [(s, m) for s, m in self.history if s < start]
+        step_fn = self.make_step()
+        device = params_device(params)
+        for step in range(start, n_steps):
+            t0 = time.monotonic()
+            # inside the timed window so "slow" injections hit the watchdog
+            if self.injector is not None:
+                self.injector.poll(step)
+            batch = device_batch(self.pipeline.batch(step), device)
+            params, opt_state, metrics = step_fn(params, opt_state, batch, step)
+            metrics = {k: float(v) for k, v in metrics.items()}  # a host sync
+            if self.watchdog is not None:
+                self.watchdog.observe(step, time.monotonic() - t0)
+            self.history.append((step, metrics))
+            if (self.checkpointer is not None and self.checkpoint_every
+                    and (step + 1) % self.checkpoint_every == 0):
+                self.checkpointer.save(step + 1, params, opt_state)
+        if self.checkpointer is not None:
+            self.checkpointer.wait()
+        return params, opt_state

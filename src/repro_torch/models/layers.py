@@ -695,17 +695,38 @@ def softcap(logits: torch.Tensor, cap: float) -> torch.Tensor:
     return torch.tanh(logits / cap) * cap
 
 
+def _tied_mm(x2: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
+    if x2.device.type == "cuda":
+        return torch.mm(x2, embed.t(), out_dtype=torch.float32)
+    return x2.float() @ embed.float().t()
+
+
+class _TiedHead(torch.autograd.Function):
+    """The tied head with the reference's gradients: its einsum's transpose
+    rules multiply the f32 cotangent by the operands in f32 and round each
+    gradient once to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, x2, embed):
+        ctx.save_for_backward(x2, embed)
+        return _tied_mm(x2, embed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, embed = ctx.saved_tensors
+        gx = (g @ embed.float()).to(x2.dtype) if ctx.needs_input_grad[0] else None
+        ge = (g.t() @ x2.float()).to(embed.dtype) if ctx.needs_input_grad[1] else None
+        return gx, ge
+
+
 def tied_logits(x: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
     """Logits of a tied head: x (..., D) bf16 against `embed` (V, D) bf16,
     the products exact and summed in f32 into an f32 result (the
     reference's einsum with `preferred_element_type=f32`). On the card one
     cuBLAS GEMM reads the bf16 table and writes f32; on the CPU the same
-    sum runs over f32 copies of the operands."""
-    x2 = x.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
-        out = torch.mm(x2, embed.t(), out_dtype=torch.float32)
-    else:
-        out = x2.float() @ embed.float().t()
+    sum runs over f32 copies of the operands. Under autograd the
+    gradients are the reference's (`_TiedHead`)."""
+    out = _TiedHead.apply(x.reshape(-1, x.shape[-1]), embed)
     return out.reshape(*x.shape[:-1], embed.shape[0])
 
 

@@ -14,7 +14,12 @@ the vlm family (qwen2-vl-7b: M-RoPE over three position streams,
 `layers.apply_mrope`, and patch embeddings from a stubbed frontend as
 `forward(embeds=...)`) and the audio family (hubert-xlarge: a
 bidirectional encoder, `causal=False`, with learned positions and an
-ungated gelu MLP; the engines serve it as the reference's do).
+ungated gelu MLP; the engines serve it as the reference's do). The FFN is
+the MoE one exactly when `n_experts` is set, in any family.
+
+`loss` is the training objective (the reference's `Model.loss`), on the
+full-sequence forward; `forward(remat=True)` checkpoints each layer for
+it, and `forward(with_aux=True)` also returns the summed MoE aux loss.
 
 Two cache regimes, as in the reference. `forward(paged=...)` runs an
 attention stack over the block-paged KV pool (`init_paged_cache`):
@@ -47,6 +52,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.decompress import compress_tree, mm
@@ -59,29 +65,21 @@ Pools = List[Dict[str, torch.Tensor]]
 _ATTN = ("attn", "attn_local")
 
 
-def _unsupported(cfg: ModelConfig) -> List[str]:
-    """Config features outside the port, each with the step of ROADMAP
-    Queue A item 10 (remaining model families) that ports it. Every family
-    of the reference is ported (dense, moe, ssm, hybrid, and since step
-    10.7 vlm and audio with M-RoPE and the gelu MLP); experts in another
-    family, or an MoE family without them, are not (step 10.5)."""
-    experts = cfg.n_experts > 0
-    checks = {
-        # experts only in an MoE family, an MoE family only with them, and
-        # 1 <= experts_per_token <= n_experts
-        "n_experts": ((cfg.family == "moe") != experts or (experts and not (
-            0 < cfg.experts_per_token <= cfg.n_experts)), "10.5"),
-    }
-    return [f"{name} (step {step})" for name, (bad, step) in checks.items() if bad]
+def _check_experts(cfg: ModelConfig) -> None:
+    """The FFN routes by `n_experts` alone, in any family, as the
+    reference's: experts give the MoE FFN, none the dense MLP. A config
+    with experts must pick 1..n_experts of them a token, where the
+    reference's top-k fails (k > E) or its aux loss is NaN (k = 0)."""
+    if cfg.n_experts and not 0 < cfg.experts_per_token <= cfg.n_experts:
+        raise ValueError(
+            f"{cfg.name}: experts_per_token={cfg.experts_per_token} must lie in "
+            f"1..n_experts={cfg.n_experts}"
+        )
 
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        bad = _unsupported(cfg)
-        if bad:
-            raise NotImplementedError(
-                f"{cfg.name}: {bad} are not ported yet (ROADMAP Queue A item 10)"
-            )
+        _check_experts(cfg)
         L.kv_codec(cfg.kv_quant)  # fail fast on a non-KV codec
         self.cfg = cfg
         self.kinds = cfg.layer_kinds()
@@ -231,7 +229,10 @@ class Model:
     # forward
     # ------------------------------------------------------------------
     def _block_apply(self, p, x, kind, positions, cache, paged):
+        """One layer: (x, its cache, its MoE aux loss: f32 0-d, None
+        without an MoE FFN)."""
         cfg = self.cfg
+        aux = None
         h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
         if kind in _ATTN and paged is not None:
             out, cache = L.paged_attention_block(
@@ -256,15 +257,25 @@ class Model:
             out = L.rms_norm(p["post_attn_norm"], out, cfg.norm_eps)
         x = x + out
         if not cfg.d_ff or kind == "ssm":
-            return x, cache
+            return x, cache, aux
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
         if cfg.n_experts:
-            out, _ = L.moe_block(p["moe"], h, cfg)  # aux: a training loss term
+            out, aux = L.moe_block(p["moe"], h, cfg)
         else:
             out = L.mlp_block(p["mlp"], h, cfg)
         if cfg.post_norms:
             out = L.rms_norm(p["post_mlp_norm"], out, cfg.norm_eps)
-        return x + out, cache
+        return x + out, cache, aux
+
+    def _remat_block(self, p, x, kind, positions):
+        """One cache-less layer under activation checkpointing (the
+        reference's `jax.checkpoint` around `_block_apply`): only its input
+        is kept, and its activations are recomputed in the backward pass."""
+        def run(p, x):
+            x, _, aux = self._block_apply(p, x, kind, positions, None, None)
+            return x, aux
+
+        return checkpoint(run, p, x, use_reentrant=False)
 
     def forward(
         self,
@@ -275,8 +286,12 @@ class Model:
         positions: Optional[torch.Tensor] = None,  # (B, S) or (3, B, S)
         cache: Optional[Pools] = None,
         paged: Optional[Dict[str, torch.Tensor]] = None,
-    ) -> Tuple[torch.Tensor, Optional[Pools]]:
-        """Returns (logits (B, S, V) f32, caches updated in place).
+        remat: bool = False,
+        with_aux: bool = False,
+    ):
+        """Returns (logits (B, S, V) f32, caches updated in place), and with
+        `with_aux` also the MoE aux loss summed over the layers (f32 0-d,
+        zero without experts) as a third item: the reference's triple.
 
         The input is `tokens`, or `embeds` (the stubbed vision or audio
         frontend's output, any float dtype) in their place. Under learned
@@ -294,10 +309,16 @@ class Model:
         window_override that caps its attention window (the spec-decode
         draft). Without it, `cache` is an `init_cache` list (the dense
         engine) or None (the full-sequence forward, caches None), and the
-        batch shares the positions of row 0, by default 0 .. S - 1."""
+        batch shares the positions of row 0, by default 0 .. S - 1.
+
+        `remat` checkpoints each layer of the full-sequence forward
+        (`torch.utils.checkpoint`, non-reentrant): training's backward pass
+        then holds one layer's activations at a time. It needs no cache."""
         cfg = self.cfg
         if paged is not None and cache is None:
             raise ValueError("a paged forward needs an init_paged_cache pool")
+        if remat and cache is not None:
+            raise ValueError("remat is for the cache-less training forward")
         x = params["embed"][tokens.long()] if embeds is None else embeds
         b, s = x.shape[:2]
         if positions is None:
@@ -311,8 +332,16 @@ class Model:
         x = x.to(torch.bfloat16)
         caches = cache if cache is not None else [None] * len(self.kinds)
         new_cache = []
+        # the aux sum is made only when asked for, so a captured serving
+        # step launches no kernel for it
+        aux = torch.zeros((), dtype=torch.float32, device=x.device) if with_aux else None
         for p, kind, cache_l in zip(params["layers"], self.kinds, caches):
-            x, cache_l = self._block_apply(p, x, kind, positions, cache_l, paged)
+            if remat:
+                x, aux_l = self._remat_block(p, x, kind, positions)
+            else:
+                x, cache_l, aux_l = self._block_apply(p, x, kind, positions, cache_l, paged)
+            if with_aux and aux_l is not None:
+                aux = aux + aux_l
             new_cache.append(cache_l)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         if cfg.tie_embeddings:
@@ -321,7 +350,41 @@ class Model:
             logits = mm(x.to(torch.float32), params["lm_head"])
         if cfg.final_softcap:
             logits = L.softcap(logits, cfg.final_softcap)
-        return logits, (new_cache if cache is not None else None)
+        new_cache = new_cache if cache is not None else None
+        return (logits, new_cache, aux) if with_aux else (logits, new_cache)
+
+    def loss(
+        self,
+        params: Params,
+        batch: Dict[str, torch.Tensor],
+        *,
+        remat: bool = True,
+        aux_weight: float = 0.01,
+        z_weight: float = 1e-4,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training objective (the reference's `Model.loss`): masked
+        next-token cross-entropy from f32 logits through their logsumexp,
+        plus `aux_weight` times the MoE aux loss and `z_weight` times the
+        z-loss (the squared log-partition), both sums over
+        max(mask.sum(), 1). `batch` holds "labels" (B, S), "tokens" or
+        "embeds", and optionally "positions" and "mask" (B, S) f32.
+        Returns (total, {ce, aux, z_loss})."""
+        logits, _, aux = self.forward(
+            params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
+            positions=batch.get("positions"), remat=remat, with_aux=True,
+        )
+        labels = batch["labels"].long()
+        logits = logits.to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1, labels[..., None])[..., 0] - logz
+        mask = batch.get("mask")
+        if mask is None:
+            mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = -(ll * mask).sum() / denom
+        zl = ((logz * mask) ** 2).sum() / denom
+        total = ce + aux_weight * aux + z_weight * zl
+        return total, {"ce": ce, "aux": aux, "z_loss": zl}
 
     def decode_step(
         self,

@@ -226,8 +226,9 @@ def test_init_and_compress_tree_match_the_references_trees(arch):
 
 
 _REFUSED = {
-    # the MoE family is ported (item 10.5); an MoE family without experts is not
-    "moe": ({"family": "moe"}, "10.5"),
+    # the FFN routes by n_experts in any family, as the reference's; what is
+    # refused is a top-k outside 1..n_experts, where the reference fails too
+    "moe": ({"family": "moe", "n_experts": 4, "experts_per_token": 5}, "experts_per_token"),
 }
 # gemma2-2b's features (item 10.3), the recurrent stacks' (10.6) and the
 # encoder's and the multimodal family's (10.7), refused until the port
@@ -243,16 +244,16 @@ _ACCEPTED = {
     "mrope": {"mrope_sections": (2, 3, 3)},
     "vlm": {"family": "vlm"},
     "audio": {"family": "audio"},
+    "moe": {"family": "moe"},  # without experts: the dense MLP
 }
 
 
 @pytest.mark.parametrize("feature", sorted(_REFUSED))
 def test_model_still_refuses_unported_features_with_their_item(feature):
-    change, step = _REFUSED[feature]
+    change, field = _REFUSED[feature]
     cfg = dataclasses.replace(get_smoke_config("llama3.2-1b"), **change)
-    with pytest.raises(NotImplementedError, match="Queue A item 10") as err:
+    with pytest.raises(ValueError, match=field):
         Model(cfg)
-    assert f"step {step}" in str(err.value)
 
 
 @pytest.mark.parametrize("feature", sorted(_ACCEPTED))
