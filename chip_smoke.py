@@ -14,7 +14,12 @@ device time and its wrapper's host time per call apart), then stands up
 full-width llama3-8b with bf8_50-compressed weights on the card and serves
 8 greedy requests through `GenerationEngine`, checking that every kernel
 carried the run, that the kernel path's logits agree with the plain path's
-and that an lm_head GeMV never holds a dense weight. It imports nothing of
+and that an lm_head GeMV never holds a dense weight. Then `single_step`
+serves the same traffic through the single-step loop (`decode_chunk=1`:
+one captured (M, 1) step and one host sync a token), its tokens against
+the chunk-8 serve's, its launches a step against a chunk step's, its graph
+replayed bitwise, its walls beside the chunk's, and runs the two serving
+example twins (`examples/*_torch.py`) on the card. It imports nothing of
 JAX. Details of every case go to chiprun_out/chip_smoke.json. The last line
 is a JSON object with "ok" and the device; the line before it lists the
 kernels. Without a card, or without the port beside it, it exits non-zero
@@ -109,6 +114,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import gc
+import io
 import json
 import math
 import subprocess
@@ -199,6 +205,10 @@ TRAIN_SMOKE_LR = 1e-3  # the card-vs-CPU step at smoke size
 TRAIN_LOSS_RTOL = 1e-3  # card against CPU: the loss
 TRAIN_GRAD_SHARE = 5e-2  # card against CPU: each gradient leaf, of its largest magnitude
 TRAIN_PARAM_SHARE = 1e-2  # card against CPU: params an update apart, of all elements
+# the example twins the `single_step` phase runs on the card, each main(argv)
+TWINS = (("quickstart_torch", []), ("compressed_serving_torch", []),
+         ("compressed_serving_torch", ["--paged", "--chunk", "1"]),
+         ("compressed_serving_torch", ["--paged", "--spec-k", str(SPEC_K)]))
 
 
 _LOG = []
@@ -779,15 +789,16 @@ def graph_costs(graphs, calls, what) -> dict:
 
 def check_replays(torch, eng, graphs, what, report, limit=None):
     """Each captured graph (up to `limit`) replayed on its last inputs
-    against the uncaptured step from the same pools: tokens and every pool
-    plane (null page excluded) bitwise equal, or the run fails."""
+    against the uncaptured step from the same pools: its output (a chunk's
+    tokens, a single step's logits) and every pool plane (null page
+    excluded) bitwise equal, or the run fails."""
     from repro_torch.serve.graphs import replay_check
 
     keys = list(graphs.graphs)[:limit]
     for key in keys:
         bad = replay_check(graphs, key, eng.kv.pools)
-        log(f"{what} replay, shapes {[list(s) for s in key[:3]]}: tokens and every pool "
-            f"plane bitwise the uncaptured run's: {not bad}")
+        log(f"{what} replay, shapes {[list(s) for s in key[:3]]}: its output and every "
+            f"pool plane bitwise the uncaptured run's: {not bad}")
         if bad:
             raise AssertionError(f"{what} replay differs from the uncaptured run: {bad[:8]}")
     report.setdefault("replay_checks", []).append({"what": what, "graphs": len(keys)})
@@ -992,6 +1003,146 @@ def teacher_forced(torch, model, params, prompts, outs, report, key="teacher_for
     if worst > LOGIT_TOL:
         raise AssertionError(f"a token lies outside the teacher-forced logit tolerance ({key})")
     return exact / total
+
+
+def step_timer(torch, eng, records):
+    """Time each single step of a decode_chunk=1 engine from its decode
+    call to its sampled tokens on the host (the sampler's copy ends it):
+    the wall and whether the call captured the step's graph (the first:
+    one uncaptured run plus the capture). Prefill's sampler calls pass."""
+    sched, graphs, open_step = eng.scheduler, eng._decode_graphs.graphs, {}
+    decode, sample = sched._decode, sched._sample
+
+    def on_decode(*a):
+        open_step.update(n=len(graphs), t=time.perf_counter())
+        return decode(*a)
+
+    def on_sample(*a, **kw):
+        out = sample(*a, **kw)
+        if open_step:
+            records.append({"wall_s": time.perf_counter() - open_step.pop("t"),
+                            "captured": len(graphs) > open_step.pop("n"), "steps": 1})
+        return out
+
+    sched._decode, sched._sample = on_decode, on_sample
+
+
+def run_twins(torch, report):
+    """Each example twin's main(argv) in this process on the card (TWINS);
+    a twin that raises fails the run. Their output goes to the log."""
+    import importlib.util
+
+    rows = []
+    for name, argv in TWINS:
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples" / f"{name}.py")
+        twin = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(twin)
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            twin.main(argv)
+        torch.cuda.synchronize()
+        rows.append({"twin": name, "argv": argv, "s": time.perf_counter() - t0,
+                     "out": out.getvalue()})
+        log(f"twin {name} {' '.join(argv) or '(defaults)'} on the card, "
+            f"{rows[-1]['s']:.1f} s:")
+        for line in out.getvalue().splitlines():
+            if line.strip():
+                log(f"  | {line}")
+    report["twins"] = rows
+    torch.cuda.empty_cache()
+
+
+def single_step(torch, model, params, prompts, plain, report):
+    """The single-step loop (decode_chunk=1) on the plain serve's weights
+    and traffic: 8 prompts x 64 new greedy tokens, int8 KV, 4 slots. Its
+    tokens are the chunk-8 serve's token for token (the same kernels at the
+    same shapes on the same pool writes; a difference is logged and held by
+    the teacher-forced rule), 225 GeMV and 32 attention launches a step and
+    no decompression, exactly one captured graph (the (M, 1) step) whose
+    replay is the uncaptured step bitwise, one host sync a step beside the
+    prefill calls. Prints the replayed step's wall and the decode wall a
+    token beside the chunk-8 serve's; then runs the example twins."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    eng = GenerationEngine(model, params, kv_quant=SERVED_KV, max_slots=4, block_size=32,
+                           max_len=2048, decode_chunk=1)
+    sched = eng.scheduler
+    steps = []
+    step_timer(torch, eng, steps)
+    rids = [eng.submit(p, max_new_tokens=64) for p in prompts]
+    for fn in counters().values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters().items()}
+    st = sched.stats()
+    n, n_tok = st["decode_steps"], sum(len(done[r]) for r in rids)
+    decode_s = sum(c["wall_s"] for c in steps)
+    later = [c["wall_s"] for c in steps if not c["captured"]]
+    replay_ms = 1e3 * sum(later) / max(1, len(later))
+    serve = report["serve"]
+    chunk_tok_ms = 1e3 * serve["decode_s"] / serve["stats"]["active_slot_steps"]
+    single_tok_ms = 1e3 * decode_s / st["active_slot_steps"]
+    log(f"single_step: served {len(rids)} requests x 64 new tokens at decode_chunk=1: "
+        f"{n_tok} tokens in {wall:.2f} s; {st['prefill_calls']} prefill calls, {n} decode "
+        f"steps, {st['host_syncs']} host syncs")
+    log(f"  replayed single step {replay_ms:.3f} ms (mean of {len(later)}; from the decode "
+        f"call to its tokens on the host), against the chunk-8 serve's "
+        f"{serve['replayed_ms_per_device_step']:.3f} ms a replayed device step: "
+        f"{replay_ms / serve['replayed_ms_per_device_step']:.3f}x; a decode step over the "
+        f"serve {1e3 * decode_s / n:.3f} ms (its capture included) against "
+        f"{serve['decode_ms_per_step']:.3f} ms")
+    log(f"  decode wall a token over the whole serve {single_tok_ms:.3f} ms at chunk 1, "
+        f"{chunk_tok_ms:.3f} ms at chunk 8: {single_tok_ms / chunk_tok_ms:.3f}x")
+    per_step = {k: launches[k] / max(n, 1) for k in launches}
+    log(f"  launches {launches}: a decode step {per_step['deca_gemv']:.1f} GeMV, "
+        f"{per_step['deca_paged_attention']:.1f} attention (chunk-8 serve: "
+        f"{gemvs_per_step(cfg)}, {cfg.n_layers}); {launches['deca_gemm']} GeMM over "
+        f"{st['prefill_calls']} prefill calls")
+    if (launches["deca_gemv"] != gemvs_per_step(cfg) * n
+            or launches["deca_paged_attention"] != cfg.n_layers * n
+            or launches["deca_gemm"] != gemvs_per_step(cfg) * st["prefill_calls"]
+            or launches["deca_decompress"]):
+        raise AssertionError(f"single steps launched other kernels than a chunk's step: "
+                             f"{launches} over {n} steps")
+    if st["host_syncs"] != st["prefill_calls"] + n or st["decode_chunks"] != n:
+        raise AssertionError(f"not one host sync a single step: {st}")
+    graphs = eng._decode_graphs.graphs
+    if len(graphs) != 1 or eng._chunk_graphs.graphs:
+        raise AssertionError(f"{len(graphs)} single-step graphs captured, "
+                             f"{len(eng._chunk_graphs.graphs)} chunk graphs")
+    costs = graph_costs(eng._decode_graphs, steps, "single step")
+    check_replays(torch, eng, eng._decode_graphs, "single decode step", report)
+    profile_replays(torch, eng._decode_graphs, "single decode step", report)
+    outs = [done[r] for r in rids]
+    if any(len(o) != 64 for o in outs):
+        raise AssertionError("a request did not emit its 64 tokens")
+    apart = []  # (request, its first output index that differs)
+    for i, (a, b) in enumerate(zip(outs, plain["outs"])):
+        a, b = [int(t) for t in a], [int(t) for t in b]
+        if a != b:
+            apart.append((i, next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)))
+    log(f"  tokens equal to the chunk-8 serve's: {len(outs) - len(apart)}/{len(outs)} "
+        f"requests" + (f"; first differing output index of each other one "
+                       f"(request, step): {apart}" if apart else ""))
+    if apart:
+        teacher_forced(torch, model, params, [prompts[i] for i, _ in apart],
+                       [outs[i] for i, _ in apart], report, key="single_step_teacher_forced")
+    del eng, sched, done
+    torch.cuda.empty_cache()
+    run_twins(torch, report)
+    seconds = time.perf_counter() - t_phase
+    log(f"single_step: {seconds:.1f} s")
+    report["single_step"] = {
+        "wall_s": wall, "tokens": n_tok, "stats": st, "launches": launches,
+        "steps": steps, "replayed_ms_per_step": replay_ms, "decode_s": decode_s,
+        "decode_ms_per_token": single_tok_ms, "chunk8_decode_ms_per_token": chunk_tok_ms,
+        "graphs": costs, "differing": apart, "seconds": seconds}
 
 
 def serve_spec(torch, model, params, prompts, plain_outs, report):
@@ -4141,12 +4292,17 @@ def main() -> int:
     # the lm_head GeMV never holds the dense (4096, 128256) weight
     no_dense_lm_head(torch, cfg, params, report)
 
-    # 6. self-speculative decode on the same weights
     plain_outs = [done[r] for r in rids[:4]]
     plain = {"outs": [done[r] for r in rids], "launches": dict(launches),
              "host_syncs": st["host_syncs"], "replayed_ms_per_device_step": replay_ms}
     del eng, sched, done
     torch.cuda.empty_cache()
+
+    # 5b. the single-step loop (decode_chunk=1) on the same weights and
+    # traffic, then the example twins
+    single_step(torch, model, params, prompts, plain, report)
+
+    # 6. self-speculative decode on the same weights
     spec_eng, spec_launches, spec_outs = serve_spec(torch, model, params, prompts[:4],
                                                     plain_outs, report)
     profile_serving(torch, spec_eng, [p[:512] for p in prompts[:4]], report, "spec_profile")

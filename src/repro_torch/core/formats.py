@@ -87,6 +87,10 @@ class CompressionSpec:
         bits += self.codec.scale_bits / self.group
         return bits
 
+    def compression_factor(self) -> float:
+        """CF against dense bf16 (the paper's 16 / (Q*d + 1))."""
+        return 16.0 / self.bits_per_element()
+
     def bytes_for(self, k: int, n: int) -> int:
         """Exact compressed bytes for a (K, N) weight."""
         ng = math.ceil(k / self.group)

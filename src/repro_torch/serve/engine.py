@@ -30,7 +30,10 @@ served weights proposes k tokens per round and one target forward
 verifies them with the same keyed samples, so the output is the
 non-speculative engine's.
 
-On the card each decode chunk and each spec launch is one CUDA graph
+`decode_chunk=1` is the reference's single-step loop: one
+`decode_step_paged` a token, sampled right after it on the device, one
+host sync a token (`Scheduler._decode_active_single`). On the card each
+single step, each decode chunk and each spec launch is one CUDA graph
 replay (`serve/graphs.py`), captured per input shape; on the CPU the same
 step functions run eagerly. `obs=Observability.default()` installs the
 metrics registry, the request tracer and RoofLens (`repro_torch.obs`); the
@@ -125,6 +128,20 @@ def argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits.to(torch.float32), dim=-1).to(torch.int32)
 
 
+def make_paged_decode_step(model: Model) -> Callable:
+    """paged_step(params, tokens (M, 1), positions, pools, block_tables,
+    write_slots, write_pos, fresh_pages, kv_lens (M,)) -> (logits (M, V),
+    pools): one `decode_step_paged` over the M continuous-batching slots,
+    fixed-shape, so one captured graph serves every step. `kv_lens` bounds
+    the fused attention page walk."""
+
+    def paged_step(params, tokens, positions, cache, tables, slots, wpos, fresh, kv_lens):
+        return model.decode_step_paged(params, tokens, positions, cache, tables, slots,
+                                       wpos, fresh, kv_lens)
+
+    return paged_step
+
+
 def make_paged_decode_chunk_step(model: Model) -> Callable:
     """C steps of `decode_step_paged` with sampling, token feedback and the
     EOS / length-cap done flags on the device. `greedy` picks the argmax;
@@ -215,7 +232,8 @@ class GenerationEngine:
     Admission into `max_slots` decode slots while free pages suffice,
     page-granular KV allocation, one bucketed prefill launch per admission
     round, and up to `decode_chunk` decode steps per device-resident chunk
-    (one host sync per chunk). `kv_quant` names any KV-capable codec of
+    (one host sync per chunk; `decode_chunk=1` is the single-step loop, one
+    step and one host sync a token). `kv_quant` names any KV-capable codec of
     `core.codecs` and quantizes the pool end to end; `prefill_batch=False`
     prefills each admitted request in its own launch. `params` must lie on
     `device`, which defaults to the card. `temperature` > 0 samples every
@@ -354,6 +372,7 @@ class GenerationEngine:
             device=self.device, prefix_cache=prefix_cache, tier=self.tier,
         )
         self._paged_prefill = make_paged_prefill_step(model)
+        self._paged_decode = make_paged_decode_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
         self.spec_rounds = 0
         if spec_decode is not None:
@@ -370,8 +389,10 @@ class GenerationEngine:
             )
         if obs is not None and obs.rooflens is not None:
             self._bind_rooflens(obs.rooflens, max_slots)
-        self._chunk_graphs = self._spec_graphs = None
+        self._decode_graphs = self._chunk_graphs = self._spec_graphs = None
         if self.device.type == "cuda":
+            self._decode_graphs = StepGraphs(self._decode_device, device=self.device,
+                                             pools=lambda: self.kv.pools)
             self._chunk_graphs = StepGraphs(self._chunk_device, device=self.device,
                                             pools=lambda: self.kv.pools)
             if spec_decode is not None:
@@ -386,6 +407,7 @@ class GenerationEngine:
             max_slots=max_slots,
             max_len=max_len,
             prefill_fn=self._run_paged_prefill,
+            decode_fn=self._run_paged_decode,
             decode_chunk_fn=self._run_paged_decode_chunk,
             sample_fn=self._sample_rows,
             scrub_fn=self._run_paged_scrub,
@@ -470,6 +492,14 @@ class GenerationEngine:
         addresses, so the decode graphs captured on them replay unchanged."""
         apply_page_planes(self.kv.pools, dev_pages, planes_list)
 
+    def _decode_device(self, tokens, positions, tables, slots, wpos, fresh, kv_lens):
+        """One decode step over int32 device tensors -> logits (M, V)."""
+        logits, self.kv.pools = self._paged_decode(
+            self.params, tokens, positions, self.kv.pools, tables, slots, wpos, fresh,
+            kv_lens,
+        )
+        return logits
+
     def _chunk_device(self, tokens0, tables, positions, wslots, wpos, fresh,
                       kv_lens, rids, start_steps, max_steps, eos, active):
         """The decode chunk over int32 device tensors -> tokens (C, M)."""
@@ -499,6 +529,16 @@ class GenerationEngine:
         if graphs is not None:
             return graphs(arrays).cpu().numpy()
         return fn(*(self._t(a) for a in arrays)).cpu().numpy()
+
+    def _run_paged_decode(self, *arrays) -> torch.Tensor:
+        """One decode step (the scheduler's `decode_fn` arguments): a graph
+        replay on the card, the eager step on the CPU. The logits (M, V)
+        stay on the device for `_sample_rows`, whose (M,) tokens are the
+        step's one copy back; on the card they are the graph's output
+        buffer, which the next step's replay overwrites."""
+        if self._decode_graphs is not None:
+            return self._decode_graphs(arrays)
+        return self._decode_device(*(self._t(a) for a in arrays))
 
     def _run_paged_decode_chunk(self, *arrays):
         """One device-resident chunk (the scheduler's `decode_chunk_fn`

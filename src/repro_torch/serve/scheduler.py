@@ -1,14 +1,16 @@
 """Continuous-batching scheduler over the block-paged KV cache.
 
-Counterpart of `repro/serve/scheduler.py` (without its single-step
-decode: a chunk of one step serves it). A FIFO request
-queue feeds a fixed set of `max_slots` decode slots. Each scheduling round
-the host admits queued requests into free slots while the pool has enough
+Counterpart of `repro/serve/scheduler.py`. A FIFO request queue feeds a
+fixed set of `max_slots` decode slots. Each scheduling round the host
+admits queued requests into free slots while the pool has enough
 unreserved pages for a request's worst case, prefills all requests admitted
 in the round in one bucketed-shape call (batch rounded to a power of two,
-prompt span to the round's max page count), and then runs up to `chunk`
-decode steps on the device, where sampled tokens feed back and the per-slot
-done flags (EOS / length cap) are computed; the host syncs once per chunk.
+prompt span to the round's max page count), and then decodes. With
+`chunk > 1` it runs up to `chunk` decode steps on the device, where sampled
+tokens feed back and the per-slot done flags (EOS / length cap) are
+computed; the host syncs once per chunk. With `chunk == 1` it runs the
+reference's single-step loop (`_decode_active_single`): one `decode_fn`
+step, one `sample_fn` call, one host sync a token.
 
 The decode step stays fixed-shape over all `max_slots` slots: inactive
 slots feed token 0 at position 0, write to the null page, and their outputs
@@ -74,7 +76,9 @@ def _pow2ceil(x: int) -> int:
     return 1 << max(0, x - 1).bit_length()
 
 
-#: Units of every key `Scheduler.stats()` returns.
+#: Units of every key `Scheduler.stats()` returns, the reference's text
+#: (the metrics registry publishes each as a gauge's unit). At chunk 1 a
+#: decode round is one single step, and `decode_chunks` counts it.
 STAT_UNITS: Dict[str, str] = {
     "decode_steps": "steps (batch decode iterations actually counted)",
     "decode_chunks": "calls (device-resident chunk launches, 1 per round)",
@@ -181,6 +185,10 @@ class Scheduler:
                copies (B,2), last_idx (B,)) -> last-token logits (B, V)
                on the device; TW is max_blocks for monolithic prefill and
                a length-bounded pow2 page count for chunked prefill
+    decode_fn(tokens (M,1), positions (M,1), block_tables (M,MB),
+              write_slots (M,1), write_pos (M,1), fresh (M,), kv_lens (M,))
+              -> logits (M, V) on the device: one decode step, the
+              single-step loop's (chunk == 1)
     decode_chunk_fn(tokens0 (M,1), tables (M,MB), positions (C,M,1),
                     write_slots (C,M,1), write_pos (C,M,1), fresh (C,F),
                     kv_lens (C,M), rids (M,), start_steps (M,),
@@ -229,9 +237,10 @@ class Scheduler:
         max_slots: int,
         max_len: int,
         prefill_fn: Callable,
-        decode_chunk_fn: Callable,
         sample_fn: Callable,
         scrub_fn: Callable,
+        decode_fn: Optional[Callable] = None,
+        decode_chunk_fn: Optional[Callable] = None,
         chunk: int = 1,
         prefill_batch: bool = True,
         local_window: Optional[int] = None,
@@ -249,6 +258,8 @@ class Scheduler:
     ):
         if chunk < 1:
             raise ValueError(f"chunk must be >= 1, got {chunk}")
+        if chunk > 1 and decode_chunk_fn is None:
+            raise ValueError("chunk > 1 requires a decode_chunk_fn")
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError(f"prefill_chunk must be >= 1, got {prefill_chunk}")
         if local_window is not None and local_window < 1:
@@ -263,6 +274,7 @@ class Scheduler:
         self.max_len = max_len
         self.max_blocks = math.ceil(max_len / cache.block_size)
         self._prefill = prefill_fn
+        self._decode = decode_fn
         self._decode_chunk = decode_chunk_fn
         self._sample = sample_fn
         self._scrub = scrub_fn
@@ -924,15 +936,14 @@ class Scheduler:
             self._obs_metrics.counter("serve.host_syncs", unit="calls").inc()
 
     # ------------------------------------------------------------------
-    # decode: device-resident chunk
+    # decode: single-step (chunk == 1), device-resident chunk, or spec
     # ------------------------------------------------------------------
     def _decode_active(self) -> None:
-        """Precompute a chunk's slot/position advancement, run it on the
-        device, then replay the sampled tokens against host request state
-        (the replay only decides how many of the C tokens each slot keeps).
-        A slot is decode-ready once prefill sampled its first token:
-        mid-prefill slots (chunked mode, empty `out`) sit the round out as
-        inactive slots."""
+        """One decode round over the decode-ready slots: a spec launch, a
+        chunk when `chunk > 1`, else one single step. A slot is
+        decode-ready once prefill sampled its first token: mid-prefill
+        slots (chunked mode, empty `out`) sit the round out as inactive
+        slots."""
         active = [(i, r) for i, r in enumerate(self.slots) if r is not None and r.out]
         if not active:
             return
@@ -946,7 +957,59 @@ class Scheduler:
         assert self.cache.pending_restores == 0, "unflushed tier restores at decode"
         if self._spec is not None and self._spec_enabled:
             self._decode_active_spec(active)
-            return
+        elif self.chunk > 1:
+            self._decode_active_chunked(active)
+        else:
+            self._decode_active_single(active)
+
+    def _decode_active_single(self, active) -> None:
+        """One decode step: feed back each slot's last token, write its KV
+        at the next position, sample on the device; the (M,) tokens are the
+        step's one device->host sync."""
+        m, mb = self.max_slots, self.max_blocks
+        tokens = np.zeros((m, 1), np.int32)
+        positions = np.zeros((m, 1), np.int32)
+        write_pos = np.full((m, 1), CACHE_EMPTY_POS, np.int32)
+        write_slots = np.zeros((m, 1), np.int32)  # null page, offset 0
+        tables = np.zeros((m, mb), np.int32)
+        kv_lens = np.zeros(m, np.int32)
+        rids = np.full(m, -1, np.int64)  # -1: a uint32 id no request has
+        steps = np.zeros(m, np.int64)
+        for i, r in active:
+            pos = r.next_pos - 1  # feed back the last sampled token
+            tokens[i, 0] = r.out[-1]
+            positions[i, 0] = pos
+            write_pos[i, 0] = pos
+            write_slots[i, 0] = self.cache.write_slots(r.rid, pos, 1)[0]
+            tables[i] = self.cache.block_table_row(r.rid, mb)
+            kv_lens[i] = r.next_pos  # the token this step writes included
+            rids[i] = r.rid
+            steps[i] = r.emitted  # the global output index: park/resume invariant
+        fresh = self.cache.drain_fresh(m)
+        t0 = self._obs_clock() if self._observing else 0.0
+        logits = self._decode(tokens, positions, tables, write_slots, write_pos, fresh,
+                              kv_lens)
+        toks = self._sample(logits, rids, steps)  # the step's device->host sync
+        t1 = self._obs_clock() if self._observing else 0.0
+        for i, r in active:
+            r.out.append(int(toks[i]))
+            r.peak_blocks = max(r.peak_blocks, self.cache.blocks_held(r.rid))
+
+        self._account_decode(1, len(active))
+        for i, _ in active:
+            self._account_kv_read(int(kv_lens[i]))
+        if self._observing:
+            self._observe_decode(t0, t1, 1, {r.rid: 1 for _, r in active},
+                                 [int(kv_lens[i]) for i, _ in active])
+        for i, r in active:
+            if self._finished(r):
+                self._evict(i)
+        self._free_window_pages()
+
+    def _decode_active_chunked(self, active) -> None:
+        """Precompute a chunk's slot/position advancement, run it on the
+        device, then replay the sampled tokens against host request state
+        (the replay only decides how many of the C tokens each slot keeps)."""
         m, mb, bs = self.max_slots, self.max_blocks, self.cache.block_size
         rem = {i: r.max_new_tokens - r.emitted for i, r in active}
         c = min(self.chunk, _pow2ceil(max(rem.values())))
@@ -1022,6 +1085,19 @@ class Scheduler:
             if self._finished(r):
                 self._evict(i)
         self._free_window_pages()
+
+    def _account_decode(self, steps: int, slot_steps: int) -> None:
+        """Charge one single-step round: the pages held now, per step, and
+        what a max_len ring cache would hold for the same slot-steps."""
+        st = self._stats
+        st["decode_steps"] += steps
+        st["decode_chunks"] += 1
+        st["host_syncs"] += 1
+        st["active_slot_steps"] += slot_steps
+        used = self.cache.allocator.used_count
+        st["paged_block_steps"] += used * steps
+        st["dense_block_steps"] += slot_steps * self.max_blocks
+        st["peak_blocks"] = max(st["peak_blocks"], used)
 
     def _account_decode_chunk(self, active, steps_taken, used0, held0, p0s, c):
         """Replay the single-step charging order over the chunk: a page is

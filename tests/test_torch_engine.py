@@ -51,6 +51,7 @@ def _record(eng, port: bool):
     """Wrap the scheduler's device calls to log what the host hands them."""
     sched, log = eng.scheduler, []
     prefill, chunk = sched._prefill, sched._decode_chunk
+    decode, sample = sched._decode, sched._sample
 
     def on_prefill(*a):
         # tokens, positions, tables, slots, wpos, fresh, copy-on-write
@@ -67,13 +68,30 @@ def _record(eng, port: bool):
                     [np.array(x) for x in a]))
         return chunk(*a)
 
+    def on_decode(*a):
+        # tokens, positions, tables, write_slots, write_pos, fresh, kv_lens:
+        # the single step's arguments in both packages (decode_chunk=1)
+        log.append(("decode", [r.rid if r else -1 for r in sched.slots],
+                    [np.array(x) for x in a]))
+        return decode(*a)
+
+    def on_sample(logits, rids, steps, *a, **kw):
+        # the sampler right after a single step: its request ids and output
+        # indices join that step's entry
+        if log and log[-1][0] == "decode" and len(log[-1][2]) == 7:
+            log[-1][2].extend([np.array(rids), np.array(steps)])
+        return sample(logits, rids, steps, *a, **kw)
+
     sched._prefill, sched._decode_chunk = on_prefill, on_chunk
+    sched._decode, sched._sample = on_decode, on_sample
     return log
 
 
-def _serve(kind, jparams, *, eos_id=None, **overrides):
+def _serve(kind, jparams, *, eos_id=None, eos_ids=None, **overrides):
     """Both engines over the same requests; returns (reference, port)
-    dicts of tokens, call logs, stats and per-request page peaks."""
+    dicts of tokens, call logs, stats and per-request page peaks.
+    `eos_ids` serves the prompts once per entry, one wave after another
+    on the same engines, each wave with that EOS id."""
     kw = dict(ENGINE, **overrides)
     jeng = JEngine(JModel(jget_smoke_config("llama3-8b")), jparams, paged=True,
                    kv_quant=kind, **kw)
@@ -83,11 +101,14 @@ def _serve(kind, jparams, *, eos_id=None, **overrides):
     out = []
     for eng, port in ((jeng, False), (teng, True)):
         log = _record(eng, port)
-        rids = [eng.submit(p, max_new_tokens=6, eos_id=eos_id) for p in _prompts()]
-        done = eng.run_until_drained()
+        tokens = []
+        for eos in (eos_id,) if eos_ids is None else eos_ids:
+            rids = [eng.submit(p, max_new_tokens=6, eos_id=eos) for p in _prompts()]
+            done = eng.run_until_drained()
+            tokens += [done[r].tolist() for r in rids]
         st = eng.scheduler.stats()
         out.append({
-            "tokens": [done[r].tolist() for r in rids],
+            "tokens": tokens,
             "log": log,
             "stats": {k: st[k] for k in STAT_UNITS},
             "peaks": dict(eng.scheduler.request_peaks),
@@ -97,12 +118,12 @@ def _serve(kind, jparams, *, eos_id=None, **overrides):
 
 def _logs_equal(a, b, with_tokens: bool) -> bool:
     """Call logs equal; without tokens the sampled-token arguments (the
-    chunk's tokens0, and prompts containing nothing sampled are kept) are
-    left out, since they follow the logits."""
+    chunk's tokens0 and the single step's tokens; prompts containing
+    nothing sampled are kept) are left out, since they follow the logits."""
     if len(a) != len(b):
         return False
     for (ka, sa, xa), (kb, sb, xb) in zip(a, b):
-        skip = {0} if (ka == "chunk" and not with_tokens) else set()
+        skip = {0} if (ka in ("chunk", "decode") and not with_tokens) else set()
         if ka != kb or sa != sb or len(xa) != len(xb):
             return False
         if not all(np.array_equal(u, v) for i, (u, v) in enumerate(zip(xa, xb))

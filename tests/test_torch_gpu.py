@@ -716,6 +716,42 @@ def test_replays_count_the_launches_of_uncaptured_chunks(card):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["int8", "nf4"])
+def test_single_step_graph_replays_bitwise_with_a_chunk_steps_launches(card, kind):
+    """decode_chunk=1 is the single-step loop: one graph, of the (M, 1)
+    step; its replay is the uncaptured step bitwise (logits and every pool
+    plane, the null page excluded); a replay launches what a chunk's step
+    does, 15 GeMVs and 2 attention calls; and its greedy tokens are the
+    chunked engine's, one host sync a step beside the prefill calls."""
+    from repro_torch.serve.graphs import launch_counters, replay_check
+
+    model, params = _smoke(card)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 256, n).astype(np.int32) for n in (4, 19, 11)]
+    outs, engines = {}, {}
+    for chunk in (1, 8):
+        eng = GenerationEngine(model, params, max_len=64, block_size=8, max_slots=2,
+                               kv_quant=kind, decode_chunk=chunk, device=card)
+        rids = [eng.submit(p, max_new_tokens=10) for p in prompts]
+        done = eng.run_until_drained()
+        outs[chunk], engines[chunk] = [done[r].tolist() for r in rids], eng
+    assert outs[1] == outs[8]
+    single = engines[1]
+    assert not single._chunk_graphs.graphs and len(single._decode_graphs.graphs) == 1
+    key, g = next(iter(single._decode_graphs.graphs.items()))
+    assert key[0] == (2, 1)
+    counts = lambda: [fn.launches for fn in launch_counters()]
+    before = counts()
+    g.replay()
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == list(g.launches) == [15, 0, 2, 0]
+    assert replay_check(single._decode_graphs, key, single.kv.pools) == []
+    st = single.scheduler.stats()
+    assert st["decode_chunks"] == st["decode_steps"]
+    assert st["host_syncs"] == st["prefill_calls"] + st["decode_steps"]
+
+
+@pytest.mark.gpu
 def test_engine_on_the_card_samples_with_temperature(card):
     """At T = 0.7 the card's engine serves: chunked decode equals single
     steps token for token (the same kernels at the same shapes), and the

@@ -1,6 +1,7 @@
-"""The port stands alone: no file of `src/repro_torch/` and not
-`chip_smoke.py` imports jax or any module of the reference package, and
-importing the port loads neither."""
+"""The port stands alone: no file of `src/repro_torch/`, not
+`chip_smoke.py` and no port-side example twin (`examples/*_torch.py`)
+imports jax or any module of the reference package, and importing the port
+loads neither."""
 import ast
 import os
 import pathlib
@@ -10,7 +11,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 
 
 def _imported_modules(path):
