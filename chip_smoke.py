@@ -104,8 +104,11 @@ crash-and-restart through `ResilientTrainer` on the card (bitwise under
 deterministic algorithms), llama3.2-1b at full width and depth for 8 steps
 through `train_loop` on 2 x 4096 tokens with remat and AdamW (losses, the
 median step, tokens/s, 6 N T FLOPs against the bf16 peak, peak memory,
-no DECA kernel launched), and one Adafactor step (`tools/train_run.py`
-runs it alone). The kernel bounds take their
+no DECA kernel launched), one Adafactor step, and (e) the same model
+trained 3 steps with int8 gradient compression on a one-rank NCCL mesh
+(the round trip bitwise the CPU port's, err within half a quantization
+step), one bf8 step, and its params placed with `shard_params`
+(`tools/train_run.py` runs it alone). The kernel bounds take their
 rates from the same H100 profile (`core/roofsurface.py`), whose
 Roof-Surface lines print as an analytic line at the start.
 """
@@ -205,6 +208,14 @@ TRAIN_SMOKE_LR = 1e-3  # the card-vs-CPU step at smoke size
 TRAIN_LOSS_RTOL = 1e-3  # card against CPU: the loss
 TRAIN_GRAD_SHARE = 5e-2  # card against CPU: each gradient leaf, of its largest magnitude
 TRAIN_PARAM_SHARE = 1e-2  # card against CPU: params an update apart, of all elements
+# (e) compressed data-parallel training on a one-rank NCCL mesh: (c)'s model,
+# seed, batch and schedule, TRAIN_DIST_STEPS int8 steps, then one bf8 step;
+# the round trip of TRAIN_DIST_SAMPLES checked against the CPU port's
+TRAIN_DIST_STEPS = 3
+TRAIN_DIST_SAMPLES = ("final_norm", "layers/0/attn/wk", "layers/15/mlp/w_down")
+# |err| <= half a step a group, but for the f32 rounding of the dequantized
+# q x scale (|q| <= 127): up to 2 x 127 x 2^-24 of the half step
+HALF_STEP_SLACK = 2.0**-15
 # the example twins the `single_step` phase runs on the card, each main(argv)
 TWINS = (("quickstart_torch", []), ("compressed_serving_torch", []),
          ("compressed_serving_torch", ["--paged", "--chunk", "1"]),
@@ -3931,6 +3942,208 @@ def profile_train_step(torch, step_fn, params, state, batch, step, rec):
     return params, state
 
 
+class RoundTripLog:
+    """While installed, `dist.grad_compression._codec_roundtrip` runs
+    between CUDA events (its device time a call) and, on the calls of
+    `keep` (indices from the first), keeps device copies of its input and
+    output (no host sync inside the step)."""
+
+    def __init__(self, torch, gc_mod, keep):
+        self.torch, self.mod, self.keep = torch, gc_mod, set(keep)
+        self.events, self.kept, self.orig = [], {}, None
+
+    def __enter__(self):
+        self.orig = self.mod._codec_roundtrip
+        self.mod._codec_roundtrip = self
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._codec_roundtrip = self.orig
+
+    def __call__(self, x, codec, group):
+        ev = [self.torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.orig(x, codec, group)
+        ev[1].record()
+        if len(self.events) in self.keep:
+            self.kept[len(self.events)] = (x.clone(), out.clone())
+        self.events.append(ev)
+        return out
+
+    def device_ms(self, first, count) -> float:
+        self.torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events[first:first + count])
+
+
+def roundtrip_order(params, group=128) -> list:
+    """The round trips of one compressed all-reduce over a layer stack, in
+    order (`make_compressed_allreduce(layer_stack > 1)`): the top-level
+    leaves, then each layer path across the layers, one call a layer, or
+    one call for the path's stack ("layers/*/<path>") where its leaves are
+    no multiple of the group."""
+    from repro_torch.checkpoint.ckpt import flatten
+
+    top = list(flatten({k: v for k, v in params.items() if k != "layers"}))
+    calls = []
+    for path, leaf in flatten(params["layers"][0]).items():
+        if leaf.numel() % group:
+            calls.append(f"layers/*/{path}")
+        else:
+            calls += [f"layers/{i}/{path}" for i in range(len(params["layers"]))]
+    return top + calls
+
+
+def train_compressed(torch, model, pipe, lr, full, rec):
+    """(e) (c)'s model, seed, batch and schedule for TRAIN_DIST_STEPS steps
+    of `train_loop` with int8 gradient compression over a one-rank NCCL
+    mesh (`make_test_mesh(1, 1)`); each loss beside (c)'s, the step wall
+    beside (c)'s median, the round trip's device time a step, the err
+    state's bytes and the peak memory. For TRAIN_DIST_SAMPLES at the last
+    step, the card's sent payload against the CPU port's round trip of the
+    same g + err (bitwise), and each group's largest |err| against half
+    its quantization step. Then one more int8 step traced by the profiler
+    (`profile_train_step`), one bf8 step, and the params placed by
+    `shard_params` on the mesh: each local shard is the whole leaf,
+    bitwise. The process group is destroyed before it returns."""
+    import socket
+    import statistics
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.ckpt import flatten
+    from repro_torch.core.codecs import get_codec
+    from repro_torch.dist import grad_compression as gc_mod
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.optimizers import make_optimizer, tree_map
+    from repro_torch.train.trainer import device_batch, make_train_step, train_loop
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda")
+        opt = make_optimizer(model.cfg.optimizer, lr=lr)
+        state = opt.init(params)
+        order = roundtrip_order(params)
+        n = len(order)
+        last = (TRAIN_DIST_STEPS - 1) * n
+        keep = {last + order.index(k): k for k in TRAIN_DIST_SAMPLES}
+        step_fn = make_train_step(model, opt, remat=True, grad_compression="int8", mesh=mesh)
+        for fn in counters().values():
+            fn.launches = 0
+        with RoundTripLog(torch, gc_mod, keep) as rt:
+            params, state, hist = train_loop(model, params, state, pipe,
+                                             n_steps=TRAIN_DIST_STEPS, train_step=step_fn,
+                                             grad_compression="int8", mesh=mesh)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters().items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        if any(launches.values()):
+            raise AssertionError(f"train (e): the dense training path launched a DECA kernel: "
+                                 f"{launches}")
+        if len(rt.events) != TRAIN_DIST_STEPS * n:
+            raise AssertionError(f"train (e): {len(rt.events)} round trips for "
+                                 f"{TRAIN_DIST_STEPS} steps of {n} leaves")
+        rt_ms = [rt.device_ms(i * n, n) for i in range(TRAIN_DIST_STEPS)]
+        losses = [m["loss"] for _, m, _ in hist]
+        secs = [dt for _, _, dt in hist]
+        err_bytes = 4 * sum(t.numel() for t in flatten(params).values())
+        codec = get_codec("int8")
+        samples = {}
+        for idx, key in keep.items():
+            comp, sent_card = (t.cpu() for t in rt.kept.pop(idx))
+            sent_cpu = gc_mod._codec_roundtrip(comp, codec, 128)
+            flat = comp.reshape(-1)
+            pad = (-flat.numel()) % 128
+            groups = torch.nn.functional.pad(flat, (0, pad)).reshape(-1, 128)
+            _, scales = codec.kv_encode(groups)
+            half = scales.float() / 2  # half a quantization step a group
+            err = torch.nn.functional.pad((comp - sent_card).reshape(-1), (0, pad))
+            worst = err.reshape(-1, 128).abs().amax(dim=1)
+            ratio = float((worst / half.clamp(min=1e-30)).max())
+            if tuple(comp.shape) != tuple(flatten(params)[key].shape):
+                raise AssertionError(f"train (e): round trip {idx} is not {key}'s")
+            samples[key] = {"shape": list(comp.shape),
+                            "bitwise": bool(torch.equal(sent_card.view(torch.int32),
+                                                        sent_cpu.view(torch.int32))),
+                            "worst_err_over_half_step": ratio,
+                            "zero_groups_exact": bool((worst[half == 0] == 0).all())}
+        res = {"steps": TRAIN_DIST_STEPS, "losses": losses, "step_s": secs,
+               "median_step_s": statistics.median(secs[1:]), "roundtrip_device_ms": rt_ms,
+               "err_bytes": err_bytes, "peak_bytes": peak, "samples": samples,
+               "launches": launches,
+               "plain_losses": full["losses"][:TRAIN_DIST_STEPS],
+               "plain_median_step_s": full["median_step_s"]}
+        log(f"train (e) {TRAIN_MODEL} full width, int8 gradient compression on a one-rank "
+            f"NCCL mesh (1, 1), {TRAIN_DIST_STEPS} steps of (c)'s batch and schedule:")
+        log("  loss by step: " + ", ".join(f"{x:.4f}" for x in losses) + " (c): "
+            + ", ".join(f"{x:.4f}" for x in res["plain_losses"]))
+        log(f"  step walls {', '.join(f'{x:.3f}' for x in secs)} s (the first opens NCCL's "
+            f"communicators), median after the first {res['median_step_s']:.3f} s against "
+            f"(c)'s {full['median_step_s']:.3f} s; the "
+            f"round trip {', '.join(f'{x:.1f}' for x in rt_ms)} ms of device time a step over "
+            f"{n} leaves; err state {err_bytes / 1e9:.2f} GB f32; peak allocated "
+            f"{peak / 1e9:.2f} GB; kernel launches {launches}")
+        for key, v in samples.items():
+            log(f"  {key} {v['shape']}: sent bitwise the CPU port's: {v['bitwise']}; largest "
+                f"|err| of a group / half its step: {v['worst_err_over_half_step']:.6f}")
+        bad = [k for k, v in samples.items() if not v["bitwise"]
+               or v["worst_err_over_half_step"] > 1.0 + HALF_STEP_SLACK
+               or not v["zero_groups_exact"]]
+        if bad or not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"train (e): losses {losses}, samples off: {bad}")
+
+        # one more int8 step traced (err from zeros): its device time by
+        # group and idle share beside (c)'s traced step
+        err = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                       params)
+        traced = lambda p, st, b, i: step_fn(p, st, b, i, err)[:3]
+        params, state = profile_train_step(torch, traced, params, state,
+                                           device_batch(pipe.batch(TRAIN_DIST_STEPS), "cuda"),
+                                           TRAIN_DIST_STEPS, res)
+        del err, traced
+
+        bf8 = make_train_step(model, opt, remat=True, grad_compression="bf8", mesh=mesh)
+        t1 = time.perf_counter()
+        params, state, hist = train_loop(model, params, state, pipe, n_steps=1,
+                                         start_step=TRAIN_DIST_STEPS + 1, train_step=bf8,
+                                         grad_compression="bf8", mesh=mesh)
+        res["bf8"] = {"loss": hist[0][1]["loss"], "step_s": time.perf_counter() - t1}
+        log(f"  one bf8 step: loss {res['bf8']['loss']:.4f}, {res['bf8']['step_s']:.3f} s")
+        if not math.isfinite(res["bf8"]["loss"]):
+            raise AssertionError(f"train (e): bf8 loss {res['bf8']['loss']}")
+        del state, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        placed = sh.shard_params(params, sh.ShardingCtx(mesh))
+        whole = [torch.equal(d.to_local(), p) for d, p in
+                 zip(flatten(placed).values(), flatten(params).values())]
+        res["shard_params"] = {"leaves": len(whole), "whole_bitwise": sum(whole)}
+        log(f"  shard_params on the (1, 1) mesh: {sum(whole)} of {len(whole)} local shards "
+            f"are their whole leaf, bitwise")
+        if not all(whole):
+            raise AssertionError("train (e): a local shard on a (1, 1) mesh is not its leaf")
+        del placed, params
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["seconds"] = time.perf_counter() - t0
+    log(f"train (e): {res['seconds']:.1f} s")
+    rec["compressed"] = res
+
+
 def state_bytes(tree) -> int:
     from repro_torch.checkpoint.ckpt import flatten
 
@@ -3949,7 +4162,7 @@ def train(torch, report):
     bf16 peak, peak memory, and no launch of the four kernels (a dense tree
     multiplies through torch.matmul, as the reference's einsums), then one
     more step traced by the profiler; (d) one Adafactor step of the same
-    model, its state bytes against AdamW's. A
+    model, its state bytes against AdamW's; (e) `train_compressed`. A
     full-width checkpoint would be ~17 GB, so (b) stays at smoke size."""
     import functools
     import statistics
@@ -4052,6 +4265,9 @@ def train(torch, report):
     del params, a_state, probe
     gc.collect()
     torch.cuda.empty_cache()
+
+    # (e) int8 gradient compression on a one-rank NCCL mesh
+    train_compressed(torch, model, pipe, lr, full, rec)
     rec["seconds"] = time.perf_counter() - t0
     log(f"train: {rec['seconds']:.1f} s")
     report["train"] = rec

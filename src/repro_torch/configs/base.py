@@ -4,12 +4,13 @@ Port-owned copy of `repro/configs/base.py`: the `ModelConfig` fields are
 the reference's, so a config converts field by field. Every architecture
 of the reference's `ARCH_IDS` is registered, and `SHAPES` holds the
 reference's named run shapes (`ShapeConfig`), which the synthetic data
-pipeline reads."""
+pipeline and `launch/specs.py` read; `shape_applicability` says which
+(arch, shape) cells run."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -55,6 +56,10 @@ class ModelConfig:
     optimizer: str = "adamw"        # adamw | adafactor (the 1T-param archs)
     remat: str = "full"             # none | full (activation checkpointing)
     scan_layers: bool = True        # lax.scan over stacked layer params
+
+    @property
+    def attn_free(self) -> bool:
+        return self.n_heads == 0
 
     @property
     def is_encoder(self) -> bool:
@@ -141,6 +146,19 @@ SHAPES: Dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
     "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
 }
+
+
+def shape_applicability(cfg: ModelConfig, shape: ShapeConfig) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else the reason it is skipped:
+    an encoder has no decode step, and long_500k needs sub-quadratic
+    sequence mixing (an ssm or hybrid stack)."""
+    if cfg.is_encoder and shape.kind == "decode":
+        return "encoder-only arch has no decode step"
+    if shape.name == "long_500k":
+        sub_quadratic = cfg.family in ("ssm", "hybrid")
+        if not sub_quadratic:
+            return "long_500k needs sub-quadratic attention (pure full-attention arch)"
+    return None
 
 
 _MODULES = {

@@ -1,5 +1,15 @@
-"""repro_torch.dist: the reference's fault module (`repro/dist/fault.py`):
-deterministic fault injection and straggler detection for the scheduler's
-round loop and the train loop, and checkpoint-restart training
-(`ResilientTrainer`). The sharding and gradient-compression modules wait
-for ROADMAP Queue A item 12."""
+"""repro_torch.dist: the distribution layer.
+
+  sharding          the mesh context (`use_mesh` / `active_ctx`), the
+                    divisibility-aware sharding rules, param / optimizer /
+                    data spec trees (CompressedTensor-aware), DTensor
+                    placement (`shard_params`) and activation constraints,
+                    exact identities with no active mesh.
+  grad_compression  the error-feedback quantized gradient all-reduce over a
+                    mesh (any KV-capable codec; int8 and bf8 canonically).
+  fault             deterministic fault injection, straggler detection and
+                    checkpoint-restart training (`ResilientTrainer`).
+
+Counterparts of `repro/dist/`. Sharded serving (the engine's mesh and the
+`constrain` call sites in the layers) is ROADMAP Queue A item 12's open
+part."""

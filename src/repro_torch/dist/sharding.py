@@ -1,0 +1,497 @@
+"""Sharding rules: one place that decides how every tensor of the port is
+laid out over a mesh (counterpart of `repro/dist/sharding.py`).
+
+Axes (`launch/mesh.py`): `data` (batch / FSDP), `model` (tensor parallel)
+and optionally `pod` (a second batch axis of the multi-pod mesh). Rules are
+divisibility-aware: a dim is sharded over an axis (or axis tuple) only when
+its total size divides the dim, and no mesh axis is used twice within one
+spec; `_resolve_dim` falls back to replication otherwise.
+
+A spec is a tuple with one entry per dim: None, an axis name, or a tuple of
+axis names (the reference's `PartitionSpec`, entry for entry). A compressed
+leaf gets a `CompressedSpec`, one spec per plane.
+
+The port's trees hold one dict per layer (`params["layers"][i]`) where the
+reference scans a uniform stack as one (n_layers, ...) `blocks` leaf; the
+rules read the port's names, and a layer leaf's spec is the reference's
+stacked spec without its leading None (the layer dim is never sharded).
+
+Entry points:
+  use_mesh(mesh, fsdp=, mode=, batch_axes=)  activates a ShardingCtx
+  active_ctx()                               the innermost ctx, or None
+  spec_for(shape, roles, ctx)                roles -> spec
+  param_spec_tree / opt_spec_tree / data_spec_tree
+  constrain(x, kind) / constrain_qkv         exact identity with no mesh
+  placements(spec, mesh) / placement_tree, shard_params(params, ctx),
+  local_shard(x, spec, ctx)
+
+A ctx's `batch_axes` name the mesh axes over which this process holds only
+its own rows of the batch (data-parallel training, `train/trainer.py`):
+there the MoE dispatch groups are this rank's share of the reference's, and
+`batch_all_reduce` sums over those axes.
+
+CompressedTensor leaves shard along the same logical (K, N) axes as the
+dense weight they replace: `codes (ng, ck, N)`, `mask (ng, N)` and `scales
+(ng, N)` put the K-axis sharding on the group dim `ng` (re-checking
+divisibility against ng: K % ax == 0 does not imply ng % ax == 0) and the
+N-axis sharding on their last dim.
+"""
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import math
+import threading
+from typing import Any, Dict, NamedTuple, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.core.compression import CompressedTensor
+
+Axis = Union[str, Tuple[str, ...]]
+Spec = Tuple[Optional[Axis], ...]
+
+
+class CompressedSpec(NamedTuple):
+    """The specs of a compressed leaf's planes (None for an absent plane)."""
+
+    codes: Spec
+    mask: Optional[Spec]
+    scales: Optional[Spec]
+
+
+@dataclasses.dataclass
+class ShardingCtx:
+    """Active sharding context: the mesh plus per-run policy knobs.
+
+    fsdp       : shard weight contraction dims over 'data' (ZeRO-3 style);
+                 `launch/specs.py` turns it on above a param threshold.
+    mode       : 'train' | 'serve'.
+    batch_axes : the mesh axes over which this process holds only its own
+                 rows of the batch (empty: the tensors are whole).
+    """
+
+    mesh: Any
+    fsdp: bool = False
+    mode: str = "train"
+    batch_axes: Tuple[str, ...] = ()
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        from repro_torch.launch.mesh import axis_sizes
+
+        return axis_sizes(self.mesh)
+
+    @property
+    def batch_split(self) -> int:
+        """Into how many row blocks the batch is split across processes."""
+        sizes = self.axis_sizes
+        return math.prod(sizes[a] for a in self.batch_axes)
+
+    def batch_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """`t` summed in place over the batch axes' process groups."""
+        import torch.distributed as dist
+
+        for a in self.batch_axes:
+            dist.all_reduce(t, group=self.mesh.get_group(a))
+        return t
+
+
+_STACK = threading.local()
+
+
+def active_ctx() -> Optional[ShardingCtx]:
+    stack = getattr(_STACK, "ctxs", None)
+    return stack[-1] if stack else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh, *, fsdp: bool = False, mode: str = "train",
+             batch_axes: Tuple[str, ...] = ()):
+    """Activate `mesh` for the dynamic extent: constrain() redistributes
+    DTensors, MoE dispatch groups follow the batch sharding, the spec functions
+    resolve against the mesh axes."""
+    ctx = ShardingCtx(mesh, fsdp=fsdp, mode=mode, batch_axes=tuple(batch_axes))
+    stack = getattr(_STACK, "ctxs", None)
+    if stack is None:
+        stack = _STACK.ctxs = []
+    stack.append(ctx)
+    try:
+        yield ctx
+    finally:
+        stack.pop()
+
+
+# ---------------------------------------------------------------------------
+# axis resolution
+# ---------------------------------------------------------------------------
+
+# candidates per logical role, tried in order
+_ROLE_AXES: Dict[str, Tuple[Axis, ...]] = {
+    "batch": (("pod", "data"), ("data",), ("pod",)),
+    "model": (("model",),),
+    "fsdp": (("data",),),
+    "expert": (("model",),),  # EP rides the model axis (no dedicated axis)
+}
+
+
+def _resolve_dim(dim: int, candidate_axes: Sequence[Axis], ctx: Any,
+                 used: set) -> Optional[Axis]:
+    """First candidate mesh axis (or axis tuple) whose total size divides
+    `dim`, never reusing an axis already consumed by this spec: the bare
+    name for a single axis, the tuple for a compound one, None when
+    nothing fits (replicate)."""
+    sizes = ctx.axis_sizes
+    for cand in candidate_axes:
+        axes = (cand,) if isinstance(cand, str) else tuple(cand)
+        if any(a in used or a not in sizes for a in axes):
+            continue
+        size = math.prod(sizes[a] for a in axes)
+        if size <= 0 or dim % size:
+            continue
+        used.update(axes)
+        return axes[0] if len(axes) == 1 else axes
+    return None
+
+
+def _resolve_role(dim: int, role: Optional[str], ctx: Any, used: set):
+    if role in (None, "none", "layers", "stack", "seq"):
+        return None
+    if role == "fsdp" and not getattr(ctx, "fsdp", False):
+        return None
+    return _resolve_dim(dim, _ROLE_AXES.get(role, ()), ctx, used)
+
+
+def spec_for(shape: Sequence[int], roles: Sequence[Optional[str]], ctx: Any,
+             used: Optional[set] = None) -> Spec:
+    """The spec of `shape` with one role per dim ('batch', 'model', 'fsdp',
+    'expert'; 'none' / 'layers' / 'seq' replicate)."""
+    if ctx is None:
+        return (None,) * len(shape)
+    used = set() if used is None else used
+    return tuple(_resolve_role(dim, role, ctx, used) for dim, role in zip(shape, roles))
+
+
+# ---------------------------------------------------------------------------
+# tree walking
+# ---------------------------------------------------------------------------
+
+def _map_path(fn, tree: Any, path: Tuple[str, ...] = ()) -> Any:
+    """`fn(path, leaf)` over a tree of dicts and lists whose leaves are
+    tensors or CompressedTensors (a list index is its decimal name)."""
+    if isinstance(tree, dict):
+        return {k: _map_path(fn, v, path + (str(k),)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_path(fn, v, path + (str(i),)) for i, v in enumerate(tree))
+    if tree is None:
+        return None
+    return fn(path, tree)
+
+
+def _is_spec(x: Any) -> bool:
+    return isinstance(x, CompressedSpec) or (
+        isinstance(x, tuple) and all(e is None or isinstance(e, (str, tuple)) for e in x))
+
+
+def _map_specs(fn, specs: Any, *rest: Any) -> Any:
+    """`fn(spec, *leaves)` over a spec tree and trees of its structure."""
+    if _is_spec(specs):
+        return fn(specs, *rest)
+    if isinstance(specs, dict):
+        return {k: _map_specs(fn, v, *(r[k] for r in rest)) for k, v in specs.items()}
+    if isinstance(specs, list):
+        return [_map_specs(fn, v, *(r[i] for r in rest)) for i, v in enumerate(specs)]
+    if specs is None:
+        return None
+    raise TypeError(f"not a spec tree node: {specs!r}")
+
+
+# ---------------------------------------------------------------------------
+# parameter specs
+# ---------------------------------------------------------------------------
+
+# leaves that are never worth sharding (tiny, or not GeMM operands)
+_REPLICATED_TOKENS = (
+    "norm", "conv", "router", "bias", "a_param", "a_log", "dt_bias",
+    "b_a", "b_x", "d_skip", "pos_embed",
+)
+# weights whose *first* matrix dim is the model-parallel one (row-parallel
+# in megatron terms: contraction sharded over 'model', output over FSDP)
+_ROW_PARALLEL = ("wo", "w_down", "w_out", "out_proj", "embed")
+
+
+def _param_roles(path_names: Tuple[str, ...], shape: Tuple[int, ...]) -> Tuple[str, ...]:
+    """Per-dim roles of a parameter leaf, from its name and position.
+
+    Column-parallel weights (wq / wk / wv / w_up / w_gate / lm_head / ...)
+    shard (contraction -> fsdp, output -> model); row-parallel ones (wo /
+    w_down / embed / ...) the transpose; MoE expert dims ride the model
+    axis. The reference's stacked leaves add an unsharded layer dim in
+    front, which the port's per-layer leaves do not have."""
+    name = path_names[-1] if path_names else ""
+    nd = len(shape)
+    roles = ["none"] * nd
+    if nd == 0 or any(t in name for t in _REPLICATED_TOKENS):
+        return tuple(roles)
+    i = 0
+    if "moe" in path_names and nd - i == 3:
+        roles[i] = "expert"
+        i += 1
+    if nd - i == 2:
+        if name in _ROW_PARALLEL:
+            roles[i], roles[i + 1] = "model", "fsdp"
+        else:
+            roles[i], roles[i + 1] = "fsdp", "model"
+    return tuple(roles)
+
+
+def _compressed_spec(path_names: Tuple[str, ...], ct: CompressedTensor,
+                     ctx: Any) -> CompressedSpec:
+    """Plane specs of a compressed leaf, sharded along the same logical
+    (K, N) axes as the dense weight the leaf replaces."""
+    k, n = ct.shape
+    lead = ct.lead
+    ng = ct.codes.shape[-3]
+    roles = _param_roles(path_names, lead + (k, n))
+    used: set = set()
+    lead_entries = tuple(_resolve_role(d, r, ctx, used) for d, r in zip(lead, roles[:-2]))
+    # K-axis sharding lands on the group dim, N-axis on the last dim; both
+    # resolved once so the three planes stay aligned
+    k_ax = _resolve_role(ng, roles[-2], ctx, used)
+    n_ax = _resolve_role(n, roles[-1], ctx, used)
+    gn = lead_entries + (k_ax, n_ax)
+    return CompressedSpec(
+        codes=lead_entries + (k_ax, None, n_ax),
+        mask=gn if ct.mask is not None else None,
+        scales=gn if ct.scales is not None else None,
+    )
+
+
+def param_spec_tree(params: Any, ctx: Any) -> Any:
+    """A spec tree mirroring a param tree (tensors, meta tensors or
+    DTensors; CompressedTensor leaves get a CompressedSpec)."""
+
+    def one(path, leaf):
+        if isinstance(leaf, CompressedTensor):
+            return _compressed_spec(path, leaf, ctx)
+        shape = tuple(leaf.shape)
+        return spec_for(shape, _param_roles(path, shape), ctx)
+
+    return _map_path(one, params)
+
+
+def _flat_specs(specs: Any, path: Tuple[str, ...] = (), out=None) -> Dict[str, Any]:
+    out = {} if out is None else out
+    if _is_spec(specs):
+        out["/".join(path)] = specs
+    elif isinstance(specs, dict):
+        for k, v in specs.items():
+            _flat_specs(v, path + (str(k),), out)
+    elif isinstance(specs, list):
+        for i, v in enumerate(specs):
+            _flat_specs(v, path + (str(i),), out)
+    return out
+
+
+def opt_spec_tree(opt_state: Any, params: Any, ctx: Any) -> Any:
+    """Optimizer-state specs: each state leaf inherits the spec of the
+    param it tracks (AdamW's mu / nu / master mirror the params; Adafactor's
+    factored vr / vc get the param's spec without the averaged-out dim).
+    A layer-stacked state (`Adafactor(stacked=True)`: `v["layers"]` one dict
+    of (n_layers, ...) factors, the reference's `blocks`) gets the layer
+    spec behind a leading None."""
+    flat_p = _flat_specs(param_spec_tree(params, ctx))
+
+    def one(path, leaf):
+        names = list(path)
+        replicated = (None,) * leaf.dim()
+        stacked = False
+        if "layers" in names:
+            j = names.index("layers")
+            if j + 1 < len(names) and not names[j + 1].isdigit():
+                names.insert(j + 1, "0")  # every layer of a uniform stack alike
+                stacked = True
+        tail = None
+        if names and names[-1] in ("vr", "vc", "v") and "/".join(names) not in flat_p:
+            tail, names = names[-1], names[:-1]
+        for start in range(len(names) + 1):
+            key = "/".join(names[start:])
+            if key in flat_p:
+                spec = flat_p[key]
+                break
+        else:
+            return replicated
+        if isinstance(spec, CompressedSpec):  # never trained; replicate
+            return replicated
+        entries = ((None,) if stacked else ()) + tuple(spec)
+        if tail == "vr":  # the param's shape less its last dim
+            return entries[:-1]
+        if tail == "vc":  # less its second-to-last dim
+            return entries[:-2] + entries[-1:]
+        return entries
+
+    return _map_path(one, opt_state)
+
+
+# ---------------------------------------------------------------------------
+# input / activation-state specs
+# ---------------------------------------------------------------------------
+
+def data_spec_tree(tree: Any, ctx: Any) -> Any:
+    """Specs of input trees: training / prefill batches (tokens, labels,
+    mask, embeds, positions), the port's per-layer ring and paged caches,
+    and CompressedTensor leaves (sharded as the dense weight they stand
+    for). Batch dims shard over ('pod', 'data'), KV heads over 'model'."""
+
+    def one(path, leaf):
+        name = path[-1] if path else ""
+        if isinstance(leaf, CompressedTensor):
+            return _compressed_spec(path, leaf, ctx)
+        shape = tuple(leaf.shape)
+        nd = len(shape)
+        if nd == 0 or name in ("pos", "length", "ppos"):
+            return (None,) * nd
+        used: set = set()
+        if name in ("kp", "vp", "ks", "vs"):
+            # paged pool (NB, bsize, Hkv, Dh) and its scale planes (NB,
+            # bsize, Hkv): pages replicated over the data axis (every data
+            # shard reads any request's blocks), KV heads over 'model'
+            head_dim = nd - 1 if name in ("ks", "vs") else nd - 2
+            return tuple(_resolve_dim(shape[j], _ROLE_AXES["model"], ctx, used)
+                         if j == head_dim else None for j in range(nd))
+        entries = []
+        i = 0
+        if name == "positions" and nd == 3:
+            entries.append(None)  # (3, B, S) M-RoPE stream dim
+            i = 1
+        entries.append(_resolve_dim(shape[i], _ROLE_AXES["batch"], ctx, used))
+        for j in range(i + 1, nd):
+            # KV heads over 'model': dim -2 of a code buffer, -1 of the ring
+            # cache's quantized-KV scale planes
+            if (name in ("k", "v") and j == nd - 2) or (
+                    name in ("k_scale", "v_scale") and j == nd - 1):
+                entries.append(_resolve_dim(shape[j], _ROLE_AXES["model"], ctx, used))
+            else:
+                entries.append(None)
+        return tuple(entries)
+
+    return _map_path(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+def entry_axes(entry: Optional[Axis]) -> Tuple[str, ...]:
+    """The mesh axes one spec entry names, major first."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def placements(spec: Spec, mesh) -> list:
+    """DTensor placements of `spec` on `mesh`: Shard(d) on each mesh dim
+    that dim d's entry names, Replicate() on the rest. A tuple entry
+    shards over its axes major first, which must be their mesh order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = tuple(mesh.mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        idx = [names.index(a) for a in entry_axes(entry)]
+        if idx != sorted(idx):
+            raise ValueError(f"spec entry {entry} is not in the mesh's axis order {names}")
+        for i in idx:
+            out[i] = Shard(d)
+    return out
+
+
+def placement_tree(specs: Any, mesh) -> Any:
+    """`placements` of every spec of a spec tree (per plane for a
+    CompressedSpec)."""
+    def one(spec):
+        if isinstance(spec, CompressedSpec):
+            return CompressedSpec(*(None if p is None else placements(p, mesh) for p in spec))
+        return placements(spec, mesh)
+
+    return _map_specs(one, specs)
+
+
+def local_shard(x: torch.Tensor, spec: Spec, ctx: ShardingCtx) -> torch.Tensor:
+    """This rank's block of a whole tensor under `spec` (a view): each
+    sharded dim cut to the block its mesh coordinates pick, major axis
+    first, as DTensor's even `Shard` gives it."""
+    coords = dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.get_coordinate()))
+    sizes = ctx.axis_sizes
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        index, count = 0, 1
+        for a in entry_axes(entry):
+            index, count = index * sizes[a] + coords[a], count * sizes[a]
+        block = x.shape[d] // count
+        x = x.narrow(d, index * block, block)
+    return x
+
+
+def shard_params(params: Any, ctx: ShardingCtx) -> Any:
+    """A (possibly compressed) param tree placed on ctx.mesh as DTensors
+    (`distribute_tensor`, from rank 0's values) with `param_spec_tree`'s
+    placements: the serving-side placement of the reference's
+    `shard_params`."""
+    from torch.distributed.tensor import distribute_tensor
+
+    mesh = ctx.mesh
+    put = lambda t, spec: distribute_tensor(t, mesh, placements(spec, mesh))
+
+    def one(spec, leaf):
+        if isinstance(leaf, CompressedTensor):
+            return dataclasses.replace(
+                leaf, codes=put(leaf.codes, spec.codes),
+                mask=None if leaf.mask is None else put(leaf.mask, spec.mask),
+                scales=None if leaf.scales is None else put(leaf.scales, spec.scales))
+        return put(leaf, spec)
+
+    return _map_specs(one, param_spec_tree(params, ctx), params)
+
+
+# ---------------------------------------------------------------------------
+# activation constraints
+# ---------------------------------------------------------------------------
+
+# per-dim roles of each activation layout the layers emit
+_ACT_ROLES: Dict[str, Tuple[str, ...]] = {
+    "bsd": ("batch", "none", "none"),             # residual stream (B, S, D)
+    "bshd": ("batch", "none", "model", "none"),   # per-head q/k/v/attn-out
+    "bsf": ("batch", "none", "model"),            # MLP hidden (B, S, F)
+    "btv": ("batch", "none", "model"),            # logits (B, S, V)
+    "egcd": ("expert", "batch", "none", "none"),  # MoE dispatch (E, G, c, D)
+    "egcf": ("expert", "batch", "none", "none"),  # MoE hidden (E, G, c, F)
+    "edf_use": ("expert", "none", "none"),        # expert weight at point of use
+    "efd_use": ("expert", "none", "none"),        # (FSDP shard all-gathered)
+    "pkv": ("none", "none", "model", "none"),     # paged KV pool (NB, bs, Hkv, Dh)
+    "pkvs": ("none", "none", "model"),            # paged KV scale plane (NB, bs, Hkv)
+}
+
+
+def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """`x` laid out as the active mesh's rules say: a DTensor is
+    redistributed to its spec; a plain local tensor is returned unchanged.
+    The exact identity with no active mesh."""
+    ctx = active_ctx()
+    if ctx is None:
+        return x
+    from torch.distributed.tensor import DTensor
+
+    roles = _ACT_ROLES[kind]
+    if not isinstance(x, DTensor) or len(roles) != x.dim():
+        return x
+    spec = spec_for(tuple(x.shape), roles, ctx)
+    return x.redistribute(ctx.mesh, placements(spec, ctx.mesh))
+
+
+def constrain_qkv(q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return constrain(q, "bshd"), constrain(k, "bshd"), constrain(v, "bshd")

@@ -26,6 +26,7 @@ from repro_torch.core.codecs import get_codec
 from repro_torch.core.compression import CompressedTensor, compress_stacked
 from repro_torch.core.decompress import eligible, mm
 from repro_torch.core.formats import CompressionSpec
+from repro_torch.dist.sharding import active_ctx
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import CACHE_EMPTY_POS
 
@@ -33,7 +34,11 @@ Params = Dict[str, object]
 
 
 def dense_init(generator: torch.Generator, shape, device, dtype) -> torch.Tensor:
-    """Normal weights scaled by 1/sqrt(fan_in), drawn in f32 on `device`."""
+    """Normal weights scaled by 1/sqrt(fan_in), drawn in f32 on `device`.
+    On the meta device only the shape and dtype exist: no draw (a meta
+    draw costs ~0.2 ms, 70 000 of them at kimi-k2's experts)."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
     w = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
     return (w / math.sqrt(shape[0])).to(dtype)
 
@@ -581,11 +586,25 @@ def init_moe(generator, cfg: ModelConfig, device, dtype, *,
 
 
 def _dispatch_groups(t: int) -> int:
-    """Group-local dispatch shards. The reference takes the active mesh's
-    batch sharding (pod x data), so routing sorts stay shard-local, and 1
-    outside a mesh. The port has no mesh until ROADMAP Queue A item 12:
-    one group, the reference's answer outside a mesh."""
-    return 1
+    """Group-local dispatch shards of this process's `t` tokens. The
+    reference takes the active mesh's batch sharding (pod x data), halved
+    until it divides the tokens, so routing sorts stay shard-local, and 1
+    outside a mesh. A data-parallel rank holds only its block of the
+    batch's rows (`ShardingCtx.batch_split` blocks), which is a run of
+    whole reference groups: it takes its share of them, so a token sees
+    the reference's group."""
+    ctx = active_ctx()
+    if ctx is None:
+        return 1
+    sizes = ctx.axis_sizes
+    split = ctx.batch_split
+    g = sizes.get("pod", 1) * sizes.get("data", 1)
+    while g > 1 and (t * split) % g:
+        g //= 2
+    g = max(1, g)
+    if g % split:
+        raise ValueError(f"{g} dispatch groups do not split into {split} row blocks")
+    return g // split
 
 
 def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -649,8 +668,19 @@ def moe_block(params: Params, x: torch.Tensor,
 
     me = probs.mean(dim=(0, 1))  # (E,)
     ones = torch.ones(expert_idx.numel(), dtype=torch.float32, device=dev)
-    ce = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
-        0, expert_idx.reshape(-1), ones) / (t * k)
+    counts = torch.zeros(e, dtype=torch.float32, device=dev).index_add_(
+        0, expert_idx.reshape(-1), ones)
+    ctx = active_ctx()
+    split = 1 if ctx is None else ctx.batch_split
+    if split > 1:
+        # the reference's aux is over every group: sum the counts and
+        # average the equal-sized blocks' means over the ranks; the value
+        # is the global one, the gradient this rank's share of it (the
+        # step sums the ranks' gradients)
+        counts = ctx.batch_all_reduce(counts)
+        me_all = ctx.batch_all_reduce(me.detach().clone()) / split
+        me = me_all + (me - me.detach()) / split
+    ce = counts / (t * split * k)
     aux = e * torch.sum(me * ce)
 
     # capacity floor of 4 keeps tiny decode batches drop-free

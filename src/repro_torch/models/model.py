@@ -61,6 +61,7 @@ from repro_torch.device import resolve
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
+AUX_WEIGHT, Z_WEIGHT = 0.01, 1e-4  # the loss's weights of the MoE aux and z terms
 Pools = List[Dict[str, torch.Tensor]]
 _ATTN = ("attn", "attn_local")
 
@@ -359,8 +360,9 @@ class Model:
         batch: Dict[str, torch.Tensor],
         *,
         remat: bool = True,
-        aux_weight: float = 0.01,
-        z_weight: float = 1e-4,
+        aux_weight: float = AUX_WEIGHT,
+        z_weight: float = Z_WEIGHT,
+        denom: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training objective (the reference's `Model.loss`): masked
         next-token cross-entropy from f32 logits through their logsumexp,
@@ -368,6 +370,8 @@ class Model:
         z-loss (the squared log-partition), both sums over
         max(mask.sum(), 1). `batch` holds "labels" (B, S), "tokens" or
         "embeds", and optionally "positions" and "mask" (B, S) f32.
+        `denom` replaces that divisor: a data-parallel rank divides its
+        rows' sums by the whole batch's (`train/trainer.py`).
         Returns (total, {ce, aux, z_loss})."""
         logits, _, aux = self.forward(
             params, tokens=batch.get("tokens"), embeds=batch.get("embeds"),
@@ -380,7 +384,8 @@ class Model:
         mask = batch.get("mask")
         if mask is None:
             mask = torch.ones(labels.shape, dtype=torch.float32, device=logits.device)
-        denom = torch.clamp(mask.sum(), min=1.0)
+        if denom is None:
+            denom = torch.clamp(mask.sum(), min=1.0)
         ce = -(ll * mask).sum() / denom
         zl = ((logz * mask) ** 2).sum() / denom
         total = ce + aux_weight * aux + z_weight * zl

@@ -1365,3 +1365,82 @@ def test_dense_engine_steps_on_the_card_match_the_plain_path(card, arch, monkeyp
             assert deca_gemm.decompress_gemv.launches >= 3
     for got, want in zip(outs["kernel"], outs["plain"]):
         assert float((got - want).abs().max()) <= 5e-2 * float(want.abs().max())
+
+
+@pytest.fixture
+def nccl_mesh(card):
+    """A one-rank NCCL world on the card and its (1, 1) mesh, closed after
+    the test."""
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_test_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_compressed_allreduce_on_the_card_is_the_cpus_bitwise(nccl_mesh):
+    """On a one-rank NCCL mesh the compressed all-reduce's sent payload and
+    residual are the CPU port's round trip of the same g + err, bitwise,
+    for every KV-capable codec, at sizes a whole number of groups and not,
+    across a stacked norm too (`layer_stack`)."""
+    from repro_torch.core import codecs
+    from repro_torch.dist import grad_compression as gc
+
+    g = torch.Generator().manual_seed(3)
+    def tree():
+        return {"w": torch.randn(300, 257, generator=g) * 1e-2,
+                "layers": [{"norm": torch.randn(64, generator=g),
+                            "wq": torch.randn(128, 64, generator=g)} for _ in range(2)]}
+    grads, err = tree(), tree()
+    for method in codecs.kv_codec_names():
+        allreduce, _ = gc.make_compressed_allreduce(nccl_mesh, None, method=method,
+                                                    layer_stack=2)
+        cpu_ar, _ = gc.make_compressed_allreduce(_CpuMesh(), None, method=method,
+                                                 layer_stack=2)
+        e_card = {k: _tree_to(v, "cuda") for k, v in err.items()}
+        e_cpu = {k: _tree_to(v, "cpu") for k, v in err.items()}
+        sent_card, e_card = allreduce({k: _tree_to(v, "cuda") for k, v in grads.items()},
+                                      e_card)
+        sent_cpu, e_cpu = cpu_ar(grads, e_cpu)
+        torch.cuda.synchronize()
+        for a, b in ((sent_card, sent_cpu), (e_card, e_cpu)):
+            for x, y in zip(_leaves(a), _leaves(b)):
+                assert torch.equal(_bits(x.cpu()), _bits(y)), method
+
+
+class _CpuMesh:
+    """A one-rank mesh with no axes: the CPU side of the comparison runs the
+    same code with no collective."""
+
+    mesh_dim_names = ()
+
+    @staticmethod
+    def size():
+        return 1
+
+
+def _tree_to(t, dev):
+    if isinstance(t, dict):
+        return {k: _tree_to(v, dev) for k, v in t.items()}
+    if isinstance(t, list):
+        return [_tree_to(v, dev) for v in t]
+    return t.to(dev, copy=True)
+
+
+def _leaves(t):
+    if isinstance(t, dict):
+        return [x for v in t.values() for x in _leaves(v)]
+    if isinstance(t, list):
+        return [x for v in t for x in _leaves(v)]
+    return [t]

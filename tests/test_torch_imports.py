@@ -69,3 +69,16 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
                              text=True, timeout=120, env=dict(os.environ, PYTHONPATH=""))
         assert run.returncode != 0
         assert '"ok": true' not in run.stdout
+
+
+DIST_MODULES = ("dist/sharding.py", "dist/grad_compression.py", "launch/mesh.py",
+                "launch/specs.py")
+
+
+@pytest.mark.parametrize("rel", DIST_MODULES)
+def test_distribution_modules_exist_and_import_neither_jax_nor_the_reference(rel):
+    """The distribution layer's modules are the port's own copies: present,
+    checked by the walk above, and free of jax and the reference."""
+    path = ROOT / "src" / "repro_torch" / rel
+    assert path in PORT_FILES
+    assert [m for m in _imported_modules(path) if _forbidden(m)] == []

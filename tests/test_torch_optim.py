@@ -411,11 +411,38 @@ def test_train_loop_flags_stragglers_checkpoints_and_refuses_distribution(tmp_pa
                                  on_step=lambda s, m: seen.append(s))
     assert seen == [0, 1, 2] and all(m["straggler"] for _, m, _ in hist)
     assert ck.all_steps() == [2]
-    for kw in ({"grad_compression": "int8"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            make_train_step(model, **kw)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            train_loop(model, params, None, pipe, n_steps=1, **kw)
+    # the reference's contract: compression needs the mesh that carries it
+    with pytest.raises(ValueError, match="mesh"):
+        make_train_step(model, grad_compression="int8")
+    with pytest.raises(ValueError, match="mesh"):
+        train_loop(model, params, None, pipe, n_steps=1, grad_compression="int8")
+    # a mesh without compression is accepted: on a one-rank world the loop
+    # is the plain one, bitwise
+    import socket
+
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1, device="cpu")
+        runs = []
+        for kw in ({}, {"mesh": mesh}):
+            p0 = model.init(torch.Generator().manual_seed(0), device="cpu")
+            runs.append(train_loop(model, p0, opt.init(p0), pipe, n_steps=1,
+                                   train_step=make_train_step(model, opt, remat=False, **kw),
+                                   **kw))
+    finally:
+        dist.destroy_process_group()
+    (a, _, ha), (b, _, hb) = runs
+    assert ha[0][1] == hb[0][1]
+    assert not torch.equal(a["embed"], model.init(torch.Generator().manual_seed(0),
+                                                  device="cpu")["embed"])
+    assert all(torch.equal(x, y) for x, y in zip(flatten(a).values(), flatten(b).values()))
 
 
 # ---------------------------------------------------------------------------

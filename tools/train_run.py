@@ -12,7 +12,10 @@ full width and depth trained 8 steps through `train_loop` on 2 x 4096
 tokens with remat and AdamW (each step's loss, the median step, tokens/s,
 6 N T FLOPs against the bf16 peak, peak memory, no DECA kernel launched);
 (d) one Adafactor step of the same model and its state bytes against
-AdamW's. It prints the phase's lines and writes its record to
+AdamW's; (e) the same model 3 steps with int8 gradient compression on a
+one-rank NCCL mesh (losses beside (c)'s, the round trip's device time,
+sampled payloads bitwise the CPU port's, err within half a quantization
+step), one bf8 step, and `shard_params` on that mesh. It prints the phase's lines and writes its record to
 chiprun_out/train_run.json; it exits non-zero when a check fails or no
 card is present.
 """
