@@ -60,7 +60,13 @@ payload and a slow round against a clean serve (one request FAILED, every
 fault fired, the slow round flagged, survivors equal up to a near tie);
 (c) the TTFT and ITL gates on RoofLens's calibrated prices (what they
 shed, defer and expire, and how many admitted requests met each
-objective). Last, `paper_models` frees llama3-8b and serves the paper's
+objective). Then `mesh_serve` serves the same weights sharded,
+`GenerationEngine(mesh=)` on a one-rank NCCL mesh (1, 1), beside the plain
+engine on the same 4 requests: tokens and pool planes bitwise, a step's
+launches the plain step's, the chunk captured with its collectives and
+replayed bitwise, the replayed step beside the plain one; then the kernels
+at llama2-70b's local shard shapes on a (1, 4) mesh (`tools/mesh_serve.py`
+runs it alone). Last, `paper_models` frees llama3-8b and serves the paper's
 two end-to-end models, llama2-70b and opt-66b (learned positions, a relu
 MLP, full MHA), at full width and depth on the one card: each built with
 its layers compressed on the card as they are drawn (the build's peak
@@ -221,6 +227,19 @@ TWINS = (("quickstart_torch", []), ("compressed_serving_torch", []),
          ("compressed_serving_torch", ["--paged", "--chunk", "1"]),
          ("compressed_serving_torch", ["--paged", "--spec-k", str(SPEC_K)]))
 
+
+# the mesh_serve phase: the plain serve's first 4 prompts cut to MESH_PROMPT
+# tokens, MESH_NEW new tokens each, on a one-rank NCCL mesh; then the
+# kernels at llama2-70b's local shard shapes on a (1, 4) mesh: column-
+# parallel q and gate/up (N / 4), row-parallel o and down (K / 4), at the
+# decode rows and a prefill's, and attention over 64 / 4 query and 8 / 4
+# KV heads
+MESH_PROMPT, MESH_NEW = 256, 32
+TP70 = "llama2-70b (1, 4)"
+TP70_SHAPES = ((8192, 2048, "q"), (8192, 7168, "gate/up"), (2048, 8192, "o"),
+               (7168, 8192, "down"))
+TP70_MS = (4, 2048)
+TP70_HEADS = (16, 2)
 
 _LOG = []
 
@@ -3217,6 +3236,204 @@ def snapshot_serve(torch, model, params, prompts, report, new=32):
     torch.cuda.empty_cache()
 
 
+def tp70_kernels(torch, timer, cases):
+    """The kernels at llama2-70b's local shard shapes on a (1, 4) mesh
+    (TP70_SHAPES at TP70_MS rows, bf8_50 weights; attention at TP70_HEADS
+    over an int8 pool), each against its plain version at KERNEL_TOL and
+    timed beside its plain version, its library call and its bound."""
+    from repro_torch.core.compression import compress
+    from repro_torch.core.formats import get_spec
+    from repro_torch.kernels import deca_gemm, paged_attention, ref
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    spec = get_spec(SERVED_SPEC)
+    for k, n, role in TP70_SHAPES:
+        w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
+        ct = compress(w, spec)
+        del w
+        for m in TP70_MS:
+            x = torch.randn(m, k, generator=g, device="cuda").bfloat16().float()
+            kind = "gemv" if m <= 32 else "gemm"
+            kern = deca_gemm.decompress_gemv if kind == "gemv" else deca_gemm.decompress_gemm
+            plain = ref.decompress_gemv if kind == "gemv" else ref.decompress_gemm
+            got, want = kern(x, ct), plain(x, ct)
+            torch.cuda.synchronize()
+            err, rel = rel_err(got, want)
+            case = {"model": TP70, "kernel": kind, "role": role, "K": k, "N": n, "M": m,
+                    "spec": spec.name, "max_abs_err": err, "rel_err": rel}
+            time_matmul(torch, timer, case, kern, plain, x, ct)
+            if rel > KERNEL_TOL:
+                raise AssertionError(f"{kind} disagrees with its plain version: {case}")
+            cases.append(case)
+        del ct
+    hq, hkv = TP70_HEADS
+    args = _attention_inputs(torch, SERVED_KV, g, hq=hq, hkv=hkv, dh=128)
+    got = paged_attention.paged_attention(*args, quant=SERVED_KV)
+    want = ref.paged_decode_attention(*args, quant=SERVED_KV)
+    torch.cuda.synchronize()
+    err, rel = rel_err(got, want)
+    case = {"model": TP70, "kernel": "attention", "kind": SERVED_KV,
+            "role": f"{hq}/{hkv} heads", "max_abs_err": err, "rel_err": rel}
+    time_attention(torch, timer, case, args)
+    if rel > KERNEL_TOL:
+        raise AssertionError(f"paged attention disagrees with its plain version: {case}")
+    cases.append(case)
+    torch.cuda.empty_cache()
+
+
+def replay_walls(torch, graphs, n=8):
+    """(ms a replay, device steps a replay) of the first captured graph,
+    `n` replays between CUDA events."""
+    key, g = next(iter(graphs.graphs.items()))
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    g.graph.replay()
+    a.record()
+    for _ in range(n):
+        g.graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, key[2][0]
+
+
+def collective_kernels(torch, graphs, n=2) -> dict:
+    """{kernel name: launches a replay} of the first captured graph's
+    collectives: the device kernels and copies of `n` traced replays whose
+    names are NCCL's or a device copy's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    _, g = next(iter(graphs.graphs.items()))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            g.graph.replay()
+        torch.cuda.synchronize()
+    return {e.key: e.count / n for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("aten::")
+            and ("nccl" in e.key.lower() or "memcpy" in e.key.lower())}
+
+
+def mesh_serve(torch, model, params, prompts, report):
+    """Sharded serving on the card: the plain serve's weights (no second
+    build) served by `GenerationEngine(mesh=)` on a one-rank NCCL mesh
+    (1, 1), int8 KV, 4 requests of MESH_PROMPT tokens x MESH_NEW new, chunk
+    8, beside the plain engine on the same requests. On one rank every
+    shard is the whole leaf and every collective sums or gathers one
+    operand: the tokens and every pool plane (null page left out) must be
+    the plain engine's bitwise, a decode step must launch the plain
+    step's kernels (225 GeMV, 32 attention, no decompression), the chunk
+    runs as captured graphs with the collectives inside, each replayed
+    bitwise. Prints the NCCL kernels and copies a replay launches, the
+    replayed step beside the plain engine's (the one-rank collectives'
+    cost), this rank's param bytes; then the kernels at llama2-70b's
+    (1, 4) local shard shapes (`tp70_kernels`). The phase opens its NCCL
+    group and destroys it (after its engine and graphs) before it returns.
+    Returns the kernel cases."""
+    import socket
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.core.decompress import compressed_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.serve.engine import GenerationEngine
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    batch = [p[:MESH_PROMPT] for p in prompts[:4]]
+    kw = dict(kv_quant=SERVED_KV, max_slots=4, block_size=32, max_len=2048, decode_chunk=8)
+    plain = GenerationEngine(model, params, **kw)
+    plain_rids = [plain.submit(p, max_new_tokens=MESH_NEW) for p in batch]
+    plain_done = plain.run_until_drained()
+    rec = {}
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = make_test_mesh(1, 1)
+        eng = GenerationEngine(model, params, mesh=mesh, **kw)
+        sched = eng.scheduler
+        chunks = []
+        sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, sched._decode_chunk, chunks)
+        rids = [eng.submit(p, max_new_tokens=MESH_NEW) for p in batch]
+        for fn in counters().values():
+            fn.launches = 0
+        t = time.perf_counter()
+        done = eng.run_until_drained()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = {k: fn.launches for k, fn in counters().items()}
+        st = sched.stats()
+        n = sum(c["steps"] for c in chunks)  # device steps: every chunk runs its C
+        outs = [done[r] for r in rids]
+        same = [np.array_equal(o, plain_done[r]) for o, r in zip(outs, plain_rids)]
+        bad = [f"layer {i} {name}" for i, (mine, want) in enumerate(zip(eng.kv.pools,
+                                                                        plain.kv.pools))
+               for name, t in mine.items() if not torch.equal(t[1:], want[name][1:])]
+        local, whole = compressed_bytes(eng.params), compressed_bytes(params)
+        log(f"mesh_serve: llama3-8b on a (1, 1) NCCL mesh, {len(rids)} requests x "
+            f"{MESH_NEW} new tokens (prompts of {MESH_PROMPT}), kv {SERVED_KV}: {wall:.2f} s; "
+            f"{st['prefill_calls']} prefill calls, {st['decode_steps']} decode steps in "
+            f"{st['decode_chunks']} chunks ({n} device steps); this rank's params "
+            f"{local / 1e9:.3f} GB of "
+            f"{whole / 1e9:.3f} GB")
+        log(f"  tokens bitwise the plain engine's: {sum(same)}/{len(same)} requests; pool "
+            f"planes bitwise (null page left out): {not bad}")
+        per = {k: v / max(n, 1) for k, v in launches.items()}
+        log(f"  launches {launches}: a device step {per['deca_gemv']:.1f} GeMV, "
+            f"{per['deca_paged_attention']:.1f} attention, {per['deca_decompress']:.1f} "
+            f"decompression (the plain chunk step: {gemvs_per_step(cfg)} / {cfg.n_layers} / 0)")
+        if not all(same) or bad:
+            raise AssertionError(f"the mesh engine is not the plain engine bitwise: tokens "
+                                 f"{same}, planes {bad[:8]}")
+        if (launches["deca_gemv"] != gemvs_per_step(cfg) * n
+                or launches["deca_paged_attention"] != cfg.n_layers * n
+                or launches["deca_gemm"] != gemvs_per_step(cfg) * st["prefill_calls"]
+                or launches["deca_decompress"]):
+            raise AssertionError(f"the mesh decode steps launched other kernels than the "
+                                 f"plain chunk step's: {launches} over {n} device steps")
+        if not eng._chunk_graphs.graphs or any(not c["captured"] for c in chunks[:1]):
+            raise AssertionError("the mesh decode chunk was not captured")
+        costs = graph_costs(eng._chunk_graphs, chunks, "mesh decode chunk")
+        check_replays(torch, eng, eng._chunk_graphs, "mesh decode chunk", report)
+        nccl = collective_kernels(torch, eng._chunk_graphs)
+        plain_nccl = collective_kernels(torch, plain._chunk_graphs)
+        mesh_ms, steps = replay_walls(torch, eng._chunk_graphs)
+        plain_ms, plain_steps = replay_walls(torch, plain._chunk_graphs)
+        log(f"  a replay's NCCL kernels and copies: mesh {nccl or 'none recorded'}; plain "
+            f"{plain_nccl or 'none recorded'}")
+        log(f"  replayed chunk: mesh {mesh_ms:.3f} ms ({mesh_ms / steps:.3f} ms a step over "
+            f"{steps}), plain {plain_ms:.3f} ms ({plain_ms / plain_steps:.3f} ms a step): "
+            f"the one-rank collectives cost {(mesh_ms / steps - plain_ms / plain_steps):.3f} "
+            f"ms a step")
+        rec.update(wall_s=wall, stats=st, launches=launches, per_step=per,
+                   tokens_bitwise=same, planes_bitwise=not bad, graphs=costs,
+                   nccl_kernels={"mesh": nccl, "plain": plain_nccl},
+                   replay_ms={"mesh": mesh_ms, "plain": plain_ms},
+                   steps_a_replay={"mesh": steps, "plain": plain_steps},
+                   param_bytes={"rank": local, "whole": whole})
+        del eng, sched
+        gc.collect()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+    cases = []
+    timer = Timer(torch)
+    tp70_kernels(torch, timer, cases)
+    del timer
+    torch.cuda.empty_cache()
+    rec["tp70_cases"] = cases
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"mesh_serve: {rec['seconds']:.1f} s")
+    report["mesh_serve"] = rec
+    return cases
+
+
 def compare_dense_paths(torch, model, params, report, key, steps=2):
     """The dense engine's prefill (4 prompts of RECURRENT_PROMPT tokens) and
     `steps` decode steps over the first PATH_LAYERS layers: the kernel
@@ -4544,6 +4761,10 @@ def main() -> int:
     # 12. a snapshot in mid-serve, restored into a fresh engine
     snapshot_serve(torch, model, params, prompts, report)
 
+    # 12b. sharded serving on a one-rank NCCL mesh; the kernels at
+    # llama2-70b's local shard shapes on a (1, 4) mesh
+    mesh_cases = mesh_serve(torch, model, params, prompts, report)
+
     # 13. the paper's two models at full width and depth, then a tied head
     del model, params
     gc.collect()
@@ -4605,7 +4826,7 @@ def main() -> int:
          "src/repro/kernels/deca_decompress.py:103", dc),
     ]
     held = (mm_cases + att_cases + new_cases + paper_cases + gemma_cases + moe_cases
-            + recurrent_cases + vlm_audio_cases)
+            + recurrent_cases + vlm_audio_cases + mesh_cases)
     worst_abs = {  # over every case each kernel was held on
         "deca_gemv": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemv"),
         "deca_gemm": max(c["max_abs_err"] for c in held if c.get("kernel") == "gemm"),
@@ -4626,7 +4847,8 @@ def main() -> int:
             "bound_by", "library_ms")
     for entry, matmul in zip(kernels[:3], ("gemv", "gemm", "attention")):
         for name, shapes in (("recurrent_shapes", recurrent_cases),
-                             ("vlm_audio_shapes", vlm_audio_cases)):
+                             ("vlm_audio_shapes", vlm_audio_cases),
+                             ("tp70_local_shapes", mesh_cases)):
             timed = [{k: c[k] for k in keys if k in c} for c in shapes
                      if c["kernel"] == matmul and "ms" in c]
             if timed:

@@ -24,11 +24,22 @@ on the paged path: requests the engine cannot serve on time are shed or
 expired with explicit terminal statuses, and the report adds a per-status
 summary table.
 
-`--mesh` (sharded serving) is not ported yet: it is ROADMAP Queue A item 12
-(distribution and launch), and the twin refuses it rather than serve
-unsharded.
+`--mesh DxM` serves sharded over a (data, model) mesh on the paged engine
+(the dense ring engine on a mesh is ROADMAP Queue A item 12): in-process
+over a one-rank group for `1x1`, and under `torchrun --nproc-per-node D*M`
+for larger meshes, every rank serving the same requests (rank 0 prints).
+A mesh larger than the world is refused, as the reference refuses one
+larger than its device count.
+
+Run:  PYTHONPATH=src python examples/compressed_serving_torch.py --mesh 1x1
+      PYTHONPATH=src torchrun --nproc-per-node 2 \
+          examples/compressed_serving_torch.py --mesh 2x1 --device cpu
 """
 import argparse
+import contextlib
+import io
+import os
+import socket
 import time
 
 import numpy as np
@@ -48,7 +59,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=24)
     ap.add_argument("--mesh", default=None, metavar="DxM",
-                    help="refused: sharded serving is ROADMAP Queue A item 12")
+                    help="serve sharded over a (data, model) mesh: 1x1 in "
+                         "this process, larger under torchrun; implies --paged")
     ap.add_argument("--paged", action="store_true",
                     help="mixed-length continuous-batching demo: submit "
                          "requests of different prompt lengths through the "
@@ -106,17 +118,73 @@ def main(argv=None):
                          "submits are shed instantly; implies --paged")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise SystemExit(
-            f"--mesh {args.mesh}: sharded serving is not ported yet (ROADMAP Queue A "
-            "item 12, distribution and launch); serve without --mesh")
+    device = resolve(args.device)
+    if not args.mesh:
+        return serve(args, device, None)
+    with mesh_world(args.mesh, device) as mesh:
+        import torch.distributed as dist
+
+        quiet = dist.get_rank() != 0
+        with contextlib.redirect_stdout(io.StringIO()) if quiet else contextlib.nullcontext():
+            return serve(args, device, mesh)
+
+
+def parse_mesh(arg):
+    """'DxM' -> (data, model)."""
+    try:
+        data, model = (int(x) for x in arg.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--mesh expects DxM (e.g. 2x2), got {arg!r}")
+    return data, model
+
+
+@contextlib.contextmanager
+def mesh_world(arg, device):
+    """The (data, model) mesh of `arg` over the process group: torchrun's
+    world when its variables are set, else a one-rank group opened here
+    (gloo on the CPU, NCCL on the card) and destroyed after."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    data, model = parse_mesh(arg)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    launched = "WORLD_SIZE" in os.environ
+    world = int(os.environ.get("WORLD_SIZE", 1))
+    if data * model > world:
+        raise SystemExit(f"--mesh {arg} needs {data * model} ranks, have {world} "
+                         f"(run it under torchrun --nproc-per-node {data * model})")
+    opened = False
+    if not dist.is_initialized():
+        if launched:
+            dist.init_process_group(backend)
+        else:
+            with socket.socket() as s:
+                s.bind(("localhost", 0))
+                port = s.getsockname()[1]
+            dist.init_process_group(backend, init_method=f"tcp://localhost:{port}",
+                                    rank=0, world_size=1)
+        opened = True
+    try:
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        yield make_test_mesh(data, model, device=device.type)
+    finally:
+        if opened:
+            dist.destroy_process_group()
+
+
+def serve(args, device, mesh):
+    """The serving demo of `args` on `device`, sharded over `mesh` (None:
+    unsharded)."""
+    if mesh is not None:
+        args.paged = True  # the dense ring engine on a mesh is item 12's
     sla_requested = (args.ttft_slo or args.itl_slo or args.deadline
                      or args.max_queue)
     if (args.trace or args.metrics or args.prefix_cache or args.prefill_chunk
             or args.spec_k or sla_requested):
         # these features all live in the paged scheduler path
         args.paged = True
-    device = resolve(args.device)
 
     cfg = get_smoke_config("llama3-8b")
     model = Model(cfg)
@@ -167,7 +235,12 @@ def main(argv=None):
                                   kv_quant=args.kv_quant, decode_chunk=args.chunk,
                                   prefix_cache=args.prefix_cache,
                                   prefill_chunk=args.prefill_chunk, obs=obs,
-                                  spec_decode=spec_cfg, sla=sla, device=device)
+                                  spec_decode=spec_cfg, sla=sla, device=device,
+                                  mesh=mesh)
+        if mesh is not None:
+            print(f"mesh: {args.mesh} (data x model) over "
+                  f"{mesh.size()} rank(s); this rank's params "
+                  f"{compressed_bytes(engine.params)/1e6:.2f} MB")
         if spec_cfg is not None:
             draft_bytes = compressed_bytes(engine.draft_params)
             print(f"self-speculation: k={args.spec_k} draft={args.draft_codec} "

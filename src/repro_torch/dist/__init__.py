@@ -10,6 +10,7 @@
   fault             deterministic fault injection, straggler detection and
                     checkpoint-restart training (`ResilientTrainer`).
 
-Counterparts of `repro/dist/`. Sharded serving (the engine's mesh and the
-`constrain` call sites in the layers) is ROADMAP Queue A item 12's open
-part."""
+Counterparts of `repro/dist/`. `sharding` also holds the sharded serving
+step's layout (`local_tree`, `constrain_local`, the collectives over a
+named axis), which `GenerationEngine(mesh=)` and the layers use; what a
+mesh engine does not serve yet is ROADMAP Queue A item 12's open part."""

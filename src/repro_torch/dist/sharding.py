@@ -24,6 +24,19 @@ Entry points:
   constrain(x, kind) / constrain_qkv         exact identity with no mesh
   placements(spec, mesh) / placement_tree, shard_params(params, ctx),
   local_shard(x, spec, ctx)
+  serve_ctx / local_tree / leaf_spec         the serving step on local shards
+  constrain_local(x, kind, have) / relayout  a local activation's layout
+  all_reduce / all_gather over a named mesh axis
+
+The sharded serving step (`GenerationEngine(mesh=)`, mode "serve") runs on
+plain local tensors, never on DTensors: the kernels take local shards.
+`local_tree` cuts every leaf to this rank's block under `param_spec_tree`
+and registers the spec it came from (`leaf_spec`), so a matmul site knows
+whether its weight is column-parallel (N over `model`), row-parallel (K
+over `model`: the f32 partial products are summed over the axis and
+rounded once) or replicated. An activation's layout is a spec beside it,
+which `constrain_local` gathers or cuts to what `_ACT_ROLES[kind]`
+resolves to; every rank runs the same host scheduler on whole inputs.
 
 A ctx's `batch_axes` name the mesh axes over which this process holds only
 its own rows of the batch (data-parallel training, `train/trainer.py`):
@@ -75,6 +88,8 @@ class ShardingCtx:
     fsdp: bool = False
     mode: str = "train"
     batch_axes: Tuple[str, ...] = ()
+    # id(local leaf) -> (the leaf, its spec): `local_tree` fills it
+    leaf_specs: Dict[int, Tuple[Any, Any]] = dataclasses.field(default_factory=dict)
 
     @property
     def axis_sizes(self) -> Dict[str, int]:
@@ -111,7 +126,18 @@ def use_mesh(mesh, *, fsdp: bool = False, mode: str = "train",
     """Activate `mesh` for the dynamic extent: constrain() redistributes
     DTensors, MoE dispatch groups follow the batch sharding, the spec functions
     resolve against the mesh axes."""
-    ctx = ShardingCtx(mesh, fsdp=fsdp, mode=mode, batch_axes=tuple(batch_axes))
+    with scope(ShardingCtx(mesh, fsdp=fsdp, mode=mode,
+                           batch_axes=tuple(batch_axes))) as ctx:
+        yield ctx
+
+
+@contextlib.contextmanager
+def scope(ctx: Optional[ShardingCtx]):
+    """Activate an existing ctx (the engine's, whose `leaf_specs` its local
+    trees filled) for the dynamic extent; None activates nothing."""
+    if ctx is None:
+        yield None
+        return
     stack = getattr(_STACK, "ctxs", None)
     if stack is None:
         stack = _STACK.ctxs = []
@@ -495,3 +521,169 @@ def constrain(x: torch.Tensor, kind: str) -> torch.Tensor:
 def constrain_qkv(q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     return constrain(q, "bshd"), constrain(k, "bshd"), constrain(v, "bshd")
+
+
+# ---------------------------------------------------------------------------
+# the serving step on local shards
+# ---------------------------------------------------------------------------
+
+def serve_ctx() -> Optional[ShardingCtx]:
+    """The active ctx when it is a serving one on a real mesh, else None:
+    the layers' sharded paths run only then (a training ctx holds whole
+    params and its own batch rows)."""
+    ctx = active_ctx()
+    if ctx is None or ctx.mode != "serve":
+        return None
+    from repro_torch.launch.mesh import is_real
+
+    return ctx if is_real(ctx.mesh) else None
+
+
+def _coord(ctx: ShardingCtx, axis: str) -> int:
+    return dict(zip(ctx.mesh.mesh_dim_names, ctx.mesh.get_coordinate()))[axis]
+
+
+def _entry(entry: Optional[Axis]) -> Optional[str]:
+    """A spec entry as one axis name; the serving step's meshes are
+    (data, model), whose rules never compound two axes."""
+    axes = entry_axes(entry)
+    if len(axes) > 1:
+        raise NotImplementedError(f"the serving step takes single-axis entries, got {entry}")
+    return axes[0] if axes else None
+
+
+def all_reduce(t: torch.Tensor, axis: str, ctx: ShardingCtx) -> torch.Tensor:
+    """`t` summed in place over `axis`'s process group."""
+    import torch.distributed as dist
+
+    dist.all_reduce(t, group=ctx.mesh.get_group(axis))
+    return t
+
+
+def all_gather(t: torch.Tensor, axis: str, ctx: ShardingCtx, dim: int) -> torch.Tensor:
+    """The blocks of `t` of every rank along `axis`, concatenated along
+    `dim` in the axis's order."""
+    import torch.distributed as dist
+
+    n, shape = ctx.axis_sizes[axis], tuple(t.shape)
+    out = torch.empty((n * shape[0],) + shape[1:], dtype=t.dtype, device=t.device)
+    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+    gather(out, t.contiguous(), group=ctx.mesh.get_group(axis))
+    return torch.cat(out.view((n,) + shape).unbind(0), dim=dim)
+
+
+def block_start(block: int, axis: str, ctx: ShardingCtx) -> int:
+    """Where this rank's block of `block` elements starts in the whole dim
+    split over `axis`."""
+    return _coord(ctx, axis) * block
+
+
+def cut(t: torch.Tensor, axis: Optional[str], ctx: ShardingCtx, dim: int) -> torch.Tensor:
+    """This rank's block of a whole dim under `axis` (a view); the whole
+    tensor when `axis` is None."""
+    if axis is None:
+        return t
+    block = t.shape[dim] // ctx.axis_sizes[axis]
+    return t.narrow(dim, block_start(block, axis, ctx), block)
+
+
+def relayout(x: torch.Tensor, have: Spec, want: Spec, ctx: ShardingCtx) -> torch.Tensor:
+    """A local block of layout `have` as the block of layout `want`: each
+    dim whose entry changes is gathered over its old axis, then cut to its
+    new one."""
+    for d, (h, w) in enumerate(zip(have, want)):
+        h, w = _entry(h), _entry(w)
+        if h == w:
+            continue
+        if h is not None:
+            x = all_gather(x, h, ctx, d)
+        x = cut(x, w, ctx, d)
+    return x
+
+
+def whole_shape(local: Sequence[int], spec: Spec, ctx: ShardingCtx) -> Tuple[int, ...]:
+    sizes = ctx.axis_sizes
+    return tuple(n * math.prod(sizes[a] for a in entry_axes(e)) for n, e in zip(local, spec))
+
+
+def constrain_local(x: torch.Tensor, kind: str,
+                    have: Optional[Spec] = None) -> Tuple[torch.Tensor, Spec]:
+    """A local activation of layout `have` (whole when None) gathered or
+    cut to the layout `_ACT_ROLES[kind]` resolves to on its whole shape:
+    (the local block, its spec). With no serving ctx it is the exact
+    identity, and on a one-rank mesh every layout is the whole tensor."""
+    have = (None,) * x.dim() if have is None else tuple(have)
+    ctx = serve_ctx()
+    if ctx is None:
+        return x, have
+    want = spec_for(whole_shape(x.shape, have, ctx), _ACT_ROLES[kind], ctx)
+    return relayout(x, have, want, ctx), want
+
+
+def batch_axis(rows: int, ctx: Optional[ShardingCtx]) -> Optional[str]:
+    """The axis a whole batch of `rows` rows is split over ('data' where
+    it divides), or None: the batch is then replicated."""
+    if ctx is None:
+        return None
+    return _entry(_resolve_dim(rows, _ROLE_AXES["batch"], ctx, set()))
+
+
+def local_rows(t: torch.Tensor, rows: int, ctx: Optional[ShardingCtx],
+               dim: int = 0) -> torch.Tensor:
+    """This rank's rows of a whole-batch tensor (the batch on `dim`)."""
+    if ctx is None:
+        return t
+    return cut(t, batch_axis(rows, ctx), ctx, dim)
+
+
+def kv_head_axis(hkv: int, ctx: ShardingCtx) -> Optional[str]:
+    """The axis a paged pool's `hkv` KV heads are split over (the `pkv`
+    spec's head entry), or None: every rank holds them all."""
+    return _entry(spec_for((1, 1, hkv, 1), _ACT_ROLES["pkv"], ctx)[2])
+
+
+def _leaf_shard(leaf: Any, spec: Any, ctx: ShardingCtx) -> Any:
+    """A leaf's local shard as contiguous plain tensors; a compressed one
+    with its local logical (K, N)."""
+    piece = lambda t, s: local_shard(t, s, ctx).contiguous()
+    if isinstance(leaf, CompressedTensor):
+        codes = piece(leaf.codes, spec.codes)
+        k, _ = leaf.shape
+        ng = leaf.codes.shape[-3]
+        return dataclasses.replace(
+            leaf, codes=codes,
+            mask=None if leaf.mask is None else piece(leaf.mask, spec.mask),
+            scales=None if leaf.scales is None else piece(leaf.scales, spec.scales),
+            shape=(k // ng * codes.shape[-3], codes.shape[-1]))
+    return piece(leaf, spec)
+
+
+def local_tree(params: Any, ctx: ShardingCtx) -> Any:
+    """This rank's shard of every leaf of a whole param tree under
+    `param_spec_tree(params, ctx)` (serve mode), as plain tensors: the
+    tree the serving step runs. Each local leaf's spec is registered in
+    `ctx` for `leaf_spec`."""
+
+    def one(spec, leaf):
+        out = _leaf_shard(leaf, spec, ctx)
+        ctx.leaf_specs[id(out)] = (out, spec)
+        return out
+
+    return _map_specs(one, param_spec_tree(params, ctx), params)
+
+
+def leaf_spec(w: Any, ctx: Optional[ShardingCtx]) -> Optional[Any]:
+    """The spec a local leaf of `local_tree` came from, or None."""
+    hit = None if ctx is None else ctx.leaf_specs.get(id(w))
+    return hit[1] if hit is not None and hit[0] is w else None
+
+
+def matmul_axes(w: Any, ctx: Optional[ShardingCtx]) -> Tuple[Optional[str], Optional[str]]:
+    """(K axis, N axis) of a local weight: a K over an axis is a
+    row-parallel weight, an N over one a column-parallel weight."""
+    spec = leaf_spec(w, ctx)
+    if spec is None:
+        return None, None
+    if isinstance(spec, CompressedSpec):
+        return _entry(spec.codes[-3]), _entry(spec.codes[-1])
+    return _entry(spec[-2]), _entry(spec[-1])

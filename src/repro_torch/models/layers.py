@@ -12,6 +12,14 @@ the RG-LRU recurrent block (Griffin, recurrentgemma), the Mamba-1 block
 tensors; the paged pool, the ring cache and the recurrent state are dicts
 of tensors per layer and are updated in place (the reference returns new
 ones per write; in place saves a copy of every layer's cache per step).
+
+Under a serving mesh (`dist.sharding.serve_ctx`) the paged attention block,
+the MLP, the embedding lookup and the logits run on this rank's shards:
+the reference's `constrain` sites become `sharding.constrain_local` on
+local tensors, and `tp_mm` is the matmul of a column-parallel weight
+(local columns out), a row-parallel one (f32 partial products summed over
+the mesh axis and rounded once) or a replicated one. With no mesh every
+one of them is the plain computation.
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from repro_torch.core.codecs import get_codec
 from repro_torch.core.compression import CompressedTensor, compress_stacked
 from repro_torch.core.decompress import eligible, mm
 from repro_torch.core.formats import CompressionSpec
+from repro_torch.dist import sharding as sh
 from repro_torch.dist.sharding import active_ctx
 from repro_torch.kernels import ops
 from repro_torch.kernels.ref import CACHE_EMPTY_POS
@@ -375,6 +384,43 @@ def read_cache_kv(
             codec.kv_decode(cache["v"], cache.get("v_scale")).to(torch.bfloat16))
 
 
+def tp_mm(x: torch.Tensor, w, have: Optional[str] = None):
+    """x (..., K) @ w (K, N) -> (y, the mesh axis y's last dim is split
+    over). Under a serving mesh, `have` is the axis x's last dim is split
+    over (None: whole); x is first gathered or cut to w's K layout. A K
+    split over an axis is a row-parallel weight whose partial products are
+    summed over the axis as the reference's partitioned dot sums them: a
+    compressed product's in f32 (its accumulator type), rounded once to
+    x's dtype after the sum (a bf16 partial would round twice); a dense
+    one's in the product's own dtype. With no mesh it is `mm(x, w)`."""
+    ctx = sh.serve_ctx()
+    if ctx is None:
+        return mm(x, w), None
+    k_ax, n_ax = sh.matmul_axes(w, ctx)
+    if have != k_ax:
+        last = (None,) * (x.dim() - 1)
+        x = sh.relayout(x, last + (have,), last + (k_ax,), ctx)
+    if k_ax is None or not isinstance(w, CompressedTensor):
+        y = mm(x, w)
+        return (y if k_ax is None else sh.all_reduce(y, k_ax, ctx)), n_ax
+    part = ops.decompress_gemm(x, w, out_dtype=torch.float32)
+    return sh.all_reduce(part, k_ax, ctx).to(x.dtype), n_ax
+
+
+def _heads(x: torch.Tensor, w, n_heads: int, dh: int, row_ax: Optional[str]):
+    """A column-parallel projection of x as per-head vectors (B, S, H, Dh)
+    in the `bshd` layout: (local block, its spec). Under a mesh a product
+    whose N split cuts a head is gathered whole first: a rank never
+    reads half a head."""
+    y, n_ax = tp_mm(x, w)
+    ctx = sh.serve_ctx()
+    if n_ax is not None and n_heads % ctx.axis_sizes[n_ax]:
+        y, n_ax = sh.all_gather(y, n_ax, ctx, -1), None
+    b, s = y.shape[:2]
+    y = y.reshape(b, s, -1, dh)
+    return sh.constrain_local(y, "bshd", (row_ax, None, n_ax, None))
+
+
 def init_attention(generator, cfg: ModelConfig, device, dtype) -> Params:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     return {
@@ -414,21 +460,34 @@ def paged_attention_block(
     never sets it, so acceptance stays exact."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = mm(x, params["wq"]).reshape(b, s, hq, dh)
-    k = mm(x, params["wk"]).reshape(b, s, hkv, dh)
-    v = mm(x, params["wv"]).reshape(b, s, hkv, dh)
+    ctx = sh.serve_ctx()
+    rows = write_slots.shape[0]  # the whole batch; x holds this rank's rows
+    row_ax = sh.batch_axis(rows, ctx)
+    q, q_spec = _heads(x, params["wq"], hq, dh, row_ax)
+    k, kv_spec = _heads(x, params["wk"], hkv, dh, row_ax)
+    v, _ = _heads(x, params["wv"], hkv, dh, row_ax)
+    if q_spec[2] != kv_spec[2]:
+        # the KV heads stay whole where the mesh does not divide them:
+        # every query head then attends on every rank
+        q_spec, q = kv_spec, sh.relayout(q, q_spec, kv_spec, ctx)
     q, k, tok_pos = rotate(q, k, positions, cfg)
 
+    # every rank's pool is a replica over the batch axis: it takes the new
+    # K/V of every row (its own heads of them)
+    if ctx is not None:
+        whole = (None,) + kv_spec[1:]
+        k, v = sh.relayout(k, kv_spec, whole, ctx), sh.relayout(v, kv_spec, whole, ctx)
     cache = paged_update_cache(
         cache, k, v, write_pos, write_slots, fresh_pages, copy_pages,
         quant=cfg.kv_quant,
     )
+    block_tables = sh.local_rows(block_tables, rows, ctx)
     window = cfg.window if local else 0
     if window_override:
         window = min(window, window_override) if window else window_override
     if kv_lens is not None and s == 1:
         out = ops.paged_attention(
-            q[:, 0], cache, block_tables, kv_lens, tok_pos[:, 0],
+            q[:, 0], cache, block_tables, sh.local_rows(kv_lens, rows, ctx), tok_pos[:, 0],
             quant=cfg.kv_quant, causal=cfg.causal, window=window,
             softcap=cfg.attn_softcap,
         )[:, None]
@@ -438,7 +497,7 @@ def paged_attention_block(
             q, k_all, v_all, q_pos=tok_pos, k_pos=k_pos,
             causal=cfg.causal, window=window, softcap=cfg.attn_softcap,
         )
-    return mm(out.reshape(b, s, hq * dh), params["wo"]), cache
+    return tp_mm(out.reshape(b, s, -1), params["wo"], q_spec[2])[0], cache
 
 
 def attention_block(
@@ -553,12 +612,17 @@ _ACTS = {"swiglu": silu, "geglu": gelu_tanh, "gelu": gelu_tanh, "relu": torch.re
 def mlp_block(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """swiglu FFN: silu(x Wg) * (x Wu), then W_down; geglu: gelu_tanh(x Wg)
     * (x Wu), then W_down; the ungated gelu and relu FFNs: act(x Wu), then
-    W_down. Each op rounds in the product's dtype, as the reference's."""
+    W_down. Each op rounds in the product's dtype, as the reference's.
+    Under a serving mesh the hidden (B, S, F) keeps w_up's column split
+    (the reference's `bsf`), and `tp_mm` brings it to w_down's K layout."""
     if cfg.mlp_act in _GATED:
-        h = _ACTS[cfg.mlp_act](mm(x, params["w_gate"])) * mm(x, params["w_up"])
+        gate, _ = tp_mm(x, params["w_gate"])
+        up, ax = tp_mm(x, params["w_up"])
+        h = _ACTS[cfg.mlp_act](gate) * up
     else:
-        h = _ACTS[cfg.mlp_act](mm(x, params["w_up"]))
-    return mm(h, params["w_down"])
+        up, ax = tp_mm(x, params["w_up"])
+        h = _ACTS[cfg.mlp_act](up)
+    return tp_mm(h, params["w_down"], ax)[0]
 
 
 def init_moe(generator, cfg: ModelConfig, device, dtype, *,
@@ -710,6 +774,23 @@ def moe_block(params: Params, x: torch.Tensor,
         contrib[gi, order] = weighted
         out = out + contrib
     return out.reshape(b, s, d), aux
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of `table` (V, D) for `tokens`. Under a serving mesh the
+    table is row-parallel, split over the vocab: each rank looks up the
+    tokens its block holds, zeros elsewhere, and the blocks are summed
+    over the axis, one nonzero row each, so the sum is the row itself in
+    the table's dtype (the reference's bf16 result)."""
+    ctx = sh.serve_ctx()
+    v_ax = sh.matmul_axes(table, ctx)[0]
+    if v_ax is None:
+        return table[tokens.long()]
+    n = table.shape[0]
+    idx = tokens.long() - sh.block_start(n, v_ax, ctx)
+    hit = (idx >= 0) & (idx < n)
+    rows = table[torch.clamp(idx, 0, n - 1)] * hit[..., None].to(table.dtype)
+    return sh.all_reduce(rows, v_ax, ctx)
 
 
 def embed_scale(x: torch.Tensor, d_model: int) -> torch.Tensor:

@@ -55,9 +55,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.decompress import compress_tree, mm
+from repro_torch.core.decompress import compress_tree
 from repro_torch.core.formats import CompressionSpec
 from repro_torch.device import resolve
+from repro_torch.dist import sharding as sh
 from repro_torch.models import layers as L
 
 Params = Dict[str, Any]
@@ -198,11 +199,13 @@ class Model:
     # ------------------------------------------------------------------
     def init_paged_cache(
         self, num_blocks: int, block_size: int, *, device="cuda",
-        dtype=torch.bfloat16,
+        dtype=torch.bfloat16, kv_heads: Optional[int] = None,
     ) -> Pools:
         """One pool per layer: `num_blocks` allocatable pages plus the null
-        page (device row 0), quantized with `cfg.kv_quant`. Only attention
-        stacks page: recurrent state is O(1) a request."""
+        page (device row 0), quantized with `cfg.kv_quant`, of `kv_heads`
+        heads (all of them by default; a sharded engine's rank holds its
+        slice). Only attention stacks page: recurrent state is O(1) a
+        request."""
         cfg = self.cfg
         if not self.attn_only:
             bad = sorted(set(self.kinds) - set(_ATTN))
@@ -210,7 +213,7 @@ class Model:
         device = resolve(device)
         return [
             L.init_paged_kv_cache(
-                num_blocks + 1, block_size, cfg.n_kv_heads, cfg.d_head,
+                num_blocks + 1, block_size, kv_heads or cfg.n_kv_heads, cfg.d_head,
                 device=device, dtype=dtype, quant=cfg.kv_quant,
             )
             for _ in self.kinds
@@ -314,16 +317,30 @@ class Model:
 
         `remat` checkpoints each layer of the full-sequence forward
         (`torch.utils.checkpoint`, non-reentrant): training's backward pass
-        then holds one layer's activations at a time. It needs no cache."""
+        then holds one layer's activations at a time. It needs no cache.
+
+        Under a serving mesh (`GenerationEngine(mesh=)`: `params` this
+        rank's shards, `cache` its pools' head slices) the inputs are
+        whole; each rank computes the rows of the batch the rules split
+        over `data` (all of them where they do not divide), and the logits
+        come back whole on every rank, gathered over both axes."""
         cfg = self.cfg
         if paged is not None and cache is None:
             raise ValueError("a paged forward needs an init_paged_cache pool")
         if remat and cache is not None:
             raise ValueError("remat is for the cache-less training forward")
-        x = params["embed"][tokens.long()] if embeds is None else embeds
-        b, s = x.shape[:2]
+        ctx = sh.serve_ctx()
+        if ctx is not None and (paged is None or cfg.n_experts):
+            raise NotImplementedError(
+                "the sharded forward is the paged dense-FFN one (ROADMAP Queue A item 12)")
+        inp = tokens if embeds is None else embeds
+        b, s = inp.shape[:2]
         if positions is None:
-            positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+            positions = torch.arange(s, dtype=torch.int32, device=inp.device)[None].expand(b, s)
+        row_ax = sh.batch_axis(b, ctx)
+        inp = sh.local_rows(inp, b, ctx)
+        positions = sh.local_rows(positions, b, ctx, dim=positions.dim() - 2)
+        x = L.embed(params["embed"], inp) if embeds is None else inp
         if cfg.embed_scale:
             x = L.embed_scale(x, cfg.d_model)
         if cfg.pos_emb == "learned":
@@ -347,10 +364,14 @@ class Model:
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         if cfg.tie_embeddings:
             logits = L.tied_logits(x, params["embed"])
+            v_ax = sh.matmul_axes(params["embed"], ctx)[0]  # the table's rows
         else:
-            logits = mm(x.to(torch.float32), params["lm_head"])
+            logits, v_ax = L.tp_mm(x.to(torch.float32), params["lm_head"])
         if cfg.final_softcap:
             logits = L.softcap(logits, cfg.final_softcap)
+        if ctx is not None:  # `btv`, then whole rows for the sampler on every rank
+            logits, spec = sh.constrain_local(logits, "btv", (row_ax, None, v_ax))
+            logits = sh.relayout(logits, spec, (None,) * 3, ctx)
         new_cache = new_cache if cache is not None else None
         return (logits, new_cache, aux) if with_aux else (logits, new_cache)
 

@@ -41,6 +41,7 @@ scheduler's sites read the host clock around its device calls and nothing
 else. `sla`, `injector`, `watchdog` and `host_tier` install overload
 resilience and the host KV tier (see `GenerationEngine`); `snapshot` and
 `restore` persist a tiered engine's warm state across a process's death.
+`mesh=` serves sharded over a (data, model) mesh (see `GenerationEngine`).
 """
 from __future__ import annotations
 
@@ -55,6 +56,7 @@ from repro_torch.core.compression import CompressedTensor
 from repro_torch.core.decompress import _leaves, compressed_bytes, make_draft_tree
 from repro_torch.core.formats import get_spec
 from repro_torch.device import resolve
+from repro_torch.dist import sharding as sh
 from repro_torch.models.model import Model
 from repro_torch.serve import sampling
 from repro_torch.serve.graphs import StepGraphs
@@ -226,6 +228,36 @@ def make_paged_spec_decode_step(
     return spec_step
 
 
+_ITEM_12 = "ROADMAP Queue A item 12"
+
+
+def _check_mesh(model: Model, mesh, fsdp: bool, paged: bool, sla, injector,
+                watchdog) -> None:
+    """What a mesh engine does not serve yet raises, naming its ROADMAP
+    item; none of it runs unsharded instead."""
+    if fsdp:
+        raise ValueError(f"fsdp=True serving is not ported yet ({_ITEM_12})")
+    if not paged:
+        raise ValueError(f"a mesh on the dense ring engine (paged=False) is not "
+                         f"ported yet ({_ITEM_12})")
+    if model.cfg.n_experts:
+        raise ValueError(f"MoE stacks (n_experts > 0) on a mesh are not ported yet "
+                         f"({_ITEM_12})")
+    if mesh.size() > 1 and (sla is not None or injector is not None or watchdog is not None):
+        raise ValueError(
+            f"sla / injector / watchdog on a mesh of more than one rank are not "
+            f"ported yet ({_ITEM_12}): their decisions read a host clock that "
+            "differs from rank to rank")
+
+
+def _warm_collectives(ctx, device) -> None:
+    """One collective on each mesh axis's group, before any decode graph is
+    captured: NCCL opens a communicator at its first collective, which
+    must not happen inside a capture."""
+    for axis in ctx.mesh.mesh_dim_names:
+        sh.all_reduce(torch.zeros(1, device=device), axis, ctx)
+
+
 class GenerationEngine:
     """Continuous-batching generation over a block-paged KV pool.
 
@@ -292,6 +324,19 @@ class GenerationEngine:
     `snapshot(dir)` and `restore(dir)` persist such an engine's warm state
     (the reference's format: a snapshot of either package restores in the
     other).
+
+    `mesh` (a `launch.mesh.make_test_mesh` (data, model) DeviceMesh over a
+    process group the caller opened, gloo on the CPU, NCCL on the card)
+    serves sharded, every rank running this same engine on the same
+    requests (SPMD): the weights are cut to this rank's shards by
+    `param_spec_tree` in serve mode (`sharding.local_tree`; a spec engine's
+    draft tree is built from the whole params first, as the reference's),
+    the pool holds this rank's KV heads, the batch rows split over `data`
+    where they divide, and every rank samples the same tokens from whole
+    logits. A snapshot holds whole pages, so it restores in an unsharded
+    engine of either package. `fsdp=True`, the dense ring engine, MoE
+    stacks, and `sla` / `injector` / `watchdog` on more than one rank are
+    not served on a mesh yet (ROADMAP Queue A item 12): they raise.
     """
 
     def __init__(
@@ -319,10 +364,15 @@ class GenerationEngine:
         host_tier=None,
         paged="auto",
         device="cuda",
+        mesh=None,
+        fsdp: bool = False,
     ):
         if paged == "auto":
             paged = model.attn_only
         self.paged = bool(paged)
+        self.mesh, self.fsdp = mesh, fsdp
+        if mesh is not None:
+            _check_mesh(model, mesh, fsdp, self.paged, sla, injector, watchdog)
         if not self.paged:
             if spec_decode is not None:
                 raise ValueError("spec_decode requires the paged engine")
@@ -336,12 +386,16 @@ class GenerationEngine:
         embed_dev = params["embed"].device
         if embed_dev.type != self.device.type:
             raise ValueError(f"params lie on {embed_dev}, the engine on {self.device}")
+        if mesh is not None and mesh.device_type != self.device.type:
+            raise ValueError(f"the mesh lies on {mesh.device_type}, the engine on "
+                             f"{self.device}")
         if kv_quant is not None and kv_quant != model.cfg.kv_quant:
             model = Model(dataclasses.replace(model.cfg, kv_quant=kv_quant))
         self.model = model
         self.cfg = model.cfg
         self.kv_quant = model.cfg.kv_quant
         self.params = params
+        self._ctx = None if mesh is None else sh.ShardingCtx(mesh, fsdp=fsdp, mode="serve")
         self.max_len = max_len
         self.temperature = float(temperature)
         self.greedy = self.temperature <= 0.0
@@ -370,6 +424,7 @@ class GenerationEngine:
         self.kv = PagedKVCache(
             model, num_blocks=num_blocks, block_size=block_size,
             device=self.device, prefix_cache=prefix_cache, tier=self.tier,
+            ctx=self._ctx,
         )
         self._paged_prefill = make_paged_prefill_step(model)
         self._paged_decode = make_paged_decode_step(model)
@@ -389,6 +444,12 @@ class GenerationEngine:
             )
         if obs is not None and obs.rooflens is not None:
             self._bind_rooflens(obs.rooflens, max_slots)
+        if self._ctx is not None:
+            # the whole trees were bound above; the step runs on local shards
+            self.params = sh.local_tree(params, self._ctx)
+            if self.draft_params is not None:
+                self.draft_params = sh.local_tree(self.draft_params, self._ctx)
+            _warm_collectives(self._ctx, self.device)
         self._decode_graphs = self._chunk_graphs = self._spec_graphs = None
         if self.device.type == "cuda":
             self._decode_graphs = StepGraphs(self._decode_device, device=self.device,
@@ -443,7 +504,7 @@ class GenerationEngine:
             weight_spec=compressed[0].spec.name if compressed else None,
             kv_quant=self.kv_quant,
             m_slots=max_slots,
-            n_chips=1,
+            n_chips=1 if self.mesh is None else self.mesh.size(),
             draft_weight_bytes=(
                 compressed_bytes(self.draft_params)
                 if self.draft_params is not None else None
@@ -476,11 +537,12 @@ class GenerationEngine:
 
     def _run_paged_prefill(self, tokens, positions, tables, slots, wpos, fresh,
                            copies, last_idx):
-        logits, self.kv.pools = self._paged_prefill(
-            self.params, self._t(tokens), self._t(positions), self.kv.pools,
-            self._t(tables), self._t(slots), self._t(wpos), self._t(fresh),
-            self._t(copies), self._t(last_idx),
-        )
+        with sh.scope(self._ctx):
+            logits, self.kv.pools = self._paged_prefill(
+                self.params, self._t(tokens), self._t(positions), self.kv.pools,
+                self._t(tables), self._t(slots), self._t(wpos), self._t(fresh),
+                self._t(copies), self._t(last_idx),
+            )
         return logits
 
     def _run_paged_scrub(self, pages):
@@ -489,38 +551,43 @@ class GenerationEngine:
     def _run_tier_restore(self, dev_pages, planes_list):
         """Upload verified tier payloads into their device pages, in place,
         before the prefill launch that reads them: the pools keep their
-        addresses, so the decode graphs captured on them replay unchanged."""
-        apply_page_planes(self.kv.pools, dev_pages, planes_list)
+        addresses, so the decode graphs captured on them replay unchanged.
+        A payload holds whole pages; each rank uploads its KV heads."""
+        apply_page_planes(self.kv.pools, dev_pages,
+                          [self.kv.local_page_planes(p) for p in planes_list])
 
     def _decode_device(self, tokens, positions, tables, slots, wpos, fresh, kv_lens):
         """One decode step over int32 device tensors -> logits (M, V)."""
-        logits, self.kv.pools = self._paged_decode(
-            self.params, tokens, positions, self.kv.pools, tables, slots, wpos, fresh,
-            kv_lens,
-        )
+        with sh.scope(self._ctx):
+            logits, self.kv.pools = self._paged_decode(
+                self.params, tokens, positions, self.kv.pools, tables, slots, wpos, fresh,
+                kv_lens,
+            )
         return logits
 
     def _chunk_device(self, tokens0, tables, positions, wslots, wpos, fresh,
                       kv_lens, rids, start_steps, max_steps, eos, active):
         """The decode chunk over int32 device tensors -> tokens (C, M)."""
-        toks, self.kv.pools = self._paged_decode_chunk(
-            self.params, self.kv.pools, tokens0, tables, positions, wslots,
-            wpos, fresh, kv_lens, sampling.as_u32(rids),
-            sampling.as_u32(start_steps), max_steps, eos, active != 0,
-            self._temp, self._key, greedy=self.greedy,
-        )
+        with sh.scope(self._ctx):
+            toks, self.kv.pools = self._paged_decode_chunk(
+                self.params, self.kv.pools, tokens0, tables, positions, wslots,
+                wpos, fresh, kv_lens, sampling.as_u32(rids),
+                sampling.as_u32(start_steps), max_steps, eos, active != 0,
+                self._temp, self._key, greedy=self.greedy,
+            )
         return toks
 
     def _spec_device(self, tokens0, tables, p0, fresh, rids, start_steps,
                      max_steps, eos, active):
         """A spec launch over int32 device tensors -> the packed emissions
         (rounds * (k + 1), M) stacked over the per-round counts (rounds, M)."""
-        out, e_rounds, self.kv.pools = self._paged_spec_chunk(
-            self.params, self.draft_params, self.kv.pools, tokens0, tables, p0,
-            fresh, sampling.as_u32(rids), sampling.as_u32(start_steps),
-            max_steps, eos, active != 0, self._temp, self._key,
-            greedy=self.greedy,
-        )
+        with sh.scope(self._ctx):
+            out, e_rounds, self.kv.pools = self._paged_spec_chunk(
+                self.params, self.draft_params, self.kv.pools, tokens0, tables, p0,
+                fresh, sampling.as_u32(rids), sampling.as_u32(start_steps),
+                max_steps, eos, active != 0, self._temp, self._key,
+                greedy=self.greedy,
+            )
         return torch.cat([out, e_rounds])
 
     def _run_step(self, graphs: Optional[StepGraphs], fn: Callable, arrays) -> np.ndarray:
@@ -616,7 +683,9 @@ class GenerationEngine:
         `restore`s it and resumes the parked sessions with the same tokens:
         their keys (seed, rid, output index) survive. This engine stays
         usable: its cached pages are now in the tier, and the next hit
-        restores them. Returns {"nodes": ..., "requests": ...}."""
+        restores them. On a mesh every rank calls it (the head slices of
+        each page are gathered whole) and rank 0 writes the directory.
+        Returns {"nodes": ..., "requests": ...}."""
         self._require_tiered("snapshot")
         sched = self.scheduler
         for slot in range(sched.max_slots):
@@ -675,7 +744,14 @@ class GenerationEngine:
             "requests": req_meta,
             "results": statuses,
         }
-        save_snapshot(directory, arrays, meta)
+        if self.mesh is None:
+            save_snapshot(directory, arrays, meta)
+        else:  # every rank holds the same whole pages: rank 0 writes them
+            import torch.distributed as dist
+
+            if dist.get_rank() == 0:
+                save_snapshot(directory, arrays, meta)
+            dist.barrier()
         return {"nodes": len(node_meta), "requests": len(req_meta)}
 
     def restore(self, directory: str) -> Dict[str, int]:

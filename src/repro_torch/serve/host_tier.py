@@ -270,16 +270,20 @@ def _split(blob: torch.Tensor, meta) -> List[torch.Tensor]:
     return out
 
 
-def extract_page_planes(pools: Sequence[Dict[str, torch.Tensor]],
-                        dev_page: int) -> Dict[str, torch.Tensor]:
+def extract_page_planes(pools: Sequence[Dict[str, torch.Tensor]], dev_page: int,
+                        whole=None) -> Dict[str, torch.Tensor]:
     """One device page's slice of every plane, stacked over the layers into
     the reference's layer-stacked shapes, as CPU tensors keyed by plane
     name. The planes are gathered and packed into one byte buffer on the
-    device, which crosses to the host in one copy."""
+    device, which crosses to the host in one copy. `whole(name, plane)`,
+    when given, maps each stacked plane on the device first (a sharded
+    pool's head slices gathered whole)."""
     if not pools:
         return {}
     names = sorted(pools[0])
     stacked = [torch.stack([layer[n][dev_page] for layer in pools]) for n in names]
+    if whole is not None:
+        stacked = [whole(n, t) for n, t in zip(names, stacked)]
     blob = torch.cat([t.reshape(-1).view(torch.uint8) for t in stacked]).cpu()
     planes = _split(blob, [(tuple(t.shape), t.dtype) for t in stacked])
     return dict(zip(names, planes))

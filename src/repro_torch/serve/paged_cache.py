@@ -23,7 +23,11 @@ sentinel. Allocator page `a` is device page `a + 1`.
                   write-slot / block-table / fresh-page / copy arrays the
                   device steps take; owns the device pools and routes
                   index-eviction victims into the host tier; window
-                  freeing (`free_behind`) for all-local attention stacks
+                  freeing (`free_behind`) for all-local attention stacks;
+                  under a serving mesh (`ctx`) its pools are this rank's
+                  slice of the KV heads (the `pkv` / `pkvs` specs: heads
+                  over `model`, pages replicated over `data`) and the host
+                  bookkeeping is the same on every rank
 
 A request at length `len` holds exactly ceil(len / block_size) pages; with
 the prefix index on, pages holding a prompt prefix another request already
@@ -429,13 +433,24 @@ class PagedKVCache:
         dtype=torch.bfloat16,
         prefix_cache: bool = False,
         tier: Optional[HostTier] = None,
+        ctx=None,
     ):
         self.block_size = block_size
         self.num_blocks = num_blocks
         self.kv_quant = model.cfg.kv_quant
         self.allocator = BlockAllocator(num_blocks)
+        self._ctx = ctx
+        self._head_ax = None
+        heads = {}
+        if ctx is not None:
+            from repro_torch.dist import sharding as sh
+
+            hkv = model.cfg.n_kv_heads
+            self._head_ax = sh.kv_head_axis(hkv, ctx)
+            if self._head_ax is not None:
+                heads["kv_heads"] = hkv // ctx.axis_sizes[self._head_ax]
         self.pools = model.init_paged_cache(
-            num_blocks, block_size, device=device, dtype=dtype
+            num_blocks, block_size, device=device, dtype=dtype, **heads
         )
         if tier is not None and not prefix_cache:
             raise ValueError(
@@ -609,8 +624,27 @@ class PagedKVCache:
 
     def _extract_payload(self, page: int):
         """Allocator page `page`'s planes (device page `page + 1`) as a
-        checksummed tier payload."""
-        return pack_payload(extract_page_planes(self.pools, page + 1), self.kv_quant)
+        checksummed tier payload. A payload holds whole pages: under a mesh
+        the head slices are gathered over their axis first, so the bytes
+        and the CRC are the unsharded engine's."""
+        whole = None
+        if self._head_ax is not None:
+            from repro_torch.dist import sharding as sh
+
+            whole = lambda name, t: (t if name == "ppos" else
+                                     sh.all_gather(t, self._head_ax, self._ctx, 2))
+        return pack_payload(extract_page_planes(self.pools, page + 1, whole), self.kv_quant)
+
+    def local_page_planes(self, planes: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One whole page's layer-stacked planes cut to this rank's KV heads
+        (dim 2 of every plane but the positions'); the planes themselves
+        with no mesh."""
+        if self._head_ax is None:
+            return planes
+        from repro_torch.dist import sharding as sh
+
+        return {n: t if n == "ppos" else sh.cut(t, self._head_ax, self._ctx, 2)
+                for n, t in planes.items()}
 
     def reclaim_index_pages(self, n_pages: int) -> int:
         """Reclaim up to `n_pages` index-only pages for admission headroom.

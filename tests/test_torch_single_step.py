@@ -251,9 +251,28 @@ def test_twins_default_to_the_card(name):
         _run(name, [])
 
 
-def test_serving_twin_refuses_a_mesh_by_its_roadmap_item():
-    with pytest.raises(SystemExit, match="item 12"):
-        _run("compressed_serving_torch", ["--device", "cpu", "--mesh", "2x2"])
+def test_serving_twin_serves_on_a_one_rank_mesh():
+    """--mesh 1x1 opens a one-rank gloo group in this process, serves the
+    paged demo on it (4 x 24 tokens) with the CF the reference's
+    compress_tree gives, and closes the group."""
+    import torch.distributed as dist
+
+    jparams = JModel(jget_smoke_config("llama3-8b")).init(jax.random.PRNGKey(0))
+    spec = jget_spec("mxfp4_100")
+    dense, comp = jcompressed_bytes(jparams), jcompressed_bytes(jcompress_tree(jparams, spec))
+    done, text = _run("compressed_serving_torch", ["--device", "cpu", "--mesh", "1x1"])
+    assert sorted(len(t) for t in done.values()) == [24] * 4
+    assert (f"weights {dense/1e6:.2f} MB -> {comp/1e6:.2f} MB (CF={dense/comp:.2f}, "
+            f"scheme CF={spec.compression_factor():.2f})") in text
+    assert "mesh: 1x1 (data x model) over 1 rank(s)" in text
+    assert not dist.is_initialized()
+
+
+def test_serving_twin_refuses_a_mesh_larger_than_the_world():
+    """--mesh 2x1 in a world of one rank (no torchrun) is refused, as the
+    reference refuses a mesh larger than its device count."""
+    with pytest.raises(SystemExit, match="needs 2 ranks, have 1"):
+        _run("compressed_serving_torch", ["--device", "cpu", "--mesh", "2x1"])
 
 
 # the tests that wait for the exact-rounding runs: last, so the tests above
