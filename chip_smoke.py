@@ -80,7 +80,10 @@ way, whose head is tied to the embedding. Last, `moe` serves grok-1-314b
 (8 experts, top-2) at full width and 8 of its 64 layers, built one
 expert at a time: its kernels at its shapes and kimi-k2's, a 4-request
 serve with 417 GeMVs a decode step, replays bitwise and the token-slots
-each prefill drops, the kernel path against the plain path, a drop-free
+each prefill drops, the same weights served on a one-rank NCCL mesh (its
+experts split over `model`, one rank holding all 8) beside the plain
+engine, bitwise, and the kernels at its (1, 4) local shard shapes, the
+kernel path against the plain path, a drop-free
 copy with its routes pinned held against teacher-forced logits, and a
 spec engine on 2 of its layers. Last, `recurrent` serves falcon-mamba-7b
 (64 Mamba-1 layers) and recurrentgemma-9b (RG-LRU and global MQA blocks,
@@ -240,15 +243,28 @@ TP70_SHAPES = ((8192, 2048, "q"), (8192, 7168, "gate/up"), (2048, 8192, "o"),
                (7168, 8192, "down"))
 TP70_MS = (4, 2048)
 TP70_HEADS = (16, 2)
+# the moe phase's mesh serve: the phase's 4 prompts cut to MOE_MESH_PROMPT
+# tokens, MOE_MESH_NEW new, on a one-rank NCCL mesh; then the kernels at
+# grok-1's local shard shapes on a (1, 4) mesh: q (N / 4), k / v (N / 4:
+# 2 of its 8 KV heads), o (K / 4), at the decode rows and a prefill's,
+# and attention over 48 / 4 query and 8 / 4 KV heads; its 8 experts split
+# 2 a rank, each whole, so the expert shapes are the unsharded ones
+MOE_MESH_PROMPT, MOE_MESH_NEW = 256, 32
+GROK14 = "grok-1-314b (1, 4)"
+GROK14_SHAPES = ((6144, 1536, "q"), (6144, 256, "k/v"), (1536, 6144, "o"))
+GROK14_MS = (4, 2048)
+GROK14_HEADS = (12, 2)
 
 _LOG = []
+_T0 = time.perf_counter()
 
 
 def log(*parts):
-    """Print a line and keep it for chiprun_out/chip_smoke.log."""
+    """Print a line and keep it for chiprun_out/chip_smoke.log, there
+    behind the seconds since the script started (where its time goes)."""
     line = " ".join(str(p) for p in parts)
     print(line, flush=True)
-    _LOG.append(line)
+    _LOG.append(f"{time.perf_counter() - _T0:7.1f}  {line}")
     if OUT.is_dir():
         (OUT / "chip_smoke.log").write_text("\n".join(_LOG) + "\n")
 
@@ -836,13 +852,15 @@ def check_replays(torch, eng, graphs, what, report, limit=None):
 
 
 
-def profile_replays(torch, graphs, what, report, n=4):
+def profile_replays(torch, graphs, what, report, n=4, traced_n=1):
     """A captured graph alone: `n` replays of the first graph on its last
-    inputs, timed between CUDA events (the wall), then `n` more traced with
-    torch.profiler with events around them too: the kernels' device time
-    over that window's wall is the share the card computes, the rest the
-    gaps between the graph's kernels. The replays rewrite the pages of the
-    graph's last chunk, which no request holds any more."""
+    inputs, timed between CUDA events (the wall), then `traced_n` more
+    traced with torch.profiler with events around them too: the kernels'
+    device time over that window's wall is the share the card computes,
+    the rest the gaps between the graph's kernels. One traced replay is a
+    whole chunk: reading a trace costs ~0.1 ms of host a kernel (a 70B
+    chunk launches ~80000). The replays rewrite the pages of the graph's
+    last chunk, which no request holds any more."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -858,13 +876,13 @@ def profile_replays(torch, graphs, what, report, n=4):
     wall = a.elapsed_time(b) / n
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         a.record()
-        for _ in range(n):
+        for _ in range(traced_n):
             g.graph.replay()
         b.record()
         b.synchronize()
-    traced = a.elapsed_time(b) / n
-    rows = sorted(({"name": e.key, "device_ms": e.self_device_time_total / 1e3 / n,
-                    "count": e.count / n} for e in prof.key_averages()
+    traced = a.elapsed_time(b) / traced_n
+    rows = sorted(({"name": e.key, "device_ms": e.self_device_time_total / 1e3 / traced_n,
+                    "count": e.count / traced_n} for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
                    and not e.key.startswith("aten::")), key=lambda r: -r["device_ms"])
     busy = sum(r["device_ms"] for r in rows)
@@ -3085,6 +3103,10 @@ def moe(torch, report):
     decode chunk replayed bitwise, 417 GeMVs a step, the replayed step
     beside its bytes bound with every expert read once per routing slot,
     the token-slots each prefill drops, of all and of the prompt tokens);
+    the same weights served on a one-rank NCCL mesh beside the plain
+    engine (`serve_on_mesh`: MOE_MESH_PROMPT-token prompts, MOE_MESH_NEW
+    new; tokens and pool planes bitwise, 417 / 8 / 0 launches a step) and
+    the kernels at grok-1's (1, 4) local shard shapes (`tp_kernels`);
     the kernel path against the plain path over PATH_LAYERS layers at the
     served capacity and on a drop-free copy (capacity = n_experts), the
     plain path on the kernel path's routes; the drop-free copy with the
@@ -3115,6 +3137,19 @@ def moe(torch, report):
                                           teacher=False, check_all=True, prompts=prompts)
     prefill = routes.drops(cfg)
     rec["prefill_drops"] = prefill
+    t = time.perf_counter()
+    rec["mesh"] = serve_on_mesh(torch, model, params,
+                                [p[:MOE_MESH_PROMPT] for p in prompts], MOE_MESH_NEW,
+                                "moe mesh serve")
+    timer = Timer(torch)
+    mesh_cases = []
+    tp_kernels(torch, timer, mesh_cases, GROK14, GROK14_SHAPES, GROK14_MS, GROK14_HEADS)
+    del timer
+    cases += mesh_cases
+    rec["mesh"]["seconds"] = time.perf_counter() - t
+    log(f"{MOE} on a one-rank mesh and its (1, 4) shard shapes ({len(mesh_cases)} cases, "
+        f"the experts' shapes unchanged: 2 whole experts a rank): "
+        f"{rec['mesh']['seconds']:.1f} s")
     log(f"{MOE} capacity {cfg.capacity_factor:g}: token-slots each prefill call drops "
         f"(over its {cfg.n_layers} layers and {cfg.experts_per_token} slots): " + ", ".join(
             f"{r['tokens']} tokens (padding included), bins of {r['cap']}: {r['dropped']} = "
@@ -3236,22 +3271,23 @@ def snapshot_serve(torch, model, params, prompts, report, new=32):
     torch.cuda.empty_cache()
 
 
-def tp70_kernels(torch, timer, cases):
-    """The kernels at llama2-70b's local shard shapes on a (1, 4) mesh
-    (TP70_SHAPES at TP70_MS rows, bf8_50 weights; attention at TP70_HEADS
-    over an int8 pool), each against its plain version at KERNEL_TOL and
-    timed beside its plain version, its library call and its bound."""
+def tp_kernels(torch, timer, cases, model, shapes, ms, heads):
+    """The kernels at one model's local shard shapes on a (1, 4) mesh
+    (`shapes` (K, N, role) at `ms` rows, SERVED_SPEC weights; attention at
+    `heads` (q, kv) over a SERVED_KV pool), each against its plain version
+    at KERNEL_TOL and timed beside its plain version, its library call and
+    its bound; each case is tagged with `model`."""
     from repro_torch.core.compression import compress
     from repro_torch.core.formats import get_spec
     from repro_torch.kernels import deca_gemm, paged_attention, ref
 
     g = torch.Generator(device="cuda").manual_seed(5)
     spec = get_spec(SERVED_SPEC)
-    for k, n, role in TP70_SHAPES:
+    for k, n, role in shapes:
         w = torch.randn(k, n, generator=g, device="cuda") / math.sqrt(k)
         ct = compress(w, spec)
         del w
-        for m in TP70_MS:
+        for m in ms:
             x = torch.randn(m, k, generator=g, device="cuda").bfloat16().float()
             kind = "gemv" if m <= 32 else "gemm"
             kern = deca_gemm.decompress_gemv if kind == "gemv" else deca_gemm.decompress_gemm
@@ -3259,20 +3295,20 @@ def tp70_kernels(torch, timer, cases):
             got, want = kern(x, ct), plain(x, ct)
             torch.cuda.synchronize()
             err, rel = rel_err(got, want)
-            case = {"model": TP70, "kernel": kind, "role": role, "K": k, "N": n, "M": m,
+            case = {"model": model, "kernel": kind, "role": role, "K": k, "N": n, "M": m,
                     "spec": spec.name, "max_abs_err": err, "rel_err": rel}
             time_matmul(torch, timer, case, kern, plain, x, ct)
             if rel > KERNEL_TOL:
                 raise AssertionError(f"{kind} disagrees with its plain version: {case}")
             cases.append(case)
         del ct
-    hq, hkv = TP70_HEADS
+    hq, hkv = heads
     args = _attention_inputs(torch, SERVED_KV, g, hq=hq, hkv=hkv, dh=128)
     got = paged_attention.paged_attention(*args, quant=SERVED_KV)
     want = ref.paged_decode_attention(*args, quant=SERVED_KV)
     torch.cuda.synchronize()
     err, rel = rel_err(got, want)
-    case = {"model": TP70, "kernel": "attention", "kind": SERVED_KV,
+    case = {"model": model, "kernel": "attention", "kind": SERVED_KV,
             "role": f"{hq}/{hkv} heads", "max_abs_err": err, "rel_err": rel}
     time_attention(torch, timer, case, args)
     if rel > KERNEL_TOL:
@@ -3295,7 +3331,7 @@ def replay_walls(torch, graphs, n=8):
     return a.elapsed_time(b) / n, key[2][0]
 
 
-def collective_kernels(torch, graphs, n=2) -> dict:
+def collective_kernels(torch, graphs, n=1) -> dict:
     """{kernel name: launches a replay} of the first captured graph's
     collectives: the device kernels and copies of `n` traced replays whose
     names are NCCL's or a device copy's."""
@@ -3312,22 +3348,22 @@ def collective_kernels(torch, graphs, n=2) -> dict:
             and ("nccl" in e.key.lower() or "memcpy" in e.key.lower())}
 
 
-def mesh_serve(torch, model, params, prompts, report):
-    """Sharded serving on the card: the plain serve's weights (no second
-    build) served by `GenerationEngine(mesh=)` on a one-rank NCCL mesh
-    (1, 1), int8 KV, 4 requests of MESH_PROMPT tokens x MESH_NEW new, chunk
-    8, beside the plain engine on the same requests. On one rank every
-    shard is the whole leaf and every collective sums or gathers one
-    operand: the tokens and every pool plane (null page left out) must be
-    the plain engine's bitwise, a decode step must launch the plain
-    step's kernels (225 GeMV, 32 attention, no decompression), the chunk
-    runs as captured graphs with the collectives inside, each replayed
-    bitwise. Prints the NCCL kernels and copies a replay launches, the
-    replayed step beside the plain engine's (the one-rank collectives'
-    cost), this rank's param bytes; then the kernels at llama2-70b's
-    (1, 4) local shard shapes (`tp70_kernels`). The phase opens its NCCL
-    group and destroys it (after its engine and graphs) before it returns.
-    Returns the kernel cases."""
+def serve_on_mesh(torch, model, params, batch, new, what):
+    """`model` with `params` (no second build) served by
+    `GenerationEngine(mesh=)` on a one-rank NCCL mesh (1, 1), int8 KV,
+    `batch` x `new` greedy tokens, chunk 8, beside the plain engine on the
+    same requests, the launch counts set to 0 before each serve and read
+    after it. On one rank every shard is the whole leaf (a view, no copy)
+    and every collective sums or gathers one operand: the tokens and every
+    pool plane (null page left out) must be the plain engine's bitwise, a
+    decode step must launch the plain step's kernels (`gemvs_per_step` GeMV,
+    one attention a layer, no decompression) and the serve the plain
+    serve's launches; the chunk runs as captured graphs with the
+    collectives inside, each replayed bitwise. Prints the NCCL kernels and
+    copies a replay launches, the replayed step beside the plain engine's
+    (the one-rank collectives' cost), this rank's param bytes and the
+    mesh engine's peak memory beyond the params. Opens its NCCL group and
+    destroys it (after its engine and graphs). Returns the record."""
     import socket
 
     import numpy as np
@@ -3337,13 +3373,14 @@ def mesh_serve(torch, model, params, prompts, report):
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.serve.engine import GenerationEngine
 
-    t_phase = time.perf_counter()
     cfg = model.cfg
-    batch = [p[:MESH_PROMPT] for p in prompts[:4]]
     kw = dict(kv_quant=SERVED_KV, max_slots=4, block_size=32, max_len=2048, decode_chunk=8)
     plain = GenerationEngine(model, params, **kw)
-    plain_rids = [plain.submit(p, max_new_tokens=MESH_NEW) for p in batch]
+    plain_rids = [plain.submit(p, max_new_tokens=new) for p in batch]
+    for fn in counters().values():
+        fn.launches = 0
     plain_done = plain.run_until_drained()
+    plain_launches = {k: fn.launches for k, fn in counters().items()}
     rec = {}
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
@@ -3353,11 +3390,14 @@ def mesh_serve(torch, model, params, prompts, report):
                             world_size=1)
     try:
         mesh = make_test_mesh(1, 1)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         eng = GenerationEngine(model, params, mesh=mesh, **kw)
         sched = eng.scheduler
         chunks = []
         sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, sched._decode_chunk, chunks)
-        rids = [eng.submit(p, max_new_tokens=MESH_NEW) for p in batch]
+        rids = [eng.submit(p, max_new_tokens=new) for p in batch]
         for fn in counters().values():
             fn.launches = 0
         t = time.perf_counter()
@@ -3365,6 +3405,7 @@ def mesh_serve(torch, model, params, prompts, report):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         launches = {k: fn.launches for k, fn in counters().items()}
+        peak = torch.cuda.max_memory_allocated() - base
         st = sched.stats()
         n = sum(c["steps"] for c in chunks)  # device steps: every chunk runs its C
         outs = [done[r] for r in rids]
@@ -3373,31 +3414,34 @@ def mesh_serve(torch, model, params, prompts, report):
                                                                         plain.kv.pools))
                for name, t in mine.items() if not torch.equal(t[1:], want[name][1:])]
         local, whole = compressed_bytes(eng.params), compressed_bytes(params)
-        log(f"mesh_serve: llama3-8b on a (1, 1) NCCL mesh, {len(rids)} requests x "
-            f"{MESH_NEW} new tokens (prompts of {MESH_PROMPT}), kv {SERVED_KV}: {wall:.2f} s; "
+        log(f"{what}: {cfg.name} on a (1, 1) NCCL mesh, {len(rids)} requests x {new} new "
+            f"tokens (prompts of {[len(p) for p in batch]}), kv {SERVED_KV}: {wall:.2f} s; "
             f"{st['prefill_calls']} prefill calls, {st['decode_steps']} decode steps in "
             f"{st['decode_chunks']} chunks ({n} device steps); this rank's params "
-            f"{local / 1e9:.3f} GB of "
-            f"{whole / 1e9:.3f} GB")
+            f"{local / 1e9:.3f} GB of {whole / 1e9:.3f} GB; the mesh engine's peak "
+            f"{peak / 1e9:.3f} GB beyond what was allocated before it")
         log(f"  tokens bitwise the plain engine's: {sum(same)}/{len(same)} requests; pool "
             f"planes bitwise (null page left out): {not bad}")
         per = {k: v / max(n, 1) for k, v in launches.items()}
-        log(f"  launches {launches}: a device step {per['deca_gemv']:.1f} GeMV, "
-            f"{per['deca_paged_attention']:.1f} attention, {per['deca_decompress']:.1f} "
-            f"decompression (the plain chunk step: {gemvs_per_step(cfg)} / {cfg.n_layers} / 0)")
+        log(f"  launches {launches} (the plain serve's {plain_launches}): a device step "
+            f"{per['deca_gemv']:.1f} GeMV, {per['deca_paged_attention']:.1f} attention, "
+            f"{per['deca_decompress']:.1f} decompression (the plain chunk step: "
+            f"{gemvs_per_step(cfg)} / {cfg.n_layers} / 0)")
         if not all(same) or bad:
             raise AssertionError(f"the mesh engine is not the plain engine bitwise: tokens "
                                  f"{same}, planes {bad[:8]}")
-        if (launches["deca_gemv"] != gemvs_per_step(cfg) * n
+        if (launches != plain_launches
+                or launches["deca_gemv"] != gemvs_per_step(cfg) * n
                 or launches["deca_paged_attention"] != cfg.n_layers * n
                 or launches["deca_gemm"] != gemvs_per_step(cfg) * st["prefill_calls"]
                 or launches["deca_decompress"]):
-            raise AssertionError(f"the mesh decode steps launched other kernels than the "
-                                 f"plain chunk step's: {launches} over {n} device steps")
+            raise AssertionError(f"the mesh serve launched other kernels than the plain "
+                                 f"serve's: {launches} over {n} device steps, plain "
+                                 f"{plain_launches}")
         if not eng._chunk_graphs.graphs or any(not c["captured"] for c in chunks[:1]):
             raise AssertionError("the mesh decode chunk was not captured")
-        costs = graph_costs(eng._chunk_graphs, chunks, "mesh decode chunk")
-        check_replays(torch, eng, eng._chunk_graphs, "mesh decode chunk", report)
+        costs = graph_costs(eng._chunk_graphs, chunks, f"{what} decode chunk")
+        check_replays(torch, eng, eng._chunk_graphs, f"{what} decode chunk", rec)
         nccl = collective_kernels(torch, eng._chunk_graphs)
         plain_nccl = collective_kernels(torch, plain._chunk_graphs)
         mesh_ms, steps = replay_walls(torch, eng._chunk_graphs)
@@ -3408,12 +3452,12 @@ def mesh_serve(torch, model, params, prompts, report):
             f"{steps}), plain {plain_ms:.3f} ms ({plain_ms / plain_steps:.3f} ms a step): "
             f"the one-rank collectives cost {(mesh_ms / steps - plain_ms / plain_steps):.3f} "
             f"ms a step")
-        rec.update(wall_s=wall, stats=st, launches=launches, per_step=per,
-                   tokens_bitwise=same, planes_bitwise=not bad, graphs=costs,
+        rec.update(wall_s=wall, stats=st, launches=launches, plain_launches=plain_launches,
+                   per_step=per, tokens_bitwise=same, planes_bitwise=not bad, graphs=costs,
                    nccl_kernels={"mesh": nccl, "plain": plain_nccl},
                    replay_ms={"mesh": mesh_ms, "plain": plain_ms},
                    steps_a_replay={"mesh": steps, "plain": plain_steps},
-                   param_bytes={"rank": local, "whole": whole})
+                   param_bytes={"rank": local, "whole": whole}, peak_beyond_bytes=peak)
         del eng, sched
         gc.collect()
         torch.cuda.synchronize()
@@ -3422,9 +3466,21 @@ def mesh_serve(torch, model, params, prompts, report):
     del plain
     gc.collect()
     torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_serve(torch, model, params, prompts, report):
+    """Sharded serving on the card: the plain serve's first 4 prompts cut to
+    MESH_PROMPT tokens, MESH_NEW new, through `serve_on_mesh` (a one-rank
+    NCCL mesh beside the plain engine: 225 GeMV, 32 attention, no
+    decompression a step); then the kernels at llama2-70b's (1, 4) local
+    shard shapes (`tp_kernels`). Returns the kernel cases."""
+    t_phase = time.perf_counter()
+    rec = serve_on_mesh(torch, model, params, [p[:MESH_PROMPT] for p in prompts[:4]],
+                        MESH_NEW, "mesh_serve")
     cases = []
     timer = Timer(torch)
-    tp70_kernels(torch, timer, cases)
+    tp_kernels(torch, timer, cases, TP70, TP70_SHAPES, TP70_MS, TP70_HEADS)
     del timer
     torch.cuda.empty_cache()
     rec["tp70_cases"] = cases
@@ -4848,7 +4904,9 @@ def main() -> int:
     for entry, matmul in zip(kernels[:3], ("gemv", "gemm", "attention")):
         for name, shapes in (("recurrent_shapes", recurrent_cases),
                              ("vlm_audio_shapes", vlm_audio_cases),
-                             ("tp70_local_shapes", mesh_cases)):
+                             ("tp70_local_shapes", mesh_cases),
+                             ("grok14_local_shapes",
+                              [c for c in moe_cases if c.get("model") == GROK14])):
             timed = [{k: c[k] for k in keys if k in c} for c in shapes
                      if c["kernel"] == matmul and "ms" in c]
             if timed:

@@ -3,11 +3,12 @@
 requests and DECA-compressed weights.
 
 Builds the llama3-8b smoke model, compresses every FC weight to MXFP4 (the
-paper's Q4), and serves a batch of prompts: by default through the dense
-ring-cache engine (`paged=False`: one prefill, then one decode step a
-token), with every FC matmul running the decompress-on-the-fly GeMM or
-GeMV. Reports the compression factor and tokens/s. It runs on the card
-unless `--device cpu`.
+paper's Q4), and serves a batch of prompts through `GenerationEngine.generate`
+on the engine `paged="auto"` picks, as the reference example does: the
+paged engine for this attention stack (one prefill call for the batch,
+then device-resident decode chunks), with every FC matmul running the
+decompress-on-the-fly GeMM or GeMV. Reports the compression factor and
+tokens/s. It runs on the card unless `--device cpu`.
 
 Run:  PYTHONPATH=src python examples/compressed_serving_torch.py [--format bf8_50]
       PYTHONPATH=src python examples/compressed_serving_torch.py --device cpu
@@ -329,7 +330,7 @@ def serve(args, device, mesh):
 
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, 16)).astype(np.int32)
     engine = GenerationEngine(model, cparams, max_len=128, temperature=0.0,
-                              kv_quant=args.kv_quant, paged=False, device=device)
+                              kv_quant=args.kv_quant, device=device)
     if args.kv_quant:
         print(f"KV cache quantized with {args.kv_quant}")
     t0 = time.perf_counter()

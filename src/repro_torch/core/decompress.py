@@ -110,7 +110,9 @@ def make_draft_tree(params: Any, draft_spec: CompressionSpec, *,
     compress directly (`layer_stack` as in `compress_tree`). Everything
     else (embeddings, norms, leaves whose K the draft group does not
     divide) is the target's own object: the draft costs only its
-    re-encoded FC planes."""
+    re-encoded FC planes. On a mesh engine's local tree
+    (`sharding.local_tree`) it re-encodes this rank's shards, an expert
+    stack's local experts only (`sharding.adopt_specs` registers them)."""
 
     def one(path, leaf, stack):
         if isinstance(leaf, CompressedTensor):

@@ -25,6 +25,7 @@ Entry points:
   placements(spec, mesh) / placement_tree, shard_params(params, ctx),
   local_shard(x, spec, ctx)
   serve_ctx / local_tree / leaf_spec         the serving step on local shards
+  expert_range / adopt_specs                 a rank's experts; a re-encoded local tree
   constrain_local(x, kind, have) / relayout  a local activation's layout
   all_reduce / all_gather over a named mesh axis
 
@@ -37,6 +38,10 @@ over `model`: the f32 partial products are summed over the axis and
 rounded once) or replicated. An activation's layout is a spec beside it,
 which `constrain_local` gathers or cuts to what `_ACT_ROLES[kind]`
 resolves to; every rank runs the same host scheduler on whole inputs.
+An expert-stacked MoE leaf (E, K, N) is cut along E over `model` where E
+divides (`expert_range`: rank r holds experts [r E/m, (r+1) E/m), each
+whole, as a view of the whole leaf); the MoE block runs only those and
+gathers their outputs over `model`, the reference's `egcd` transpose.
 
 A ctx's `batch_axes` name the mesh axes over which this process holds only
 its own rows of the batch (data-parallel training, `train/trainer.py`):
@@ -569,6 +574,8 @@ def all_gather(t: torch.Tensor, axis: str, ctx: ShardingCtx, dim: int) -> torch.
     out = torch.empty((n * shape[0],) + shape[1:], dtype=t.dtype, device=t.device)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, t.contiguous(), group=ctx.mesh.get_group(axis))
+    if dim == 0:
+        return out
     return torch.cat(out.view((n,) + shape).unbind(0), dim=dim)
 
 
@@ -644,7 +651,9 @@ def kv_head_axis(hkv: int, ctx: ShardingCtx) -> Optional[str]:
 
 def _leaf_shard(leaf: Any, spec: Any, ctx: ShardingCtx) -> Any:
     """A leaf's local shard as contiguous plain tensors; a compressed one
-    with its local logical (K, N)."""
+    with its local logical (K, N). A block that is contiguous in the whole
+    leaf (a cut of its first dim: an expert stack's experts, a K split of
+    the codes) stays a view of it; other cuts are copied."""
     piece = lambda t, s: local_shard(t, s, ctx).contiguous()
     if isinstance(leaf, CompressedTensor):
         codes = piece(leaf.codes, spec.codes)
@@ -676,6 +685,50 @@ def leaf_spec(w: Any, ctx: Optional[ShardingCtx]) -> Optional[Any]:
     """The spec a local leaf of `local_tree` came from, or None."""
     hit = None if ctx is None else ctx.leaf_specs.get(id(w))
     return hit[1] if hit is not None and hit[0] is w else None
+
+
+def expert_range(w: Any, ctx: Optional[ShardingCtx]) -> Tuple[range, Optional[str]]:
+    """(the global experts this rank holds of an expert-stacked leaf, the
+    axis the expert dim is split over or None). A local leaf of
+    `local_tree` whose E divides `model` holds experts [r E/m, (r+1) E/m)
+    of `model` rank r; with no mesh, or where E does not divide and the
+    expert dim is replicated, it is every expert, range(E)."""
+    n = w.lead[0] if isinstance(w, CompressedTensor) else w.shape[0]
+    spec = leaf_spec(w, ctx)
+    ax = None if spec is None else _entry(
+        (spec.codes if isinstance(spec, CompressedSpec) else spec)[0])
+    start = 0 if ax is None else block_start(n, ax, ctx)
+    return range(start, start + n), ax
+
+
+def _carried_spec(spec: Any, leaf: Any) -> Any:
+    """`spec` of a local leaf carried to its re-encoding `leaf`: a dense
+    leaf's (..., K, N) entries become a compressed leaf's planes (K on the
+    group dim), a compressed leaf's keep their entries, for the planes the
+    new codec has."""
+    if not isinstance(leaf, CompressedTensor):
+        return spec
+    codes = spec.codes if isinstance(spec, CompressedSpec) else spec[:-1] + (None,) + spec[-1:]
+    gn = codes[:-2] + codes[-1:]
+    return CompressedSpec(codes=codes, mask=gn if leaf.mask is not None else None,
+                          scales=gn if leaf.scales is not None else None)
+
+
+def adopt_specs(tree: Any, source: Any, ctx: ShardingCtx) -> Any:
+    """Register every leaf of `tree`, a leaf-for-leaf re-encoding of the
+    local tree `source` (`make_draft_tree` of it), under the spec of the
+    leaf it came from: a re-encoded block stands for the same block of
+    the product (a K block is re-encoded only when the new group divides
+    its K, so its groups stay whole). A leaf `tree` shares with `source`
+    is registered already."""
+    specs = _map_path(lambda path, leaf: leaf_spec(leaf, ctx), source)
+
+    def one(spec, leaf):
+        if leaf_spec(leaf, ctx) is None:
+            ctx.leaf_specs[id(leaf)] = (leaf, _carried_spec(spec, leaf))
+        return leaf
+
+    _map_specs(one, specs, tree)
 
 
 def matmul_axes(w: Any, ctx: Optional[ShardingCtx]) -> Tuple[Optional[str], Optional[str]]:

@@ -14,7 +14,8 @@ of tensors per layer and are updated in place (the reference returns new
 ones per write; in place saves a copy of every layer's cache per step).
 
 Under a serving mesh (`dist.sharding.serve_ctx`) the paged attention block,
-the MLP, the embedding lookup and the logits run on this rank's shards:
+the MLP, the MoE experts, the embedding lookup and the logits run on this
+rank's shards:
 the reference's `constrain` sites become `sharding.constrain_local` on
 local tensors, and `tp_mm` is the matmul of a column-parallel weight
 (local columns out), a row-parallel one (f32 partial products summed over
@@ -384,10 +385,12 @@ def read_cache_kv(
             codec.kv_decode(cache["v"], cache.get("v_scale")).to(torch.bfloat16))
 
 
-def tp_mm(x: torch.Tensor, w, have: Optional[str] = None):
+def tp_mm(x: torch.Tensor, w, have: Optional[str] = None, axes=None):
     """x (..., K) @ w (K, N) -> (y, the mesh axis y's last dim is split
     over). Under a serving mesh, `have` is the axis x's last dim is split
-    over (None: whole); x is first gathered or cut to w's K layout. A K
+    over (None: whole); x is first gathered or cut to w's K layout, which
+    `axes` (K axis, N axis) gives for a weight `local_tree` did not
+    register (an expert's `pick` of a stacked leaf). A K
     split over an axis is a row-parallel weight whose partial products are
     summed over the axis as the reference's partitioned dot sums them: a
     compressed product's in f32 (its accumulator type), rounded once to
@@ -396,7 +399,7 @@ def tp_mm(x: torch.Tensor, w, have: Optional[str] = None):
     ctx = sh.serve_ctx()
     if ctx is None:
         return mm(x, w), None
-    k_ax, n_ax = sh.matmul_axes(w, ctx)
+    k_ax, n_ax = sh.matmul_axes(w, ctx) if axes is None else axes
     if have != k_ax:
         last = (None,) * (x.dim() - 1)
         x = sh.relayout(x, last + (have,), last + (k_ax,), ctx)
@@ -649,19 +652,20 @@ def init_moe(generator, cfg: ModelConfig, device, dtype, *,
     return p
 
 
-def _dispatch_groups(t: int) -> int:
+def _dispatch_groups(t: int, split: Optional[int] = None) -> int:
     """Group-local dispatch shards of this process's `t` tokens. The
     reference takes the active mesh's batch sharding (pod x data), halved
     until it divides the tokens, so routing sorts stay shard-local, and 1
-    outside a mesh. A data-parallel rank holds only its block of the
-    batch's rows (`ShardingCtx.batch_split` blocks), which is a run of
-    whole reference groups: it takes its share of them, so a token sees
-    the reference's group."""
+    outside a mesh. A process that holds only its block of the batch's
+    rows (`split` blocks: `ShardingCtx.batch_split` by default, the
+    data-parallel trainer's; a serving rank's rows over `data`) holds a
+    run of whole reference groups: it takes its share of them, so a token
+    sees the reference's group."""
     ctx = active_ctx()
     if ctx is None:
         return 1
     sizes = ctx.axis_sizes
-    split = ctx.batch_split
+    split = ctx.batch_split if split is None else split
     g = sizes.get("pod", 1) * sizes.get("data", 1)
     while g > 1 and (t * split) % g:
         g //= 2
@@ -686,20 +690,25 @@ def _expert(w, i: int):
     return w.pick(i) if isinstance(w, CompressedTensor) else w[i]
 
 
-def _expert_ffn(params: Params, x: torch.Tensor, i: int, cfg: ModelConfig) -> torch.Tensor:
-    """Expert i's FFN on its capacity bin x (G, cap, D), every matmul
-    through `mm` (the DECA GeMV at G cap <= 32 rows, else the GeMM)."""
+def _expert_ffn(params: Params, x: torch.Tensor, i: int, cfg: ModelConfig,
+                axes: Dict[str, Tuple[Optional[str], Optional[str]]]) -> torch.Tensor:
+    """Local expert i's FFN on its capacity bin x (G, cap, D), every matmul
+    through `tp_mm` (the DECA GeMV at G cap <= 32 rows, else the GeMM) on
+    the (K, N) axes `axes` gives each stacked leaf: (None, None) with no
+    mesh or an expert dim split over `model`; where E does not divide
+    `model`, every rank holds every expert as column- and row-parallel
+    shards, whose hidden stays split as the MLP's does."""
     act = _ACTS[cfg.mlp_act]
-    up = mm(x, _expert(params["w_up"], i))
+    up, ax = tp_mm(x, _expert(params["w_up"], i), axes=axes["w_up"])
     if "w_gate" in params:
-        h = act(mm(x, _expert(params["w_gate"], i))) * up
+        h = act(tp_mm(x, _expert(params["w_gate"], i), axes=axes["w_gate"])[0]) * up
     else:
         h = act(up)
-    return mm(h, _expert(params["w_down"], i))
+    return tp_mm(h, _expert(params["w_down"], i), ax, axes=axes["w_down"])[0]
 
 
-def moe_block(params: Params, x: torch.Tensor,
-              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
+              rows: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k token-choice MoE with capacity dispatch: the reference's
     `moe_block`, op for op, returning (out (B, S, D), aux).
 
@@ -716,11 +725,26 @@ def moe_block(params: Params, x: torch.Tensor,
     output in x's dtype. `cap = max(4, ceil(tokens / E * capacity_factor))`
     is host arithmetic on the static shape. The only scatter with repeated
     indices writes the pad row, whose value is never read, so the output
-    does not depend on which write wins."""
+    does not depend on which write wins.
+
+    Under a serving mesh (`rows`: the whole batch's rows, of which x
+    holds this rank's share over `data`) the routing runs on tokens that
+    are whole over `model`, the same on every `model` rank, in the
+    reference's dispatch groups; each rank runs the FFNs of its own
+    experts only (`sharding.expert_range`) and gathers the (E, G, cap, D)
+    outputs over `model` before the combine. Each expert runs whole on
+    one rank, so the output is the unsharded block's for the same groups:
+    no sum crosses ranks. The aux loss is not read there, and a serving
+    ctx has no batch axes: it sums nothing across ranks."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
-    g = _dispatch_groups(t)
+    serve = sh.serve_ctx()
+    row_split = None
+    if serve is not None:
+        row_ax = sh.batch_axis(b if rows is None else rows, serve)
+        row_split = 1 if row_ax is None else serve.axis_sizes[row_ax]
+    g = _dispatch_groups(t, row_split)
     tl = t // g  # tokens per dispatch group
     dev = x.device
     xf = x.reshape(g, tl, d)
@@ -753,6 +777,9 @@ def moe_block(params: Params, x: torch.Tensor,
     rank = torch.arange(tl, device=dev)[None, :]
     pad = torch.zeros((g, 1, d), dtype=x.dtype, device=dev)
     out = torch.zeros((g, tl, d), dtype=x.dtype, device=dev)
+    mine, e_ax = sh.expert_range(params["w_up"], serve)
+    axes = {n: sh.matmul_axes(params[n], serve) for n in ("w_up", "w_gate", "w_down")
+            if n in params}
     for slot in range(k):
         eid = expert_idx[:, :, slot]  # (G, Tl)
         gates = gate_vals[:, :, slot]
@@ -765,7 +792,10 @@ def moe_block(params: Params, x: torch.Tensor,
         xg = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=dev)
         xg[gi, dest] = xf[gi, order]
         xe = xg[:, :-1].reshape(g, e, cap, d).transpose(0, 1)  # (E, G, cap, D)
-        ye = torch.stack([_expert_ffn(params, xe[i], i, cfg) for i in range(e)])
+        ye = torch.stack([_expert_ffn(params, xe[i], i - mine.start, cfg, axes)
+                          for i in mine])
+        if e_ax is not None:  # every rank's experts: the reference's `egcd`
+            ye = sh.all_gather(ye, e_ax, serve, 0)
         yflat = torch.cat([ye.transpose(0, 1).reshape(g, e * cap, d), pad], dim=1)
         y_tok = yflat[gi, dest]  # (G, Tl, D)
         gathered = torch.gather(gates, 1, order)

@@ -264,7 +264,8 @@ class Model:
             return x, cache, aux
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
         if cfg.n_experts:
-            out, aux = L.moe_block(p["moe"], h, cfg)
+            rows = None if paged is None else paged["write_slots"].shape[0]
+            out, aux = L.moe_block(p["moe"], h, cfg, rows=rows)
         else:
             out = L.mlp_block(p["mlp"], h, cfg)
         if cfg.post_norms:
@@ -330,9 +331,9 @@ class Model:
         if remat and cache is not None:
             raise ValueError("remat is for the cache-less training forward")
         ctx = sh.serve_ctx()
-        if ctx is not None and (paged is None or cfg.n_experts):
+        if ctx is not None and paged is None:
             raise NotImplementedError(
-                "the sharded forward is the paged dense-FFN one (ROADMAP Queue A item 12)")
+                "the sharded forward is the paged one (ROADMAP Queue A item 12)")
         inp = tokens if embeds is None else embeds
         b, s = inp.shape[:2]
         if positions is None:

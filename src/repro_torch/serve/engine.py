@@ -240,9 +240,6 @@ def _check_mesh(model: Model, mesh, fsdp: bool, paged: bool, sla, injector,
     if not paged:
         raise ValueError(f"a mesh on the dense ring engine (paged=False) is not "
                          f"ported yet ({_ITEM_12})")
-    if model.cfg.n_experts:
-        raise ValueError(f"MoE stacks (n_experts > 0) on a mesh are not ported yet "
-                         f"({_ITEM_12})")
     if mesh.size() > 1 and (sla is not None or injector is not None or watchdog is not None):
         raise ValueError(
             f"sla / injector / watchdog on a mesh of more than one rank are not "
@@ -330,12 +327,13 @@ class GenerationEngine:
     serves sharded, every rank running this same engine on the same
     requests (SPMD): the weights are cut to this rank's shards by
     `param_spec_tree` in serve mode (`sharding.local_tree`; a spec engine's
-    draft tree is built from the whole params first, as the reference's),
-    the pool holds this rank's KV heads, the batch rows split over `data`
-    where they divide, and every rank samples the same tokens from whole
-    logits. A snapshot holds whole pages, so it restores in an unsharded
-    engine of either package. `fsdp=True`, the dense ring engine, MoE
-    stacks, and `sla` / `injector` / `watchdog` on more than one rank are
+    draft tree re-encodes this rank's shards), the pool holds this rank's
+    KV heads, the batch rows split over `data` where they divide, an MoE
+    stack's experts split over `model` (each rank runs its own experts'
+    bins and gathers their outputs), and every rank samples the same
+    tokens from whole logits. A snapshot holds whole pages, so it restores
+    in an unsharded engine of either package. `fsdp=True`, the dense ring
+    engine, and `sla` / `injector` / `watchdog` on more than one rank are
     not served on a mesh yet (ROADMAP Queue A item 12): they raise.
     """
 
@@ -430,11 +428,15 @@ class GenerationEngine:
         self._paged_decode = make_paged_decode_step(model)
         self._paged_decode_chunk = make_paged_decode_chunk_step(model)
         self.spec_rounds = 0
+        # the step runs on this rank's shards under a mesh
+        local = params if self._ctx is None else sh.local_tree(params, self._ctx)
         if spec_decode is not None:
+            # on a mesh the rank's own shards re-encoded (an MoE leaf's
+            # local experts only), each under its shard's spec
             self.draft_params = make_draft_tree(
-                params, get_spec(spec_decode.draft_codec),
-                layer_stack=model.layer_stack,
-            )
+                local, get_spec(spec_decode.draft_codec), layer_stack=model.layer_stack)
+            if self._ctx is not None:
+                sh.adopt_specs(self.draft_params, local, self._ctx)
             self.spec_rounds = spec_decode.rounds or max(
                 1, -(-max(1, decode_chunk) // (spec_decode.k + 1))
             )
@@ -443,12 +445,9 @@ class GenerationEngine:
                 draft_window=spec_decode.draft_window, block_size=block_size,
             )
         if obs is not None and obs.rooflens is not None:
-            self._bind_rooflens(obs.rooflens, max_slots)
+            self._bind_rooflens(obs.rooflens, max_slots)  # the whole params
+        self.params = local
         if self._ctx is not None:
-            # the whole trees were bound above; the step runs on local shards
-            self.params = sh.local_tree(params, self._ctx)
-            if self.draft_params is not None:
-                self.draft_params = sh.local_tree(self.draft_params, self._ctx)
             _warm_collectives(self._ctx, self.device)
         self._decode_graphs = self._chunk_graphs = self._spec_graphs = None
         if self.device.type == "cuda":
@@ -494,7 +493,8 @@ class GenerationEngine:
         elements behind the compressed leaves (the decompression vector-op
         term; an expert-stacked leaf counts its `shape`, one expert's, as
         the reference's bind does), the weight and KV codecs, the decode batch rows, and the
-        draft tree's stored bytes, depth and window on a spec engine."""
+        draft tree's stored bytes (on a mesh, this rank's re-encoded
+        shards'), depth and window on a spec engine."""
         compressed = [l for l in _leaves(self.params) if isinstance(l, CompressedTensor)]
         spec = self.spec
         lens.bind(

@@ -10,8 +10,13 @@ reference's own mesh cases (tests/test_serving.py:159,
 tests/test_spec_decode.py:136, tests/test_tiered.py:433) skip in a
 one-device run, so they are ported here.
 
-Tolerances. Tokens, pool planes, snapshots and the host bookkeeping are
-exact. At (1, 2) the row-parallel sites sum their partial products over
+MoE stacks (grok-1-314b's smoke config, bf8_50 weights) are served the
+same way: the experts split over `model` at (1, 2), each rank running its
+own experts' bins, at (2, 1) each rank its own dispatch group; the
+reference's 2-device engine serves them too (jax 0.9, Auto axes).
+
+Tolerances. Tokens, pool planes, expert planes, snapshots and the host
+bookkeeping are exact. At (1, 2) the row-parallel sites sum their partial products over
 the `model` axis in another order than one matmul does: the logits are held
 to one bf16 ulp of their scale (2**-7 of the largest, the fp32-accumulator
 rule of ROADMAP.md; they come out bitwise here), and the row-parallel
@@ -104,8 +109,7 @@ def runs(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def port_params(runs):
-    model, mqa = Model(worker.config()), Model(worker.config(mqa=True))
-    return {name: params_from_jax(tree, (mqa if name == "mqa" else model).cfg, device="cpu")
+    return {name: params_from_jax(tree, worker.tree_config(name), device="cpu")
             for name, tree in runs.trees.items()}
 
 
@@ -312,10 +316,157 @@ def test_model_split_snapshot_restores_in_an_unsharded_engine(runs, port_params)
 
 
 def test_deferred_cases_raise_naming_their_roadmap_item(runs):
-    """fsdp, the dense ring engine, MoE stacks, and sla / injector /
-    watchdog on two ranks raise ValueError naming ROADMAP Queue A item 12;
-    none is served unsharded instead."""
+    """fsdp, the dense ring engine, and sla / injector / watchdog on two
+    ranks raise ValueError naming ROADMAP Queue A item 12; none is served
+    unsharded instead. (MoE stacks are served: the tests below.)"""
     for rank in runs.result()["ranks"]:
-        assert set(rank["refusals"]) == {"fsdp", "ring", "moe", "sla", "injector", "watchdog"}
+        assert set(rank["refusals"]) == {"fsdp", "ring", "sla", "injector", "watchdog"}
         for case, msg in rank["refusals"].items():
             assert ITEM in msg, (case, msg)
+
+
+# ---------------------------------------------------------------------------
+# MoE stacks: the experts split over `model`
+# ---------------------------------------------------------------------------
+
+def test_one_rank_moe_mesh_is_the_unsharded_engine_bitwise(solo_mesh, port_params):
+    """grok's smoke stack on a (1, 1) mesh: every expert local, the
+    gathers over one rank; tokens, `stats()` and every pool plane are the
+    unsharded engine's, and the local expert planes are the whole leaf's
+    planes, not copies."""
+    model = Model(worker.tree_config("moe"))
+    params = port_params["moe"]
+    engines = [GenerationEngine(model, params, device="cpu", mesh=mesh, kv_quant="int8",
+                                **worker.MOE_SERVE) for mesh in (None, solo_mesh)]
+    tokens = [worker._serve(eng, worker.moe_prompts(), worker.SERVE_NEW) for eng in engines]
+    assert tokens[0] == tokens[1]
+    assert engines[0].scheduler.stats() == engines[1].scheduler.stats()
+    plain, sharded = (worker._pools(eng) for eng in engines)
+    for name in plain:
+        assert np.array_equal(plain[name], sharded[name]), name
+    experts = worker.expert_planes(engines[1], params)
+    assert experts["views"] and experts["ranges"] == [(0, 1, 2, 3)]
+
+
+@pytest.mark.parametrize("shape", worker.MESHES)
+def test_moe_mesh_serving_gives_the_reference_tokens(runs, port_params, shape):
+    """MOE's traffic on grok's smoke stack: every rank's greedy tokens are
+    the reference's sharded engine's on the same mesh and, bitwise, the
+    port's unsharded engine's."""
+    res = runs.result()
+    want = res["ref"]["moe"][shape]["tokens"]
+    for rank in res["ranks"]:
+        assert rank["moe"][shape]["tokens"] == want
+    eng = GenerationEngine(Model(worker.tree_config("moe")), port_params["moe"], device="cpu",
+                           **worker.MOE_SERVE)
+    assert worker._serve(eng, worker.moe_prompts(), worker.SERVE_NEW) == want
+
+
+def test_moe_data_split_pool_planes_are_the_references_bitwise(runs):
+    """At (2, 1) each rank routes its own dispatch group, the reference's:
+    every pool plane of every layer is the reference's (null page left
+    out), the layer after an MoE FFN included."""
+    res = runs.result()
+    ref = res["ref"]["moe"][(2, 1)]["pools"]
+    for rank in res["ranks"]:
+        pools = rank["moe"][(2, 1)]["pools"]
+        assert pools.keys() == ref.keys()
+        for name, plane in pools.items():
+            assert np.array_equal(plane[:, 1:], ref[name][:, 1:]), name
+
+
+def test_moe_model_split_logits_within_fp32_accumulator_tolerance(runs):
+    """At (1, 2) the experts are split and the attention's wo is
+    row-parallel: the prefill logits are whole and equal on both ranks,
+    within one bf16 ulp of their scale of the reference's."""
+    res = runs.result()
+    ref = res["ref"]["moe"][(1, 2)]["logits"]
+    r0, r1 = (rank["moe"][(1, 2)]["logits"] for rank in res["ranks"])
+    assert len(r0) == len(ref) == 1  # one prefill call
+    for a, b, want in zip(r0, r1, ref):
+        assert a.shape == want.shape and np.array_equal(a, b)
+        np.testing.assert_allclose(a, want, rtol=0, atol=ULP * np.abs(want).max())
+
+
+def test_each_rank_holds_only_its_experts_planes(runs, port_params):
+    """At (1, 2) rank r's expert leaves are experts [2r, 2r + 1] of the
+    whole leaves, bitwise, for every plane the codec has (bf8_50: codes
+    and mask; no scales on either side), each plane a view of the whole
+    leaf's, and `expert_range` names those experts."""
+    whole = port_params["moe"]["layers"]
+    held = {f"{i}/{name}/{which}" for i, layer in enumerate(whole)
+            for name, leaf in layer["moe"].items() if name != "router"
+            for which in ("codes", "mask", "scales") if getattr(leaf, which) is not None}
+    assert {k.rsplit("/", 1)[1] for k in held} == {"codes", "mask"}
+    for r, rank in enumerate(runs.result()["ranks"]):
+        experts = rank["moe"]["experts"]
+        assert experts["views"] and experts["ranges"] == [(2 * r, 2 * r + 1)]
+        assert set(experts["planes"]) == held
+        for key, plane in experts["planes"].items():
+            layer, name, which = key.split("/")
+            want = getattr(whole[int(layer)]["moe"][name], which)[2 * r:2 * r + 2]
+            assert np.array_equal(plane, want.numpy()), key
+
+
+def test_moe_spec_on_a_model_split_is_bitwise_the_plain_mesh_engine(runs):
+    """k = 2 with an nf4 draft re-encoded from each rank's local experts,
+    at (1, 2): the plain mesh engine's tokens, bitwise."""
+    for rank in runs.result()["ranks"]:
+        spec = rank["moe"]["spec"]
+        assert spec["spec"] == spec["plain"]
+        assert spec["stats"]["draft_tokens"] > 0 and spec["stats"]["verify_calls"] > 0
+
+
+def test_non_dividing_expert_count_runs_every_expert_on_every_rank(runs):
+    """E = 3 at (1, 2): the expert dim of every expert leaf is whole (its
+    spec entry None), w_up / w_gate split their N and w_down its K over
+    `model`, so every rank runs all three experts' FFNs on its column and
+    row shards; the tokens are the unsharded engine's."""
+    for rank in runs.result()["ranks"]:
+        odd = rank["moe"]["odd"]
+        assert odd["mesh"] == odd["plain"]
+        assert odd["specs"] == {"w_up": (None, None, None, "model"),
+                                "w_gate": (None, None, None, "model"),
+                                "w_down": (None, "model", None, None)}
+
+
+def test_non_dividing_expert_count_replicates_the_expert_dim():
+    """E = 3 at `model` = 2: the expert dim cannot split, so its spec
+    entry is None and the leaf's K / N take `model` as the dense weight's
+    would, entry for entry the reference's `param_spec_tree` (on its
+    stacked `blocks` leaves, less their layer dim), dense and bf8_50."""
+    import dataclasses
+
+    import jax
+
+    from repro.core.compression import CompressedTensor as JCT
+    from repro.core.decompress import compress_tree as jcompress_tree
+    from repro.core.formats import get_spec as jget_spec
+    from repro.dist import sharding as jsh
+    from repro.models.model import Model as JModel
+    from repro_torch.core.decompress import compress_tree
+    from repro_torch.core.formats import get_spec
+    from repro_torch.launch.mesh import RuleMesh
+
+    class Ctx:
+        axis_sizes, fsdp, mode = {"data": 1, "model": 2}, False, "serve"
+
+    cfg = dataclasses.replace(worker.tree_config("moe"), n_experts=3)
+    jcfg = dataclasses.replace(worker.tree_config("moe", reference=True), n_experts=3)
+    jdense = JModel(jcfg).init(jax.random.PRNGKey(0))
+    model = Model(cfg)
+    dense = model.init(torch.Generator().manual_seed(0), device="cpu")
+    ctx = sh.ShardingCtx(RuleMesh((1, 2), ("data", "model")), mode="serve")
+    as_tuple = lambda sp: (tuple(None if p is None else tuple(p)[1:]
+                                 for p in (sp.codes, sp.mask, sp.scales))
+                           if isinstance(sp, JCT) else tuple(sp)[1:])
+    for jtree, tree in ((jdense, dense),
+                        (jcompress_tree(jdense, jget_spec("bf8_50")),
+                         compress_tree(dense, get_spec("bf8_50"), layer_stack=model.layer_stack))):
+        want = jsh.param_spec_tree(jtree, Ctx(), scan_stacked=True)["blocks"]["moe"]
+        got = sh.param_spec_tree(tree, ctx)["layers"][0]["moe"]
+        for name in ("w_up", "w_gate", "w_down"):
+            spec = got[name]
+            assert as_tuple(want[name]) == (tuple(spec) if isinstance(spec, sh.CompressedSpec)
+                                            else spec), name
+            assert (spec.codes if isinstance(spec, sh.CompressedSpec) else spec)[0] is None

@@ -105,6 +105,47 @@ def exact_report(kinds, chunked=()):
     return out
 
 
+def twin_tokens():
+    """The serving twin's default run with the reference's seeded llama3-8b
+    smoke tree carried in (its `Model.init` returns `params_from_jax` of
+    it), and the reference example's default engine on the same tree and
+    prompts (`GenerationEngine(model, cparams, max_len=128,
+    temperature=0.0)`, `generate(prompts, 24)`): {"port", "reference":
+    tokens, "paged": whether the twin's engine was the paged one}."""
+    from repro.serve.engine import GenerationEngine as JEngine
+    from repro_torch.convert import params_from_jax
+    from repro_torch.serve import engine as port_engine
+
+    torch.set_num_threads(1)
+    cfg = jget_smoke_config("llama3-8b")
+    jparams = JModel(cfg).init(jax.random.PRNGKey(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 16)).astype(np.int32)
+    ref = JEngine(JModel(cfg), jcompress_tree(jparams, jget_spec("mxfp4_100")), max_len=128,
+                  temperature=0.0).generate(prompts, 24)
+    twin = _twin("compressed_serving_torch")
+
+    class Carried(twin.Model):
+        def init(self, *args, **kw):
+            return params_from_jax(jax.device_get(jparams), self.cfg, device="cpu")
+
+    paged = []
+    build = port_engine.GenerationEngine.__init__
+
+    def noting(eng, *args, **kw):
+        build(eng, *args, **kw)
+        paged.append(eng.paged)
+
+    twin.Model = Carried
+    port_engine.GenerationEngine.__init__ = noting
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = twin.main(["--device", "cpu"])
+    finally:
+        port_engine.GenerationEngine.__init__ = build
+    return {"port": np.asarray(out).tolist(), "reference": np.asarray(ref).tolist(),
+            "paged": paged == [True]}
+
+
 _EXACT = {}
 
 
@@ -118,6 +159,7 @@ def _exact_runs():
         chunked = [k for k in kinds if k == CHUNKED_KIND]
         run = Exact("test_torch_single_step", "exact_report", list(kinds), chunked)
         _EXACT.update(dict.fromkeys(kinds, run))
+    _EXACT["twin"] = Exact("test_torch_single_step", "twin_tokens")
     yield
     for run in set(_EXACT.values()):
         if run.proc.poll() is None:
@@ -210,19 +252,6 @@ def test_quickstart_twin_prints_the_references_cf_and_bounds():
         assert " ".join(row[2:-2]) == "no kernel on cpu"
 
 
-def test_serving_twin_defaults_print_the_references_cf():
-    """The default path (the dense ring engine): 4 x 24 tokens, and the
-    CF and scheme CF the reference's compress_tree gives the same model."""
-    jparams = JModel(jget_smoke_config("llama3-8b")).init(jax.random.PRNGKey(0))
-    spec = jget_spec("mxfp4_100")
-    dense, comp = jcompressed_bytes(jparams), jcompressed_bytes(jcompress_tree(jparams, spec))
-    out, text = _run("compressed_serving_torch", ["--device", "cpu"])
-    assert out.shape == (4, 24)
-    assert (f"weights {dense/1e6:.2f} MB -> {comp/1e6:.2f} MB (CF={dense/comp:.2f}, "
-            f"scheme CF={spec.compression_factor():.2f})") in text
-    assert "sample:" in text
-
-
 @pytest.mark.parametrize("argv", [["--paged", "--chunk", "1"], ["--paged", "--spec-k", "2"]])
 def test_serving_twin_paged_paths(argv):
     """--paged at chunk 1 runs the single-step loop: one launch and one
@@ -277,6 +306,27 @@ def test_serving_twin_refuses_a_mesh_larger_than_the_world():
 
 # the tests that wait for the exact-rounding runs: last, so the tests above
 # run meanwhile
+
+def test_serving_twin_defaults_print_the_references_cf():
+    """The default path is the reference example's: `paged="auto"`, the
+    paged engine for llama3-8b, `generate` of 4 x 24 tokens, and the CF and
+    scheme CF the reference's compress_tree gives the same model. With the
+    reference's seeded tree carried into the twin (`params_from_jax` in
+    place of its own draw) its tokens are the reference example's engine's
+    (`examples/compressed_serving.py`'s defaults) on the same prompts, in
+    the exact-rounding process (`twin_tokens`)."""
+    jparams = JModel(jget_smoke_config("llama3-8b")).init(jax.random.PRNGKey(0))
+    spec = jget_spec("mxfp4_100")
+    dense, comp = jcompressed_bytes(jparams), jcompressed_bytes(jcompress_tree(jparams, spec))
+    out, text = _run("compressed_serving_torch", ["--device", "cpu"])
+    assert out.shape == (4, 24)
+    assert (f"weights {dense/1e6:.2f} MB -> {comp/1e6:.2f} MB (CF={dense/comp:.2f}, "
+            f"scheme CF={spec.compression_factor():.2f})") in text
+    assert "sample:" in text
+    got = _EXACT["twin"].result()
+    assert got["paged"] and got["port"] == got["reference"]
+    assert np.asarray(got["port"]).shape == (4, 24)
+
 
 @pytest.mark.parametrize("kind", KV_KINDS)
 def test_single_step_bookkeeping_matches_reference(kind):

@@ -21,6 +21,16 @@ The cases, on llama3-8b's smoke config:
   SNAP   tests/test_tiered.py:433's snapshot cycle at (2, 1), int8 KV,
          T = 0.7, on the dense tree, and a (1, 2) engine's snapshot on the
          mxfp4_100 tree for an unsharded restore (port only).
+and on grok-1-314b's smoke config (4 experts, top-2, capacity 4.0, 4 q /
+2 kv heads) with bf8_50 weights:
+  MOE    prompts of 4, 19, 11 and 7 tokens, 4 new tokens each, 4 slots
+         (one prefill call and one decode chunk: each compiles once in the
+         reference), at (2, 1) and (1, 2): tokens, every pool plane, the
+         prefill logits; at (1, 2) each rank's local expert planes;
+  MOE_SPEC  SERVE's prompts, plain and spec (k = 2, nf4 draft) at (1, 2),
+         SPEC_NEW new tokens (port only);
+  ODD    3 experts at (1, 2), which `model` does not divide: MOE's traffic
+         on the mesh and unsharded (port only, the port's own seeded tree).
 """
 import dataclasses
 import pickle
@@ -37,21 +47,33 @@ SNAP = dict(max_len=64, block_size=8, max_slots=2, decode_chunk=4, num_blocks=16
 SNAP_LENGTHS, SNAP_NEW = (17, 33), (4, 12)
 ROW_ROWS = 48
 MESHES = ((2, 1), (1, 2))
+MOE_ARCH, MOE_FMT = "grok-1-314b", "bf8_50"
+MOE_SERVE, MOE_LENGTHS = dict(max_len=64, block_size=8, max_slots=4), (4, 19, 11, 7)
 
 
-def config(mqa=False, reference=False):
+def config(mqa=False, reference=False, arch=ARCH):
     """The smoke config of either package; `mqa` with one KV head."""
     import importlib
 
     base = importlib.import_module("repro.configs.base" if reference else
                                    "repro_torch.configs.base")
-    cfg = base.get_smoke_config(ARCH)
+    cfg = base.get_smoke_config(arch)
     return dataclasses.replace(cfg, n_kv_heads=1) if mqa else cfg
+
+
+def tree_config(name, reference=False):
+    """The config a tree of `reference_trees` was drawn for."""
+    return config(mqa=name == "mqa", reference=reference,
+                  arch=MOE_ARCH if name == "moe" else ARCH)
 
 
 def prompts(vocab, lengths, seed):
     rng = np.random.default_rng(seed)
     return [rng.integers(0, vocab, n).astype(np.int32) for n in lengths]
+
+
+def moe_prompts():
+    return prompts(tree_config("moe").vocab_size, MOE_LENGTHS, 1)
 
 
 def row_input():
@@ -61,8 +83,9 @@ def row_input():
 
 def reference_trees():
     """The reference's trees: `dense` (PRNGKey(0), as the reference's
-    llama fixtures), `served` (it compressed to SERVE_FMT) and `mqa` (the
-    one-KV-head copy, compressed), on the host."""
+    llama fixtures), `served` (it compressed to SERVE_FMT), `mqa` (the
+    one-KV-head copy, compressed) and `moe` (grok's smoke tree compressed
+    to MOE_FMT), on the host."""
     import jax
 
     from repro.core.decompress import compress_tree
@@ -71,9 +94,11 @@ def reference_trees():
 
     dense = Model(config(reference=True)).init(jax.random.PRNGKey(0))
     mqa = Model(config(mqa=True, reference=True)).init(jax.random.PRNGKey(0))
+    moe = Model(tree_config("moe", reference=True)).init(jax.random.PRNGKey(0))
     spec = get_spec(SERVE_FMT)
     return jax.device_get({"dense": dense, "served": compress_tree(dense, spec),
-                           "mqa": compress_tree(mqa, spec)})
+                           "mqa": compress_tree(mqa, spec),
+                           "moe": compress_tree(moe, get_spec(MOE_FMT))})
 
 
 def _record_logits(eng, into):
@@ -137,39 +162,106 @@ def _snapshot_cycle(model, params, mesh, snap_dir):
 def refusals(model, params, mesh):
     """What each deferred case raises on `mesh` ({case: message}), or
     'served' where it builds."""
-    from repro_torch.configs.base import get_smoke_config
     from repro_torch.dist.fault import FaultInjector, StragglerWatchdog
-    from repro_torch.models.model import Model
     from repro_torch.serve.engine import GenerationEngine
     from repro_torch.serve.slo import SLAPolicy
 
-    moe = Model(get_smoke_config("grok-1-314b"))
     cases = {
-        "fsdp": (model, params, {"fsdp": True}),
-        "ring": (model, params, {"paged": False}),
-        "moe": (moe, None, {}),
-        "sla": (model, params, {"sla": SLAPolicy(max_queue=4)}),
-        "injector": (model, params, {"injector": FaultInjector({})}),
-        "watchdog": (model, params, {"watchdog": StragglerWatchdog()}),
+        "fsdp": {"fsdp": True},
+        "ring": {"paged": False},
+        "sla": {"sla": SLAPolicy(max_queue=4)},
+        "injector": {"injector": FaultInjector({})},
+        "watchdog": {"watchdog": StragglerWatchdog()},
     }
     out = {}
-    for name, (m, p, kw) in cases.items():
-        if p is None:
-            import torch
-
-            p = m.init(torch.Generator().manual_seed(0), device="cpu")
+    for name, kw in cases.items():
         try:
-            GenerationEngine(m, p, device="cpu", mesh=mesh, max_len=64, block_size=8, **kw)
+            GenerationEngine(model, params, device="cpu", mesh=mesh, max_len=64, block_size=8,
+                             **kw)
             out[name] = "served"
         except ValueError as e:
             out[name] = str(e)
     return out
 
 
+def expert_planes(eng, whole):
+    """A (1, 2) MoE engine's local expert leaves: {layer/name/plane: the
+    local plane}, and whether each is a view of the whole leaf's plane
+    (`whole`: the tree the engine was given), with the experts
+    `sharding.expert_range` names."""
+    from repro_torch.dist import sharding as sh
+
+    planes, views, ranges = {}, [], set()
+    for i, (mine, full) in enumerate(zip(eng.params["layers"], whole["layers"])):
+        for name, leaf in mine["moe"].items():
+            if name == "router":
+                continue
+            ranges.add(tuple(sh.expert_range(leaf, eng._ctx)[0]))
+            for plane in ("codes", "mask", "scales"):
+                t = getattr(leaf, plane)
+                if t is not None:
+                    planes[f"{i}/{name}/{plane}"] = t.numpy().copy()
+                    views.append(t.untyped_storage().data_ptr()
+                                 == getattr(full["moe"][name], plane).untyped_storage().data_ptr())
+    return {"planes": planes, "views": all(views), "ranges": sorted(ranges)}
+
+
+def moe_cases(params, meshes, ps):
+    """MOE at both meshes and MOE_SPEC at (1, 2) on this rank."""
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import GenerationEngine, SpecConfig
+
+    moe = Model(tree_config("moe"))
+    res = {}
+    for shape, mesh in meshes.items():
+        eng = GenerationEngine(moe, params, device="cpu", mesh=mesh, **MOE_SERVE)
+        logits = []
+        _record_logits(eng, logits)
+        res[shape] = {"tokens": _serve(eng, moe_prompts(), SERVE_NEW), "pools": _pools(eng),
+                      "logits": logits}
+        if shape == (1, 2):
+            res["experts"] = expert_planes(eng, params)
+    mesh = meshes[(1, 2)]
+    res["spec"] = {"plain": _serve(GenerationEngine(moe, params, device="cpu", mesh=mesh,
+                                                    **SPEC_ENGINE), ps, SPEC_NEW)}
+    spec_eng = GenerationEngine(moe, params, device="cpu", mesh=mesh,
+                                spec_decode=SpecConfig(k=2, draft_codec="nf4"), **SPEC_ENGINE)
+    res["spec"]["spec"] = _serve(spec_eng, ps, SPEC_NEW)
+    res["spec"]["stats"] = spec_eng.scheduler.stats()
+    res["odd"] = odd_experts(mesh)
+    return res
+
+
+def odd_experts(mesh):
+    """E = 3 at (1, 2), port only: the expert dim stays whole, so every
+    rank runs every expert on column- and row-parallel shards of its
+    weights. The tokens of the mesh engine and of the unsharded one, and
+    the spec entries of layer 0's expert leaves."""
+    import torch
+
+    from repro_torch.core.decompress import compress_tree
+    from repro_torch.core.formats import get_spec
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import GenerationEngine
+
+    model = Model(dataclasses.replace(tree_config("moe"), n_experts=3))
+    params = compress_tree(model.init(torch.Generator().manual_seed(0), device="cpu"),
+                           get_spec(MOE_FMT), layer_stack=model.layer_stack)
+    out = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        eng = GenerationEngine(model, params, device="cpu", mesh=m, **MOE_SERVE)
+        out[name] = _serve(eng, moe_prompts(), SERVE_NEW)
+        if m is not None:
+            layer = eng.params["layers"][0]["moe"]
+            out["specs"] = {n: tuple(eng._ctx.leaf_specs[id(layer[n])][1].codes)
+                            for n in ("w_up", "w_gate", "w_down")}
+    return out
+
+
 def rank_main(rank, world, port, out):
     """One rank: SERVE at both meshes, MQA and ROW at (1, 2), SPEC and the
     SNAP cycle at (2, 1), and a (1, 2) engine's snapshot (rank 0 writes it
-    to out/snap12) after its first two rounds."""
+    to out/snap12) after its first two rounds; then MOE and MOE_SPEC."""
     import torch
     import torch.distributed as dist
 
@@ -188,8 +280,8 @@ def rank_main(rank, world, port, out):
         with open(f"{out}/trees.pkl", "rb") as f:
             trees = pickle.load(f)
         model, mqa = Model(config()), Model(config(mqa=True))
-        params = {name: params_from_jax(tree, (mqa if name == "mqa" else model).cfg,
-                                        device="cpu") for name, tree in trees.items()}
+        params = {name: params_from_jax(tree, tree_config(name), device="cpu")
+                  for name, tree in trees.items()}
         meshes = {shape: make_test_mesh(*shape, device="cpu") for shape in MESHES}
         res = {"serve": {}}
         ps = prompts(model.cfg.vocab_size, SERVE_LENGTHS, 1)
@@ -243,17 +335,26 @@ def rank_main(rank, world, port, out):
         done = eng.run_until_drained()
         res["snap12"]["tokens"] = [done[a].tolist(), done[b].tolist()]
         res["refusals"] = refusals(model, params["dense"], mesh21)
+        res["moe"] = moe_cases(params["moe"], meshes, ps)
         with open(f"{out}/rank{rank}.pkl", "wb") as f:
             pickle.dump(res, f)
     finally:
         dist.destroy_process_group()
 
 
+def _words(eng):
+    """A reference engine's pools, bf16 planes as int16 words."""
+    pools = {n: np.asarray(v) for n, v in eng.kv.pools.items()}
+    return {n: v.view(np.int16) if v.dtype.itemsize == 2 and v.dtype.kind == "V" or
+            str(v.dtype) == "bfloat16" else v for n, v in pools.items()}
+
+
 def reference_main(out):
     """The reference's SERVE at both meshes (tokens, pools as int16 /
     int32 / uint8 words, the prefill logits), MQA at (1, 2) (tokens,
-    logits) and ROW at (1, 2): wo's product with x split over `model`
-    along K and wo placed by `shard_params`, so the dot is partitioned."""
+    logits), MOE at both meshes (as SERVE) and ROW at (1, 2): wo's product
+    with x split over `model` along K and wo placed by `shard_params`, so
+    the dot is partitioned."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
@@ -276,14 +377,20 @@ def reference_main(out):
         logits = []
         _record_logits(eng, logits)
         tokens = _serve(eng, ps, SERVE_NEW)
-        pools = {n: np.asarray(v) for n, v in eng.kv.pools.items()}
-        pools = {n: v.view(np.int16) if v.dtype.itemsize == 2 and v.dtype.kind == "V" or
-                 str(v.dtype) == "bfloat16" else v for n, v in pools.items()}
-        res["serve"][shape] = {"tokens": tokens, "pools": pools, "logits": logits}
+        res["serve"][shape] = {"tokens": tokens, "pools": _words(eng), "logits": logits}
     eng = GenerationEngine(mqa, trees["mqa"], mesh=meshes[(1, 2)], paged=True, **SERVE)
     logits = []
     _record_logits(eng, logits)
     res["mqa"] = {"tokens": _serve(eng, ps, SERVE_NEW), "logits": logits}
+    moe = Model(tree_config("moe", reference=True))
+    res["moe"] = {}
+    for shape, mesh in meshes.items():
+        eng = GenerationEngine(moe, trees["moe"], mesh=mesh, paged=True, **MOE_SERVE)
+        logits = []
+        _record_logits(eng, logits)
+        res["moe"][shape] = {"tokens": _serve(eng, moe_prompts(), SERVE_NEW),
+                             "pools": _words(eng),
+                             "logits": logits}
 
     mesh = meshes[(1, 2)]
     ctx = sh.ShardingCtx(mesh, mode="serve")
