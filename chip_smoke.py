@@ -90,9 +90,13 @@ spec engine on 2 of its layers. Last, `recurrent` serves falcon-mamba-7b
 int8 ring KV) at full width and depth through the dense ring engine that
 `paged="auto"` picks for them: the build, the GeMV and GeMM at their
 shapes (K 256, N 288 and 256, f32 x), 4 prompts of 64 tokens x 32 new
-with 256 and 292 GeMVs a decode step, the step beside its bytes bound and
-a profiler split of it, the kernel path against the plain path, every
-token against teacher-forced logits of the full scan; then llama3.2-1b
+with 256 and 292 GeMVs a decode step, the step beside its bytes bound,
+the same serve with `paged=False` on a one-rank NCCL mesh beside the
+plain ring engine (tokens, ring planes and recurrent states bitwise, the
+same launches; `ring_on_mesh`) and the kernels at its (1, 4) local shard
+shapes, a profiler split of a decode step, the kernel path against the
+plain path, every token against teacher-forced logits of the full scan;
+then llama3.2-1b
 with `paged=False`, its tokens against its paged engine's up to a near
 tie. Last, `vlm_audio` serves qwen2-vl-7b (M-RoPE over three position
 streams, G 7) and hubert-xlarge (a bidirectional encoder with learned
@@ -193,6 +197,22 @@ RECURRENT = ("falcon-mamba-7b", "recurrentgemma-9b")
 RING_MODEL = TIED_MODEL
 RECURRENT_BATCH, RECURRENT_PROMPT, RECURRENT_NEW = 4, 64, 32
 RECURRENT_MS = (1, 4, 256)  # the GeMV at decode rows, the GeMM at the prefill's 4 x 64
+# each recurrent stack then served with paged=False on a one-rank NCCL mesh
+# beside the plain ring engine (`ring_on_mesh`), and its kernels at its
+# (1, 4) local shard shapes: falcon-mamba's in_proj N 16384 / 4 (gathered
+# whole for [u | z]), x_proj N 288 / 4 = 72 (gathered whole for dt_r | B |
+# C), dt_proj N 8192 / 4, out_proj K 8192 / 4; recurrentgemma's w_in /
+# w_gate_branch / w_a / w_x / wq N 4096 / 4, wk / wv N 256 / 4 (its one KV
+# head gathered whole), the MLP's N 12288 / 4, w_out / wo K 4096 / 4 and
+# w_down K 12288 / 4
+RING14 = {
+    "falcon-mamba-7b": ("falcon-mamba-7b (1, 4)", (
+        (4096, 4096, "in"), (8192, 72, "x"), (256, 2048, "dt"), (2048, 4096, "out"))),
+    "recurrentgemma-9b": ("recurrentgemma-9b (1, 4)", (
+        (4096, 1024, "in/gate_branch/a/x/q"), (4096, 64, "k/v"), (4096, 3072, "gate/up"),
+        (1024, 4096, "out/o"), (3072, 4096, "down"))),
+}
+RING14_MS = (4, 256)  # the decode step's rows and the prefill's 4 x 64
 # qwen2-vl-7b (M-RoPE, G 7) and hubert-xlarge (a bidirectional encoder, Dh
 # 80, learned positions over 32768, a gelu MLP, 504 targets) at full width
 # and depth: qwen's matmuls at decode rows, the spec verify's 16 and a
@@ -257,6 +277,7 @@ GROK14_HEADS = (12, 2)
 
 _LOG = []
 _T0 = time.perf_counter()
+CARD = "card not read"  # nvidia-smi's name and power limit, once read
 
 
 def log(*parts):
@@ -3274,9 +3295,10 @@ def snapshot_serve(torch, model, params, prompts, report, new=32):
 def tp_kernels(torch, timer, cases, model, shapes, ms, heads):
     """The kernels at one model's local shard shapes on a (1, 4) mesh
     (`shapes` (K, N, role) at `ms` rows, SERVED_SPEC weights; attention at
-    `heads` (q, kv) over a SERVED_KV pool), each against its plain version
-    at KERNEL_TOL and timed beside its plain version, its library call and
-    its bound; each case is tagged with `model`."""
+    `heads` (q, kv) over a SERVED_KV pool, none where `heads` is None: the
+    ring engine reads its ring through `attention_core`), each against its
+    plain version at KERNEL_TOL and timed beside its plain version, its
+    library call and its bound; each case is tagged with `model`."""
     from repro_torch.core.compression import compress
     from repro_torch.core.formats import get_spec
     from repro_torch.kernels import deca_gemm, paged_attention, ref
@@ -3302,6 +3324,9 @@ def tp_kernels(torch, timer, cases, model, shapes, ms, heads):
                 raise AssertionError(f"{kind} disagrees with its plain version: {case}")
             cases.append(case)
         del ct
+    if heads is None:
+        torch.cuda.empty_cache()
+        return
     hq, hkv = heads
     args = _attention_inputs(torch, SERVED_KV, g, hq=hq, hkv=hkv, dh=128)
     got = paged_attention.paged_attention(*args, quant=SERVED_KV)
@@ -3331,21 +3356,47 @@ def replay_walls(torch, graphs, n=8):
     return a.elapsed_time(b) / n, key[2][0]
 
 
-def collective_kernels(torch, graphs, n=1) -> dict:
-    """{kernel name: launches a replay} of the first captured graph's
-    collectives: the device kernels and copies of `n` traced replays whose
-    names are NCCL's or a device copy's."""
+def first_replay(graphs):
+    """The replay of a `StepGraphs`' first captured graph."""
+    return next(iter(graphs.graphs.values())).graph.replay
+
+
+def collective_kernels(torch, run, n=1) -> dict:
+    """{kernel name: launches a call} of `run()`'s collectives (a graph's
+    replay, an uncaptured step): the device kernels and copies of `n`
+    traced calls whose names are NCCL's or a device copy's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    _, g = next(iter(graphs.graphs.items()))
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            g.graph.replay()
+            run()
         torch.cuda.synchronize()
     return {e.key: e.count / n for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and not e.key.startswith("aten::")
             and ("nccl" in e.key.lower() or "memcpy" in e.key.lower())}
+
+
+@contextlib.contextmanager
+def one_rank_nccl(torch):
+    """A one-rank NCCL world on card 0 (a free localhost port) and its
+    (1, 1) mesh, the group destroyed on the way out."""
+    import socket
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_test_mesh
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield make_test_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
 
 
 def serve_on_mesh(torch, model, params, batch, new, what):
@@ -3364,13 +3415,9 @@ def serve_on_mesh(torch, model, params, batch, new, what):
     (the one-rank collectives' cost), this rank's param bytes and the
     mesh engine's peak memory beyond the params. Opens its NCCL group and
     destroys it (after its engine and graphs). Returns the record."""
-    import socket
-
     import numpy as np
-    import torch.distributed as dist
 
     from repro_torch.core.decompress import compressed_bytes
-    from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.serve.engine import GenerationEngine
 
     cfg = model.cfg
@@ -3382,14 +3429,7 @@ def serve_on_mesh(torch, model, params, batch, new, what):
     plain_done = plain.run_until_drained()
     plain_launches = {k: fn.launches for k, fn in counters().items()}
     rec = {}
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    torch.cuda.set_device(0)
-    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
-                            world_size=1)
-    try:
-        mesh = make_test_mesh(1, 1)
+    with one_rank_nccl(torch) as mesh:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -3442,8 +3482,8 @@ def serve_on_mesh(torch, model, params, batch, new, what):
             raise AssertionError("the mesh decode chunk was not captured")
         costs = graph_costs(eng._chunk_graphs, chunks, f"{what} decode chunk")
         check_replays(torch, eng, eng._chunk_graphs, f"{what} decode chunk", rec)
-        nccl = collective_kernels(torch, eng._chunk_graphs)
-        plain_nccl = collective_kernels(torch, plain._chunk_graphs)
+        nccl = collective_kernels(torch, first_replay(eng._chunk_graphs))
+        plain_nccl = collective_kernels(torch, first_replay(plain._chunk_graphs))
         mesh_ms, steps = replay_walls(torch, eng._chunk_graphs)
         plain_ms, plain_steps = replay_walls(torch, plain._chunk_graphs)
         log(f"  a replay's NCCL kernels and copies: mesh {nccl or 'none recorded'}; plain "
@@ -3461,8 +3501,6 @@ def serve_on_mesh(torch, model, params, batch, new, what):
         del eng, sched
         gc.collect()
         torch.cuda.synchronize()
-    finally:
-        dist.destroy_process_group()
     del plain
     gc.collect()
     torch.cuda.empty_cache()
@@ -3624,21 +3662,16 @@ def profile_dense_step(torch, model, params, report, key, n=3):
     del cache
 
 
-def dense_serve(torch, model, params, report, key, prompts, new=RECURRENT_NEW, **engine_kw):
-    """One greedy `generate` of `prompts` (B, S) through the dense engine
-    (`paged="auto"` for a recurrent stack, `paged=False` given for an
-    attention one): the prefill's wall, each decode step's (uncaptured:
-    every op launched from the host), tok/s, the peak device memory over
-    the run, and the GeMM launches of the prefill and GeMV launches a
-    decode step, which must be one per FC matmul; the decode step beside
-    its bytes bound. Returns the tokens (B, new)."""
-    from repro_torch.serve.engine import GenerationEngine
-
-    cfg = model.cfg
-    b, s = prompts.shape
-    eng = GenerationEngine(model, params, max_len=s + new, **engine_kw)
+def timed_generate(torch, eng, prompts, new) -> dict:
+    """One greedy `generate` of `prompts` (B, S) through the dense ring
+    engine `eng`, the launch counts set to 0 before it and read after it:
+    {outs, ring (the engine's caches after it), wall (s), walls (s of the
+    prefill and of each uncaptured decode step, each ended by a
+    synchronize), launches, peak (bytes over the serve, reset before the
+    prefill), prefill_extra (the prefill's peak over what it found
+    allocated)}."""
     if eng.paged:
-        raise AssertionError(f"{cfg.name}: the engine is paged, not the dense ring engine")
+        raise AssertionError(f"{eng.cfg.name}: the engine is paged, not the dense ring engine")
     walls = {"prefill": [], "decode": []}
     prefill_peak = {}
 
@@ -3657,19 +3690,42 @@ def dense_serve(torch, model, params, report, key, prompts, new=RECURRENT_NEW, *
             return out
         return run
 
-    eng._prefill, eng._decode = timed(eng._prefill, "prefill"), timed(eng._decode, "decode")
+    prefill, decode = eng._prefill, eng._decode
+    eng._prefill, eng._decode = timed(prefill, "prefill"), timed(decode, "decode")
     gc.collect()
     torch.cuda.synchronize()
     for fn in counters().values():
         fn.launches = 0
     t0 = time.perf_counter()
-    outs = eng.generate(prompts, new)  # the peak is reset before the prefill
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters().items()}
-    peak = torch.cuda.max_memory_allocated()
-    pf_extra = prefill_peak["peak"] - prefill_peak["base"]
+    try:
+        outs = eng.generate(prompts, new)  # the peak is reset before the prefill
+        torch.cuda.synchronize()
+    finally:
+        eng._prefill, eng._decode = prefill, decode
+    return {"outs": outs, "ring": eng.ring, "wall": time.perf_counter() - t0, "walls": walls,
+            "launches": {k: fn.launches for k, fn in counters().items()},
+            "peak": torch.cuda.max_memory_allocated(),
+            "prefill_extra": prefill_peak["peak"] - prefill_peak["base"]}
+
+
+def dense_serve(torch, model, params, report, key, prompts, new=RECURRENT_NEW, **engine_kw):
+    """One greedy `generate` of `prompts` (B, S) through the dense engine
+    (`paged="auto"` for a recurrent stack, `paged=False` given for an
+    attention one): the prefill's wall, each decode step's (uncaptured:
+    every op launched from the host), tok/s, the peak device memory over
+    the run, and the GeMM launches of the prefill and GeMV launches a
+    decode step, which must be one per FC matmul; the decode step beside
+    its bytes bound. Returns the `timed_generate` record (its tokens
+    `outs`, (B, new))."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    cfg = model.cfg
+    b, s = prompts.shape
+    eng = GenerationEngine(model, params, max_len=s + new, **engine_kw)
+    run = timed_generate(torch, eng, prompts, new)
     del eng
+    outs, wall, walls, launches = run["outs"], run["wall"], run["walls"], run["launches"]
+    peak, pf_extra = run["peak"], run["prefill_extra"]
     if outs.shape != (b, new) or not ((0 <= outs) & (outs < cfg.vocab_size)).all():
         raise AssertionError(f"{cfg.name}: tokens {outs.shape} outside ({b}, {new}) or the vocabulary")
     per = gemvs_per_step(cfg)
@@ -3698,7 +3754,101 @@ def dense_serve(torch, model, params, report, key, prompts, new=RECURRENT_NEW, *
                    "gemvs_per_step": per, "peak_bytes": peak, "prefill_extra_bytes": pf_extra,
                    "bound_ms": bound,
                    "bound_parts_bytes": parts}
-    return outs
+    return run
+
+
+def ring_on_mesh(torch, model, params, prompts, plain, what):
+    """`model` with `params` (no second build) served by the dense ring
+    engine (`paged=False`) on a one-rank NCCL mesh (1, 1) through
+    `timed_generate`, beside `plain`, the plain ring engine's `dense_serve`
+    of the same (B, S) greedy prompts. On one rank every shard is the
+    whole leaf, a channel block every channel and every collective sums or
+    gathers one operand: the tokens and every ring-cache plane and recurrent state
+    after the serve must be the plain engine's bitwise, and the DECA
+    launches the plain serve's. Prints the NCCL kernels and device copies
+    of one more decode step of each engine (traced), the median decode
+    step beside the plain engine's, the host time of one all-reduce and
+    one all-gather as the step calls them, this rank's param bytes and
+    each serve's peak, each line with the card's name and power limit.
+    Returns the record."""
+    import numpy as np
+
+    from repro_torch.core.decompress import compressed_bytes
+    from repro_torch.dist import sharding as sh
+    from repro_torch.serve.engine import GenerationEngine
+
+    cfg = model.cfg
+    b, s = prompts.shape
+    new = plain["outs"].shape[1]
+    t0 = time.perf_counter()
+    runs = {"plain": plain}
+    with one_rank_nccl(torch) as mesh:
+        eng = GenerationEngine(model, params, mesh=mesh, max_len=s + new, paged=False)
+        runs["mesh"] = timed_generate(torch, eng, prompts, new)
+        same = [np.array_equal(a, p) for a, p in zip(runs["mesh"]["outs"], plain["outs"])]
+        bad = [f"layer {i} {name}" for i, (mine, want) in enumerate(zip(eng.ring,
+                                                                        plain["ring"]))
+               for name, t in mine.items() if not torch.equal(t, want[name])]
+        tok = torch.as_tensor(plain["outs"][:, -1:], dtype=torch.int32, device="cuda")
+        pos = torch.full((b, 1), s + new, dtype=torch.int32, device="cuda")
+
+        def mesh_step():
+            with sh.scope(eng._ctx):
+                eng._decode(eng.params, tok, pos, eng.ring)
+
+        copies = {"mesh": collective_kernels(torch, mesh_step),
+                  "plain": collective_kernels(
+                      torch, lambda: model.decode_step(params, tok, pos, plain["ring"]))}
+        local, whole = compressed_bytes(eng.params), compressed_bytes(params)
+        # the host cost of one collective as the step calls it, on a (B, 1,
+        # d_model) bf16 row block: uncaptured, every call pays it
+        x = torch.zeros((b, 1, cfg.d_model), dtype=torch.bfloat16, device="cuda")
+        coll_us = {}
+        for name, fn in (("all_reduce", lambda: sh.all_reduce(x, "model", eng._ctx)),
+                         ("all_gather", lambda: sh.all_gather(x, "model", eng._ctx, -1))):
+            fn()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(100):
+                fn()
+            torch.cuda.synchronize()
+            coll_us[name] = (time.perf_counter() - t) * 1e4
+        del eng, x
+        gc.collect()
+        torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    median = {k: sorted(r["walls"]["decode"])[len(r["walls"]["decode"]) // 2] * 1e3
+              for k, r in runs.items()}
+    m, p = runs["mesh"], runs["plain"]
+    log(f"{what}: {cfg.name} with paged=False on a (1, 1) NCCL mesh beside the plain ring "
+        f"engine, {b} prompts of {s} x {new} new greedy tokens [{CARD}]: tokens bitwise "
+        f"{sum(same)}/{len(same)} rows; every ring plane and recurrent state bitwise: "
+        f"{not bad}; launches {m['launches']} (the plain serve's {p['launches']})")
+    log(f"  decode step (uncaptured, median of {len(m['walls']['decode'])}): mesh "
+        f"{median['mesh']:.2f} ms, plain {median['plain']:.2f} ms "
+        f"({median['mesh'] - median['plain']:+.2f} ms); prefill mesh "
+        f"{1e3 * m['walls']['prefill'][0]:.1f} ms, plain {1e3 * p['walls']['prefill'][0]:.1f} "
+        f"ms; a decode step's NCCL kernels and device copies: mesh {copies['mesh'] or 'none'}, "
+        f"plain {copies['plain'] or 'none'} [{CARD}]")
+    log(f"  this rank's params {local / 1e9:.3f} GB of {whole / 1e9:.3f} GB; peak over the "
+        f"serve: mesh {m['peak'] / 1e9:.3f} GB, plain {p['peak'] / 1e9:.3f} GB; one "
+        f"collective's host time (100 calls on {b} x {cfg.d_model} bf16, synchronized "
+        f"after): all_reduce {coll_us['all_reduce']:.1f} us, all_gather + cat "
+        f"{coll_us['all_gather']:.1f} us; {time.perf_counter() - t0:.1f} s [{CARD}]")
+    if not all(same) or bad:
+        raise AssertionError(f"{what}: the mesh ring engine is not the plain one bitwise: "
+                             f"tokens {same}, planes {bad[:8]}")
+    if m["launches"] != p["launches"]:
+        raise AssertionError(f"{what}: the mesh serve launched {m['launches']}, the plain "
+                             f"serve {p['launches']}")
+    return {"tokens_bitwise": same, "planes_bitwise": not bad, "launches": m["launches"],
+            "plain_launches": p["launches"], "decode_median_ms": median,
+            "decode_ms": {k: [1e3 * w for w in r["walls"]["decode"]] for k, r in runs.items()},
+            "prefill_ms": {k: 1e3 * r["walls"]["prefill"][0] for k, r in runs.items()},
+            "step_copies": copies, "collective_host_us": coll_us,
+            "param_bytes": {"rank": local, "whole": whole},
+            "peak_bytes": {k: r["peak"] for k, r in runs.items()}, "card": CARD,
+            "seconds": time.perf_counter() - t0}
 
 
 def near_tie_rows(torch, model, params, prompts, outs, other, key_report):
@@ -3732,8 +3882,10 @@ def recurrent(torch, report):
     timed; a greedy serve of RECURRENT_BATCH prompts of RECURRENT_PROMPT
     tokens and RECURRENT_NEW new ones through `GenerationEngine`, whose
     `paged="auto"` picks the dense ring engine, with its launches, walls,
-    peak and the decode step beside its bytes bound; a profiler split of
-    a decode step; the kernel path against the plain path over
+    peak and the decode step beside its bytes bound; the same serve on a
+    one-rank NCCL mesh beside the plain ring engine, bitwise
+    (`ring_on_mesh`), and the kernels at the model's (1, 4) local shard
+    shapes (`tp_kernels`, RING14); a profiler split of a decode step; the kernel path against the plain path over
     PATH_LAYERS layers; each token against teacher-forced logits of the
     full-sequence forward (the GeMM and the full scan). Then llama3.2-1b
     with `paged=False` on an int8 ring: the token rule, and its tokens
@@ -3753,11 +3905,18 @@ def recurrent(torch, report):
         if arch in RECURRENT:
             check_model_kernels(torch, timer, model, params, cases, ms=RECURRENT_MS,
                                 attention=False)
-            outs = dense_serve(torch, model, params, rec, "serve", prompts)
+            run = dense_serve(torch, model, params, rec, "serve", prompts)
+            outs = run["outs"]
+            rec["mesh"] = ring_on_mesh(torch, model, params, prompts, run, f"{arch} ring mesh")
+            del run
+            t = time.perf_counter()
+            tp_kernels(torch, timer, cases, *RING14[arch], RING14_MS, None)
+            log(f"{RING14[arch][0]} local shard shapes: {2 * len(RING14[arch][1])} cases in "
+                f"{time.perf_counter() - t:.1f} s [{CARD}]")
             profile_dense_step(torch, model, params, rec, "decode_profile")
             compare_dense_paths(torch, model, params, rec, "path_comparison")
         else:
-            outs = dense_serve(torch, model, params, rec, "serve", prompts, paged=False)
+            outs = dense_serve(torch, model, params, rec, "serve", prompts, paged=False)["outs"]
             paged = GenerationEngine(model, params, max_len=RECURRENT_PROMPT + RECURRENT_NEW,
                                      max_slots=RECURRENT_BATCH, decode_chunk=8)
             other = paged.generate(prompts, RECURRENT_NEW)
@@ -4602,9 +4761,11 @@ def phase_alone(phase, record: str) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     torch.backends.cudnn.allow_tf32 = False
     OUT.mkdir(exist_ok=True)
-    log(subprocess.run(
+    global CARD
+    CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip())
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    log(CARD)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     cuda.build()
@@ -4652,6 +4813,8 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     log(smi)
+    global CARD
+    CARD = smi
     if smi.split(",")[0].strip() != H100_NAME:
         log(f"warning: the card is not an {H100_NAME}; the roofline bounds and RoofLens "
             f"use the H100 SXM profile ({rs.H100_SXM}), which is not this card's")

@@ -11,7 +11,7 @@
                     checkpoint-restart training (`ResilientTrainer`).
 
 Counterparts of `repro/dist/`. `sharding` also holds the sharded serving
-step's layout (`local_tree`, `expert_range`, `constrain_local`, the
+step's layout (`local_tree`, `expert_range`, `channels`, `constrain_local`, the
 collectives over a named axis), which `GenerationEngine(mesh=)` and the
 layers use; what a mesh engine does not serve yet is ROADMAP Queue A
 item 12's open part."""

@@ -25,6 +25,7 @@ Entry points:
   placements(spec, mesh) / placement_tree, shard_params(params, ctx),
   local_shard(x, spec, ctx)
   serve_ctx / local_tree / leaf_spec         the serving step on local shards
+  channel_axis / channels                    a recurrent block's channel block
   expert_range / adopt_specs                 a rank's experts; a re-encoded local tree
   constrain_local(x, kind, have) / relayout  a local activation's layout
   all_reduce / all_gather over a named mesh axis
@@ -95,12 +96,19 @@ class ShardingCtx:
     batch_axes: Tuple[str, ...] = ()
     # id(local leaf) -> (the leaf, its spec): `local_tree` fills it
     leaf_specs: Dict[int, Tuple[Any, Any]] = dataclasses.field(default_factory=dict)
+    _sizes: Optional[Dict[str, int]] = dataclasses.field(default=None, init=False,
+                                                         repr=False, compare=False)
 
     @property
     def axis_sizes(self) -> Dict[str, int]:
-        from repro_torch.launch.mesh import axis_sizes
+        """{axis name: size}, read from the mesh once: a DeviceMesh
+        rebuilds its rank tensor on every read of its shape (~50 us), and
+        the serving step reads the sizes at every layout decision."""
+        if self._sizes is None:
+            from repro_torch.launch.mesh import axis_sizes
 
-        return axis_sizes(self.mesh)
+            self._sizes = axis_sizes(self.mesh)
+        return self._sizes
 
     @property
     def batch_split(self) -> int:
@@ -647,6 +655,24 @@ def kv_head_axis(hkv: int, ctx: ShardingCtx) -> Optional[str]:
     """The axis a paged pool's `hkv` KV heads are split over (the `pkv`
     spec's head entry), or None: every rank holds them all."""
     return _entry(spec_for((1, 1, hkv, 1), _ACT_ROLES["pkv"], ctx)[2])
+
+
+def channel_axis(width: int, ctx: Optional[ShardingCtx]) -> Optional[str]:
+    """The axis a recurrent block's `width` channels are split over
+    ('model' where it divides, as the column-parallel N of `w_in`,
+    `dt_proj` or `w_a`), or None: every rank holds them all."""
+    if ctx is None:
+        return None
+    return _entry(_resolve_dim(width, _ROLE_AXES["model"], ctx, set()))
+
+
+def channels(t: torch.Tensor, ctx: Optional[ShardingCtx], dim: int = -1) -> torch.Tensor:
+    """This rank's channel block (`channel_axis`) of a replicated
+    per-channel leaf (`conv_w`, `a_log`, `d_skip`, ...) or of a whole
+    state along `dim`, as a view; the tensor itself with no ctx."""
+    if ctx is None:
+        return t
+    return cut(t, channel_axis(t.shape[dim], ctx), ctx, dim)
 
 
 def _leaf_shard(leaf: Any, spec: Any, ctx: ShardingCtx) -> Any:

@@ -13,9 +13,10 @@ tensors; the paged pool, the ring cache and the recurrent state are dicts
 of tensors per layer and are updated in place (the reference returns new
 ones per write; in place saves a copy of every layer's cache per step).
 
-Under a serving mesh (`dist.sharding.serve_ctx`) the paged attention block,
-the MLP, the MoE experts, the embedding lookup and the logits run on this
-rank's shards:
+Under a serving mesh (`dist.sharding.serve_ctx`) the attention blocks
+(paged and ring), the MLP, the MoE experts, the Mamba-1 and RG-LRU blocks
+(on this rank's channel block), the embedding lookup and the logits run on
+this rank's shards:
 the reference's `constrain` sites become `sharding.constrain_local` on
 local tensors, and `tp_mm` is the matmul of a column-parallel weight
 (local columns out), a row-parallel one (f32 partial products summed over
@@ -511,6 +512,7 @@ def attention_block(
     positions: torch.Tensor,  # (B, S), or (3, B, S) for M-RoPE
     local: bool,
     cache: Optional[Dict[str, torch.Tensor]] = None,
+    rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Attention layer of the dense engine: projections -> rope ->
     (ring-cache write and dequantize-on-read) -> attention -> output
@@ -519,12 +521,23 @@ def attention_block(
     broadcast. Rope rotates by that shared row, M-RoPE by each row's own
     three streams (the reference's `apply_rope` and `apply_mrope`), and the
     ring and the mask take the temporal stream of row 0. With no cache, the
-    queries attend to their own keys."""
+    queries attend to their own keys.
+
+    Under a serving mesh (`rows`: the whole batch's rows, of which x holds
+    this rank's share over `data`) it is the paged block's layout: q, k
+    and v in this rank's heads, the KV heads whole where the mesh does not
+    divide them (every query head then attends on every rank), and the
+    ring holds this rank's rows and KV heads (`Model.init_cache`); wo is
+    row-parallel over the heads q came in."""
     b, s, _ = x.shape
     hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = mm(x, params["wq"]).reshape(b, s, hq, dh)
-    k = mm(x, params["wk"]).reshape(b, s, hkv, dh)
-    v = mm(x, params["wv"]).reshape(b, s, hkv, dh)
+    ctx = sh.serve_ctx()
+    row_ax = sh.batch_axis(b if rows is None else rows, ctx)
+    q, q_spec = _heads(x, params["wq"], hq, dh, row_ax)
+    k, kv_spec = _heads(x, params["wk"], hkv, dh, row_ax)
+    v, _ = _heads(x, params["wv"], hkv, dh, row_ax)
+    if q_spec[2] != kv_spec[2]:
+        q_spec, q = kv_spec, sh.relayout(q, q_spec, kv_spec, ctx)
     if not cfg.mrope_sections:
         positions = (positions if positions.dim() == 2 else positions[0])[:1].expand(b, s)
     q, k, tok_pos = rotate(q, k, positions, cfg)
@@ -539,7 +552,7 @@ def attention_block(
         q, k, v, q_pos=q_pos, k_pos=k_pos, causal=cfg.causal,
         window=cfg.window if local else 0, softcap=cfg.attn_softcap,
     )
-    return mm(out.reshape(b, s, hq * dh), params["wo"]), cache
+    return tp_mm(out.reshape(b, s, -1), params["wo"], q_spec[2])[0], cache
 
 
 _GATED = ("swiglu", "geglu")
@@ -937,6 +950,18 @@ def causal_conv(u: torch.Tensor, conv_w: torch.Tensor,
     return acc, u_ext[:, -(ck - 1):]
 
 
+def _channel_mm(x: torch.Tensor, w, ch: Optional[str], have: Optional[str] = None):
+    """x @ w for a column-parallel weight as this rank's channel block
+    (`ch`, `sharding.channel_axis`): the product's own N split relaid to
+    the block (the same split wherever both divide). `have` is the axis x's
+    last dim is split over; x is gathered whole for the contraction."""
+    y, n_ax = tp_mm(x, w, have)
+    if n_ax == ch:
+        return y
+    last = (None,) * (y.dim() - 1)
+    return sh.relayout(y, last + (n_ax,), last + (ch,), sh.serve_ctx())
+
+
 def _keep_state(state, conv: torch.Tensor, h: torch.Tensor):
     """Write the new conv buffer and recurrent state into `state` in place;
     None without a state (the reference returns none then)."""
@@ -958,12 +983,20 @@ def rglru_scan(
     Both gate weights go through `mm`: on a dense tree f32 u times the
     f32 weight, as the reference; on a compressed one the DECA GeMV/GeMM,
     whose bf16(x) is exact on the bf16-valued u. Returns (hs in u's dtype,
-    the last f32 h)."""
+    the last f32 h).
+
+    Under a serving mesh u and h0 hold this rank's channel block
+    (`sharding.channels`): u is gathered whole for the W_a / W_x
+    contractions, whose column shards give the gates of the local
+    channels, and the recurrence runs on those."""
     c = 8.0
-    log_a_base = -c * softplus(params["a_param"])  # (R,) negative
+    ctx = sh.serve_ctx()
+    ch = sh.channel_axis(params["a_param"].shape[-1], ctx)
+    local = lambda name: sh.channels(params[name], ctx)
+    log_a_base = -c * softplus(local("a_param"))  # (R,) negative
     u32 = u.to(torch.float32)
-    r_gate = sigmoid(mm(u32, params["w_a"]) + params["b_a"])
-    i_gate = sigmoid(mm(u32, params["w_x"]) + params["b_x"])
+    r_gate = sigmoid(_channel_mm(u32, params["w_a"], ch, ch) + local("b_a"))
+    i_gate = sigmoid(_channel_mm(u32, params["w_x"], ch, ch) + local("b_x"))
     a = torch.exp(r_gate * log_a_base)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i_gate * u32)
     hs, h = linear_recurrence(a, gated, h0.to(torch.float32))
@@ -989,17 +1022,25 @@ def rglru_block(
 ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
     """Griffin's recurrent block: gelu_tanh(x W_gate_branch) times the
     RG-LRU of the causal conv of x W_in, then W_out. `state` {conv (B,
-    ck - 1, R), h (B, R) f32} carries a request across calls, in place."""
+    ck - 1, R), h (B, R) f32} carries a request across calls, in place.
+
+    Under a serving mesh x holds this rank's rows, and the R channels split
+    over `model` where they divide (`sharding.channel_axis`): W_in and
+    W_gate_branch give the local channels, the conv, the gates, the
+    recurrence and the state (`Model.init_cache`) run on them, and W_out
+    is row-parallel over them (`tp_mm`)."""
     b = x.shape[0]
     r = cfg.lru_width or cfg.d_model
-    gate = gelu_tanh(mm(x, params["w_gate_branch"]))  # (B, S, R)
-    u = mm(x, params["w_in"])
-    acc, conv = causal_conv(u, params["conv_w"], state)
+    ctx = sh.serve_ctx()
+    ch = sh.channel_axis(r, ctx)
+    gate = gelu_tanh(_channel_mm(x, params["w_gate_branch"], ch))  # (B, S, R)
+    u = _channel_mm(x, params["w_in"], ch)
+    acc, conv = causal_conv(u, sh.channels(params["conv_w"], ctx), state)
     u = acc.to(x.dtype)
     h0 = state["h"] if state is not None else torch.zeros(
-        (b, r), dtype=torch.float32, device=x.device)
+        (b, u.shape[-1]), dtype=torch.float32, device=x.device)
     hs, h = rglru_scan(params, u, h0)
-    return mm(hs * gate, params["w_out"]), _keep_state(state, conv, h)
+    return tp_mm(hs * gate, params["w_out"], ch)[0], _keep_state(state, conv, h)
 
 
 def selective_scan(
@@ -1041,18 +1082,33 @@ def mamba_block(
     silu(z), goes out through W_out. All four projections go through
     `mm`, so a compressed `x_proj` or `dt_proj` (eligible at full width)
     runs the DECA kernels. `state` {conv (B, ck - 1, di), h (B, di, st)
-    f32} carries a request across calls, in place."""
+    f32} carries a request across calls, in place.
+
+    Under a serving mesh x holds this rank's rows, and the di channels
+    split over `model` where they divide (`sharding.channel_axis`). W_in's
+    column split runs over [u | z] (at `model` = 2 rank 0 would hold all of
+    u), so its product is gathered whole and each half cut to the rank's
+    channel block. W_x contracts the whole u, and its column split crosses
+    the dt_r | B | C boundaries, so its product is gathered whole too; W_dt
+    gives the local channels. The conv, the scan and the state
+    (`Model.init_cache`) run on the local channels, and W_out is
+    row-parallel over them (`tp_mm`)."""
     b = x.shape[0]
     di, st, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
-    u, z = torch.chunk(mm(x, params["in_proj"]), 2, dim=-1)
-    acc, conv = causal_conv(u, params["conv_w"], state)
-    u = silu(acc + params["conv_b"]).to(x.dtype)
-    proj = mm(u, params["x_proj"])  # (B, S, dr + 2 st)
+    ctx = sh.serve_ctx()
+    ch = sh.channel_axis(di, ctx)
+    local = lambda name, dim=-1: sh.channels(params[name], ctx, dim)
+    xz = _channel_mm(x, params["in_proj"], None)
+    u, z = (sh.channels(t, ctx) for t in torch.chunk(xz, 2, dim=-1))
+    acc, conv = causal_conv(u, local("conv_w"), state)
+    u = silu(acc + local("conv_b")).to(x.dtype)
+    proj = _channel_mm(u, params["x_proj"], None, ch)  # (B, S, dr + 2 st)
     dt_r, b_mat, c_mat = torch.split(proj, [dr, st, st], dim=-1)
-    dt = softplus(mm(dt_r, params["dt_proj"]).to(torch.float32) + params["dt_bias"])
-    a = -torch.exp(params["a_log"])  # (di, st)
+    dt = softplus(_channel_mm(dt_r, params["dt_proj"], ch).to(torch.float32)
+                  + local("dt_bias"))
+    a = -torch.exp(local("a_log", 0))  # (di, st)
     h0 = state["h"] if state is not None else torch.zeros(
-        (b, di, st), dtype=torch.float32, device=x.device)
+        (b, u.shape[-1], st), dtype=torch.float32, device=x.device)
     y, h = selective_scan(dt, a, b_mat, c_mat, u, h0)
-    y = (y + params["d_skip"] * u.to(torch.float32)).to(x.dtype)
-    return mm(y * silu(z), params["out_proj"]), _keep_state(state, conv, h)
+    y = (y + local("d_skip") * u.to(torch.float32)).to(x.dtype)
+    return tp_mm(y * silu(z), params["out_proj"], ch)[0], _keep_state(state, conv, h)

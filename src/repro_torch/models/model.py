@@ -173,15 +173,18 @@ class Model:
     # ------------------------------------------------------------------
     def _block_cache(self, kind: str, b: int, max_len: int, device, dtype):
         cfg = self.cfg
+        ctx = sh.serve_ctx()
+        # this rank's block of n over `axis` (all of n with no mesh)
+        mine = lambda n, axis: n if axis is None else n // ctx.axis_sizes[axis]
+        b = mine(b, sh.batch_axis(b, ctx))
         if kind in _ATTN:
             size = min(max_len, cfg.window) if kind == "attn_local" else max_len
-            return L.init_kv_cache(b, size, cfg.n_kv_heads, cfg.d_head, device=device,
+            hkv = mine(cfg.n_kv_heads, sh.kv_head_axis(cfg.n_kv_heads, ctx))
+            return L.init_kv_cache(b, size, hkv, cfg.d_head, device=device,
                                    dtype=dtype, quant=cfg.kv_quant)
-        if kind == "ssm":
-            width, h = cfg.d_inner, (b, cfg.d_inner, cfg.ssm_state)
-        else:  # rec
-            width = cfg.lru_width or cfg.d_model
-            h = (b, width)
+        width = cfg.d_inner if kind == "ssm" else cfg.lru_width or cfg.d_model
+        width = mine(width, sh.channel_axis(width, ctx))
+        h = (b, width, cfg.ssm_state) if kind == "ssm" else (b, width)
         return {"conv": torch.zeros((b, cfg.ssm_conv - 1, width), dtype=dtype, device=device),
                 "h": torch.zeros(h, dtype=torch.float32, device=device)}
 
@@ -190,7 +193,11 @@ class Model:
         """One cache per layer for `batch` rows: a ring KV cache of
         `max_len` slots (a local layer's at most its window), rounded up
         to 32, quantized with `cfg.kv_quant`; a recurrent layer's conv
-        buffer (its last ck - 1 inputs) and f32 state h."""
+        buffer (its last ck - 1 inputs) and f32 state h. Under a serving
+        mesh (`GenerationEngine(mesh=, paged=False)`) each holds this
+        rank's block: its rows where `data` divides the batch, its KV heads
+        where `model` divides them, a recurrent layer's channel block
+        (`sharding.channel_axis`)."""
         device = resolve(device)
         return [self._block_cache(k, batch, max_len, device, dtype) for k in self.kinds]
 
@@ -232,9 +239,10 @@ class Model:
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    def _block_apply(self, p, x, kind, positions, cache, paged):
+    def _block_apply(self, p, x, kind, positions, cache, paged, rows=None):
         """One layer: (x, its cache, its MoE aux loss: f32 0-d, None
-        without an MoE FFN)."""
+        without an MoE FFN). `rows` is the whole batch's row count, of
+        which x holds this rank's share under a serving mesh."""
         cfg = self.cfg
         aux = None
         h = L.rms_norm(p["pre_norm"], x, cfg.norm_eps)
@@ -252,7 +260,8 @@ class Model:
             )
         elif kind in _ATTN:
             out, cache = L.attention_block(p["attn"], h, cfg, positions=positions,
-                                           local=(kind == "attn_local"), cache=cache)
+                                           local=(kind == "attn_local"), cache=cache,
+                                           rows=rows)
         elif kind == "ssm":
             out, cache = L.mamba_block(p["mamba"], h, cfg, state=cache)
         else:
@@ -264,7 +273,6 @@ class Model:
             return x, cache, aux
         h = L.rms_norm(p["pre_mlp_norm"], x, cfg.norm_eps)
         if cfg.n_experts:
-            rows = None if paged is None else paged["write_slots"].shape[0]
             out, aux = L.moe_block(p["moe"], h, cfg, rows=rows)
         else:
             out = L.mlp_block(p["mlp"], h, cfg)
@@ -321,19 +329,21 @@ class Model:
         then holds one layer's activations at a time. It needs no cache.
 
         Under a serving mesh (`GenerationEngine(mesh=)`: `params` this
-        rank's shards, `cache` its pools' head slices) the inputs are
-        whole; each rank computes the rows of the batch the rules split
-        over `data` (all of them where they do not divide), and the logits
-        come back whole on every rank, gathered over both axes."""
+        rank's shards, `cache` its pools' head slices or its ring caches'
+        rows, heads and channels, `init_cache`) the inputs are whole; each
+        rank computes the rows of the batch the rules split over `data`
+        (all of them where they do not divide), and the logits come back
+        whole on every rank, gathered over both axes."""
         cfg = self.cfg
         if paged is not None and cache is None:
             raise ValueError("a paged forward needs an init_paged_cache pool")
         if remat and cache is not None:
             raise ValueError("remat is for the cache-less training forward")
         ctx = sh.serve_ctx()
-        if ctx is not None and paged is None:
+        if ctx is not None and cache is None:
             raise NotImplementedError(
-                "the sharded forward is the paged one (ROADMAP Queue A item 12)")
+                "a serving mesh runs the forward over a paged pool or a ring cache; the "
+                "cache-less forward under one is not ported (ROADMAP Queue A item 12)")
         inp = tokens if embeds is None else embeds
         b, s = inp.shape[:2]
         if positions is None:
@@ -358,7 +368,8 @@ class Model:
             if remat:
                 x, aux_l = self._remat_block(p, x, kind, positions)
             else:
-                x, cache_l, aux_l = self._block_apply(p, x, kind, positions, cache_l, paged)
+                x, cache_l, aux_l = self._block_apply(p, x, kind, positions, cache_l, paged,
+                                                      rows=b)
             if with_aux and aux_l is not None:
                 aux = aux + aux_l
             new_cache.append(cache_l)

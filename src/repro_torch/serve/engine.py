@@ -231,15 +231,11 @@ def make_paged_spec_decode_step(
 _ITEM_12 = "ROADMAP Queue A item 12"
 
 
-def _check_mesh(model: Model, mesh, fsdp: bool, paged: bool, sla, injector,
-                watchdog) -> None:
+def _check_mesh(mesh, fsdp: bool, sla, injector, watchdog) -> None:
     """What a mesh engine does not serve yet raises, naming its ROADMAP
     item; none of it runs unsharded instead."""
     if fsdp:
         raise ValueError(f"fsdp=True serving is not ported yet ({_ITEM_12})")
-    if not paged:
-        raise ValueError(f"a mesh on the dense ring engine (paged=False) is not "
-                         f"ported yet ({_ITEM_12})")
     if mesh.size() > 1 and (sla is not None or injector is not None or watchdog is not None):
         raise ValueError(
             f"sla / injector / watchdog on a mesh of more than one rank are not "
@@ -332,9 +328,14 @@ class GenerationEngine:
     stack's experts split over `model` (each rank runs its own experts'
     bins and gathers their outputs), and every rank samples the same
     tokens from whole logits. A snapshot holds whole pages, so it restores
-    in an unsharded engine of either package. `fsdp=True`, the dense ring
-    engine, and `sla` / `injector` / `watchdog` on more than one rank are
-    not served on a mesh yet (ROADMAP Queue A item 12): they raise.
+    in an unsharded engine of either package. The dense ring engine
+    (`paged=False`) serves on a mesh too: each rank prefills and decodes
+    its rows (all of them where `data` does not divide the batch) on its
+    shards, its ring caches holding its KV heads and its recurrent states
+    its channel block (`Model.init_cache`); `ring` holds them after
+    `generate`. `fsdp=True`, and `sla` / `injector` / `watchdog` on more
+    than one rank, are not served on a mesh yet (ROADMAP Queue A item 12):
+    they raise.
     """
 
     def __init__(
@@ -369,8 +370,6 @@ class GenerationEngine:
             paged = model.attn_only
         self.paged = bool(paged)
         self.mesh, self.fsdp = mesh, fsdp
-        if mesh is not None:
-            _check_mesh(model, mesh, fsdp, self.paged, sla, injector, watchdog)
         if not self.paged:
             if spec_decode is not None:
                 raise ValueError("spec_decode requires the paged engine")
@@ -380,6 +379,8 @@ class GenerationEngine:
                     "(the dense ring cache has no admission loop to gate)")
             if host_tier:
                 raise ValueError("host_tier requires the paged engine")
+        if mesh is not None:
+            _check_mesh(mesh, fsdp, sla, injector, watchdog)
         self.device = resolve(device)
         embed_dev = params["embed"].device
         if embed_dev.type != self.device.type:
@@ -406,11 +407,14 @@ class GenerationEngine:
         self.spec = spec_decode
         self.obs = obs
         if not self.paged:
-            self.tier = self.kv = self.scheduler = None
+            self.tier = self.kv = self.scheduler = self.ring = None
             self._prefill = make_prefill_step(model, cache_len=max_len)
             self._decode = make_decode_step(model)
             if obs is not None and obs.rooflens is not None:
-                self._bind_rooflens(obs.rooflens, max_slots)
+                self._bind_rooflens(obs.rooflens, max_slots)  # the whole params
+            if self._ctx is not None:
+                self.params = sh.local_tree(params, self._ctx)
+                _warm_collectives(self._ctx, self.device)
             return
         self.block_size = block_size
         self.max_blocks = math.ceil(max_len / block_size)
@@ -836,16 +840,20 @@ class GenerationEngine:
         key (seed, i, j), greedy at temperature 0. Each sampled token is
         the one copy back to the host a step. An M-RoPE config gets its
         positions as three equal streams (`layers.rotate`), as the
-        reference passes them."""
+        reference passes them. On a mesh every step runs under the
+        engine's ctx on this rank's shards, and the logits come back whole,
+        so every rank samples the same tokens. The caches stay in `ring`."""
         b, s = prompts.shape
         rows = np.arange(b)
-        logits, cache = self._prefill(self.params, {"tokens": self._t(prompts)})
-        tok = self._sample_rows(logits, rows, np.zeros(b))
-        out = []
-        for i in range(n_steps):
-            out.append(tok)
-            pos = torch.full((b, 1), s + i, dtype=torch.int32, device=self.device)
-            logits, cache = self._decode(self.params, self._t(tok[:, None]),
-                                         pos, cache)
-            tok = self._sample_rows(logits, rows, np.full(b, i + 1))
+        with sh.scope(self._ctx):
+            logits, cache = self._prefill(self.params, {"tokens": self._t(prompts)})
+            tok = self._sample_rows(logits, rows, np.zeros(b))
+            out = []
+            for i in range(n_steps):
+                out.append(tok)
+                pos = torch.full((b, 1), s + i, dtype=torch.int32, device=self.device)
+                logits, cache = self._decode(self.params, self._t(tok[:, None]),
+                                             pos, cache)
+                tok = self._sample_rows(logits, rows, np.full(b, i + 1))
+        self.ring = cache
         return np.stack(out, axis=1)

@@ -1419,6 +1419,41 @@ def test_compressed_allreduce_on_the_card_is_the_cpus_bitwise(nccl_mesh):
                 assert torch.equal(_bits(x.cpu()), _bits(y)), method
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b@512", "recurrentgemma-9b"])
+def test_ring_engine_on_a_one_rank_nccl_mesh_is_the_plain_engine_bitwise(nccl_mesh, arch):
+    """The dense ring engine (`paged=False`) of a recurrent smoke config on
+    a one-rank NCCL mesh, bf8_50 weights compressed on the card (at
+    d_model 512 falcon-mamba's x_proj and dt_proj too): the greedy tokens
+    and every ring plane and recurrent state after the serve are the plain
+    ring engine's, bitwise, and the mesh serve launches the plain serve's
+    GeMVs and GeMMs: every compressed product ran the DECA kernels on its
+    shard, the whole leaf on one rank."""
+    from repro_torch.serve.engine import GenerationEngine
+
+    name, _, width = arch.partition("@")
+    cfg = get_smoke_config(name)
+    if width:
+        cfg = dataclasses.replace(cfg, d_model=int(width))
+    model = Model(cfg)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                        spec=get_spec("bf8_50"))
+    prompts = torch.randint(0, cfg.vocab_size, (4, 12),
+                            generator=torch.Generator().manual_seed(1)).numpy()
+    runs = {}
+    for which, mesh in (("plain", None), ("mesh", nccl_mesh)):
+        eng = GenerationEngine(model, params, max_len=32, paged=False, mesh=mesh)
+        deca_gemm.decompress_gemv.launches = deca_gemm.decompress_gemm.launches = 0
+        tokens = eng.generate(prompts, 8)
+        torch.cuda.synchronize()
+        runs[which] = (tokens, eng.ring, (deca_gemm.decompress_gemv.launches,
+                                          deca_gemm.decompress_gemm.launches))
+    (t0, ring0, n0), (t1, ring1, n1) = runs["plain"], runs["mesh"]
+    assert (t0 == t1).all() and n0 == n1 and n0[0] > 0 and n0[1] > 0
+    for a, b in zip(ring0, ring1):
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
 class _CpuMesh:
     """A one-rank mesh with no axes: the CPU side of the comparison runs the
     same code with no collective."""

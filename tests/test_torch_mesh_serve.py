@@ -37,6 +37,7 @@ import torch_mesh_serve_worker as worker
 from repro_torch.checkpoint.ckpt import load_snapshot
 from repro_torch.convert import params_from_jax
 from repro_torch.dist import sharding as sh
+from repro_torch.kernels.ref import CACHE_EMPTY_POS
 from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.models import layers
 from repro_torch.models.model import Model
@@ -55,25 +56,43 @@ def _free_port() -> int:
 
 
 class Runs:
-    """The two ranks and the reference, started once; `result()` waits."""
+    """The two ranks and the reference of a worker module (`work`: its
+    `reference_trees`, `rank_main` and `reference_main`), started once;
+    `result()` waits. With `reference_first` the reference draws its own
+    trees and starts before this process draws the ranks' trees."""
 
-    def __init__(self, out: pathlib.Path):
+    def __init__(self, out: pathlib.Path, work=worker, reference_first: bool = False):
         self.out = out
-        self.trees = worker.reference_trees()
-        with open(out / "trees.pkl", "wb") as f:
-            pickle.dump(self.trees, f)
         path = os.pathsep.join([str(HERE.parent / "src"), str(HERE)])
         env = dict(os.environ, PYTHONPATH=path, OMP_NUM_THREADS="1")
-        port = _free_port()
         start = lambda code, e: subprocess.Popen(
-            [sys.executable, "-c", "import torch_mesh_serve_worker as w; " + code], cwd=HERE,
+            [sys.executable, "-c", f"import {work.__name__} as w; " + code], cwd=HERE,
             env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        self.procs = [start(f"w.rank_main({r}, 2, {port}, {str(out)!r})", env) for r in range(2)]
         jenv = dict(env, JAX_PLATFORMS="cpu",
                     XLA_FLAGS="--xla_force_host_platform_device_count=2 "
                               "--xla_allow_excess_precision=false")
-        self.procs.append(start(f"w.reference_main({str(out)!r})", jenv))
+        reference = lambda: start(f"w.reference_main({str(out)!r})", jenv)
+        self.procs = [reference()] if reference_first else []
+        try:
+            self.trees = work.reference_trees()
+            with open(out / "trees.pkl", "wb") as f:
+                pickle.dump(self.trees, f)
+            port = _free_port()
+            self.procs += [start(f"w.rank_main({r}, 2, {port}, {str(out)!r})", env)
+                           for r in range(2)]
+            if not reference_first:
+                self.procs.append(reference())
+        except BaseException:
+            self.stop()
+            raise
         self._result = None
+
+    def stop(self):
+        """Kill every process still running."""
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
 
     def result(self):
         if self._result is None:
@@ -82,10 +101,7 @@ class Runs:
                     _, err = p.communicate(timeout=RANK_TIMEOUT)
                     assert p.returncode == 0, err[-4000:]
             finally:
-                for p in self.procs:
-                    if p.poll() is None:
-                        p.kill()
-                        p.communicate()
+                self.stop()
             ranks = []
             for r in range(2):
                 with open(self.out / f"rank{r}.pkl", "rb") as f:
@@ -101,10 +117,7 @@ def runs(tmp_path_factory):
     try:
         yield r
     finally:
-        for p in r.procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        r.stop()
 
 
 @pytest.fixture(scope="module")
@@ -136,6 +149,21 @@ def _unsharded_tokens(params, model=None):
     return worker._serve(eng, _serve_prompts(), worker.SERVE_NEW)
 
 
+def _same_pools(plain, sharded):
+    """Two engines' pools ({plane: (layers, pages, ...)}) are equal on
+    pages 1: bitwise, and page 0, the null page, holds the empty position
+    in every slot of both. Every pad and inactive row of a call writes its
+    K/V into the null page, and the scatter's duplicate indices land in no
+    fixed order on the CPU (ROADMAP Queue C: pad writes race on the null
+    page in both packages), so its K/V bytes are undefined; its positions
+    are always the empty sentinel, which no causal read attends to."""
+    assert plain.keys() == sharded.keys()
+    for pools in (plain, sharded):
+        assert (pools["ppos"][:, 0] == CACHE_EMPTY_POS).all()
+    for name in plain:
+        assert np.array_equal(plain[name][:, 1:], sharded[name][:, 1:]), name
+
+
 # ---------------------------------------------------------------------------
 # in this process, while the ranks and the reference run
 # ---------------------------------------------------------------------------
@@ -144,7 +172,8 @@ def _unsharded_tokens(params, model=None):
 def test_one_rank_mesh_is_the_unsharded_engine_bitwise(solo_mesh, port_params, kv_quant):
     """On a (1, 1) mesh every shard is the whole leaf and every collective
     sums or gathers one operand: the tokens, `stats()` and every pool
-    plane are the unsharded engine's."""
+    plane are the unsharded engine's (`_same_pools`: the null page's K/V
+    left out, its positions empty in both)."""
     model = Model(worker.config())
     engines = [GenerationEngine(model, port_params["served"], device="cpu", mesh=mesh,
                                 kv_quant=kv_quant, **worker.SERVE)
@@ -152,10 +181,7 @@ def test_one_rank_mesh_is_the_unsharded_engine_bitwise(solo_mesh, port_params, k
     tokens = [worker._serve(eng, _serve_prompts(), worker.SERVE_NEW) for eng in engines]
     assert tokens[0] == tokens[1]
     assert engines[0].scheduler.stats() == engines[1].scheduler.stats()
-    plain, sharded = (worker._pools(eng) for eng in engines)
-    assert plain.keys() == sharded.keys()
-    for name in plain:
-        assert np.array_equal(plain[name], sharded[name]), name
+    _same_pools(*(worker._pools(eng) for eng in engines))
 
 
 def test_layout_helpers_are_identities_without_a_mesh(port_params):
@@ -316,11 +342,12 @@ def test_model_split_snapshot_restores_in_an_unsharded_engine(runs, port_params)
 
 
 def test_deferred_cases_raise_naming_their_roadmap_item(runs):
-    """fsdp, the dense ring engine, and sla / injector / watchdog on two
-    ranks raise ValueError naming ROADMAP Queue A item 12; none is served
-    unsharded instead. (MoE stacks are served: the tests below.)"""
+    """fsdp, and sla / injector / watchdog on two ranks raise ValueError
+    naming ROADMAP Queue A item 12; none is served unsharded instead. (MoE
+    stacks are served: the tests below; the dense ring engine too:
+    tests/test_torch_ring_mesh.py.)"""
     for rank in runs.result()["ranks"]:
-        assert set(rank["refusals"]) == {"fsdp", "ring", "sla", "injector", "watchdog"}
+        assert set(rank["refusals"]) == {"fsdp", "sla", "injector", "watchdog"}
         for case, msg in rank["refusals"].items():
             assert ITEM in msg, (case, msg)
 
@@ -332,8 +359,9 @@ def test_deferred_cases_raise_naming_their_roadmap_item(runs):
 def test_one_rank_moe_mesh_is_the_unsharded_engine_bitwise(solo_mesh, port_params):
     """grok's smoke stack on a (1, 1) mesh: every expert local, the
     gathers over one rank; tokens, `stats()` and every pool plane are the
-    unsharded engine's, and the local expert planes are the whole leaf's
-    planes, not copies."""
+    unsharded engine's (`_same_pools`: the null page's K/V left out, its
+    positions empty in both), and the local expert planes are the whole
+    leaf's planes, not copies."""
     model = Model(worker.tree_config("moe"))
     params = port_params["moe"]
     engines = [GenerationEngine(model, params, device="cpu", mesh=mesh, kv_quant="int8",
@@ -341,9 +369,7 @@ def test_one_rank_moe_mesh_is_the_unsharded_engine_bitwise(solo_mesh, port_param
     tokens = [worker._serve(eng, worker.moe_prompts(), worker.SERVE_NEW) for eng in engines]
     assert tokens[0] == tokens[1]
     assert engines[0].scheduler.stats() == engines[1].scheduler.stats()
-    plain, sharded = (worker._pools(eng) for eng in engines)
-    for name in plain:
-        assert np.array_equal(plain[name], sharded[name]), name
+    _same_pools(*(worker._pools(eng) for eng in engines))
     experts = worker.expert_planes(engines[1], params)
     assert experts["views"] and experts["ranges"] == [(0, 1, 2, 3)]
 

@@ -168,7 +168,6 @@ def refusals(model, params, mesh):
 
     cases = {
         "fsdp": {"fsdp": True},
-        "ring": {"paged": False},
         "sla": {"sla": SLAPolicy(max_queue=4)},
         "injector": {"injector": FaultInjector({})},
         "watchdog": {"watchdog": StragglerWatchdog()},

@@ -12,8 +12,12 @@ the GeMV and GeMM against their plain versions at their shapes (K 256,
 N 288 and 256, f32 x), a greedy serve of 4 prompts of 64 tokens and 32
 new tokens through `GenerationEngine`, whose `paged="auto"` picks the
 dense ring engine (prefill and decode walls, tok/s, peak memory, launches
-a step, the decode step beside its bytes bound, a profiler split of a
-step), the kernel path against the plain path over the first 4 layers,
+a step, the decode step beside its bytes bound), the same serve with
+`paged=False` on a one-rank NCCL mesh beside the plain ring engine
+(tokens, ring planes and states bitwise, the same launches, the NCCL
+kernels and copies of a step, the step's wall beside the plain one's),
+the kernels at the model's (1, 4) local shard shapes, a profiler split of
+a step, the kernel path against the plain path over the first 4 layers,
 every token against teacher-forced logits of the full-sequence forward;
 then llama3.2-1b with `paged=False` on an int8 ring, its tokens held to
 teacher-forced logits and against its paged engine's up to a near tie.
