@@ -3126,8 +3126,11 @@ def moe(torch, report):
     the token-slots each prefill drops, of all and of the prompt tokens);
     the same weights served on a one-rank NCCL mesh beside the plain
     engine (`serve_on_mesh`: MOE_MESH_PROMPT-token prompts, MOE_MESH_NEW
-    new; tokens and pool planes bitwise, 417 / 8 / 0 launches a step) and
-    the kernels at grok-1's (1, 4) local shard shapes (`tp_kernels`);
+    new; tokens and pool planes bitwise, 417 / 8 / 0 launches a step),
+    then again with fsdp=True on the same group (each FC leaf gathered at
+    its point of use inside the captured chunk, held to the same rules,
+    its replayed step timed in turns with both), and the kernels at
+    grok-1's (1, 4) local shard shapes (`tp_kernels`);
     the kernel path against the plain path over PATH_LAYERS layers at the
     served capacity and on a drop-free copy (capacity = n_experts), the
     plain path on the kernel path's routes; the drop-free copy with the
@@ -3161,15 +3164,15 @@ def moe(torch, report):
     t = time.perf_counter()
     rec["mesh"] = serve_on_mesh(torch, model, params,
                                 [p[:MOE_MESH_PROMPT] for p in prompts], MOE_MESH_NEW,
-                                "moe mesh serve")
+                                "moe mesh serve", fsdp=True)
     timer = Timer(torch)
     mesh_cases = []
     tp_kernels(torch, timer, mesh_cases, GROK14, GROK14_SHAPES, GROK14_MS, GROK14_HEADS)
     del timer
     cases += mesh_cases
     rec["mesh"]["seconds"] = time.perf_counter() - t
-    log(f"{MOE} on a one-rank mesh and its (1, 4) shard shapes ({len(mesh_cases)} cases, "
-        f"the experts' shapes unchanged: 2 whole experts a rank): "
+    log(f"{MOE} on a one-rank mesh, plain and fsdp, and its (1, 4) shard shapes "
+        f"({len(mesh_cases)} cases, the experts' shapes unchanged: 2 whole experts a rank): "
         f"{rec['mesh']['seconds']:.1f} s")
     log(f"{MOE} capacity {cfg.capacity_factor:g}: token-slots each prefill call drops "
         f"(over its {cfg.n_layers} layers and {cfg.experts_per_token} slots): " + ", ".join(
@@ -3399,28 +3402,117 @@ def one_rank_nccl(torch):
         dist.destroy_process_group()
 
 
-def serve_on_mesh(torch, model, params, batch, new, what):
-    """`model` with `params` (no second build) served by
-    `GenerationEngine(mesh=)` on a one-rank NCCL mesh (1, 1), int8 KV,
-    `batch` x `new` greedy tokens, chunk 8, beside the plain engine on the
-    same requests, the launch counts set to 0 before each serve and read
-    after it. On one rank every shard is the whole leaf (a view, no copy)
-    and every collective sums or gathers one operand: the tokens and every
-    pool plane (null page left out) must be the plain engine's bitwise, a
-    decode step must launch the plain step's kernels (`gemvs_per_step` GeMV,
-    one attention a layer, no decompression) and the serve the plain
-    serve's launches; the chunk runs as captured graphs with the
-    collectives inside, each replayed bitwise. Prints the NCCL kernels and
-    copies a replay launches, the replayed step beside the plain engine's
-    (the one-rank collectives' cost), this rank's param bytes and the
-    mesh engine's peak memory beyond the params. Opens its NCCL group and
-    destroys it (after its engine and graphs). Returns the record."""
+def _serve_mesh_engine(torch, model, params, batch, new, what, mesh, kw, plain, fsdp):
+    """One `GenerationEngine(mesh=, fsdp=)` on `mesh` serving `batch` x
+    `new` beside `plain` = (the plain engine, its outputs by request, its
+    launches), the launch counts set to 0 before its serve and read after
+    it: tokens and every pool plane (null page left out) must be the plain
+    engine's bitwise, a decode step must launch the plain step's kernels
+    (`gemvs_per_step` GeMV, one attention a layer, no decompression) and
+    the serve the plain serve's launches; the chunk runs as captured
+    graphs with the collectives (and under fsdp the gathers) inside, each
+    replayed bitwise. Returns (its record, the engine)."""
     import numpy as np
 
     from repro_torch.core.decompress import compressed_bytes
     from repro_torch.serve.engine import GenerationEngine
 
     cfg = model.cfg
+    plain_eng, plain_done, plain_launches = plain
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    eng = GenerationEngine(model, params, mesh=mesh, fsdp=fsdp, **kw)
+    sched = eng.scheduler
+    chunks = []
+    sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, sched._decode_chunk, chunks)
+    rids = [eng.submit(p, max_new_tokens=new) for p in batch]
+    for fn in counters().values():
+        fn.launches = 0
+    t = time.perf_counter()
+    done = eng.run_until_drained()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {k: fn.launches for k, fn in counters().items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    st = sched.stats()
+    n = sum(c["steps"] for c in chunks)  # device steps: every chunk runs its C
+    same = [np.array_equal(done[r], plain_done[i]) for i, r in enumerate(rids)]
+    bad = [f"layer {i} {name}" for i, (mine, want) in enumerate(zip(eng.kv.pools,
+                                                                    plain_eng.kv.pools))
+           for name, t in mine.items() if not torch.equal(t[1:], want[name][1:])]
+    local, whole = compressed_bytes(eng.params), compressed_bytes(params)
+    buf = eng._ctx.gather_buffer
+    log(f"{what}: {cfg.name} on a (1, 1) NCCL mesh, fsdp={fsdp}, {len(rids)} requests x "
+        f"{new} new tokens (prompts of {[len(p) for p in batch]}), kv {SERVED_KV}: "
+        f"{wall:.2f} s; {st['prefill_calls']} prefill calls, {st['decode_steps']} decode steps "
+        f"in {st['decode_chunks']} chunks ({n} device steps); this rank's params "
+        f"{local / 1e9:.3f} GB of {whole / 1e9:.3f} GB; the mesh engine's peak "
+        f"{peak / 1e9:.3f} GB beyond what was allocated before it"
+        + (f" (its gather buffer {buf.numel() / 1e9:.3f} GB)" if buf is not None else ""))
+    log(f"  tokens bitwise the plain engine's: {sum(same)}/{len(same)} requests; pool "
+        f"planes bitwise (null page left out): {not bad}")
+    per = {k: v / max(n, 1) for k, v in launches.items()}
+    log(f"  launches {launches} (the plain serve's {plain_launches}): a device step "
+        f"{per['deca_gemv']:.1f} GeMV, {per['deca_paged_attention']:.1f} attention, "
+        f"{per['deca_decompress']:.1f} decompression (the plain chunk step: "
+        f"{gemvs_per_step(cfg)} / {cfg.n_layers} / 0)")
+    if not all(same) or bad:
+        raise AssertionError(f"the mesh engine (fsdp={fsdp}) is not the plain engine "
+                             f"bitwise: tokens {same}, planes {bad[:8]}")
+    if (launches != plain_launches
+            or launches["deca_gemv"] != gemvs_per_step(cfg) * n
+            or launches["deca_paged_attention"] != cfg.n_layers * n
+            or launches["deca_gemm"] != gemvs_per_step(cfg) * st["prefill_calls"]
+            or launches["deca_decompress"]):
+        raise AssertionError(f"the mesh serve (fsdp={fsdp}) launched other kernels than the "
+                             f"plain serve's: {launches} over {n} device steps, plain "
+                             f"{plain_launches}")
+    if not eng._chunk_graphs.graphs or any(not c["captured"] for c in chunks[:1]):
+        raise AssertionError(f"the mesh decode chunk (fsdp={fsdp}) was not captured")
+    rec = {}
+    costs = graph_costs(eng._chunk_graphs, chunks, f"{what} decode chunk")
+    check_replays(torch, eng, eng._chunk_graphs, f"{what} decode chunk", rec)
+    rec.update(wall_s=wall, stats=st, launches=launches, plain_launches=plain_launches,
+               per_step=per, tokens_bitwise=same, planes_bitwise=not bad, graphs=costs,
+               param_bytes={"rank": local, "whole": whole}, peak_beyond_bytes=peak,
+               gather_buffer_bytes=0 if buf is None else buf.numel())
+    return rec, eng
+
+
+def gathered_bytes(eng) -> int:
+    """The bytes an fsdp engine's decode step gathers: every leaf of its
+    local tree with a `data` entry, whole (the embedding table's rows are
+    gathered, not the table)."""
+    from repro_torch.dist import sharding as sh
+
+    ctx = eng._ctx
+    return sum(t.numel() * t.element_size() * ctx.axis_sizes["data"]
+               for leaf, spec in ctx.leaf_specs.values() if leaf is not eng.params["embed"]
+               for t, p in sh.planes(leaf, spec) if sh.fsdp_dim(p) is not None)
+
+
+def serve_on_mesh(torch, model, params, batch, new, what, fsdp=False):
+    """`model` with `params` (no second build) served by
+    `GenerationEngine(mesh=)` on a one-rank NCCL mesh (1, 1), int8 KV,
+    `batch` x `new` greedy tokens, chunk 8, beside the plain engine on the
+    same requests (`_serve_mesh_engine`). On one rank every shard is the
+    whole leaf (a view, no copy) and every collective sums or gathers one
+    operand, so all must be bitwise the plain engine's. Prints the NCCL
+    kernels and copies a replay launches, the replayed step beside the
+    plain engine's (the one-rank collectives' cost), this rank's param
+    bytes and the mesh engine's peak memory beyond the params. With
+    `fsdp`, a second mesh engine on the same group serves the same
+    requests with `fsdp=True`: every FC leaf's `data` entry names the one
+    rank, so each point of use all-gathers the leaf's planes into the
+    gather buffer (a device copy) inside the captured chunk; it is held to
+    the same rules, and its replayed step is timed in turns with the plain
+    engine's and the non-fsdp mesh engine's beside the bound of the bytes
+    its gathers copy. Opens its NCCL group and destroys it (after its
+    engines and graphs). Returns the record (the fsdp engine's under
+    "fsdp")."""
+    from repro_torch.serve.engine import GenerationEngine
+
     kw = dict(kv_quant=SERVED_KV, max_slots=4, block_size=32, max_len=2048, decode_chunk=8)
     plain = GenerationEngine(model, params, **kw)
     plain_rids = [plain.submit(p, max_new_tokens=new) for p in batch]
@@ -3428,60 +3520,10 @@ def serve_on_mesh(torch, model, params, batch, new, what):
         fn.launches = 0
     plain_done = plain.run_until_drained()
     plain_launches = {k: fn.launches for k, fn in counters().items()}
-    rec = {}
+    ref = (plain, [plain_done[r] for r in plain_rids], plain_launches)
     with one_rank_nccl(torch) as mesh:
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        eng = GenerationEngine(model, params, mesh=mesh, **kw)
-        sched = eng.scheduler
-        chunks = []
-        sched._decode_chunk = chunk_timer(torch, eng._chunk_graphs, sched._decode_chunk, chunks)
-        rids = [eng.submit(p, max_new_tokens=new) for p in batch]
-        for fn in counters().values():
-            fn.launches = 0
-        t = time.perf_counter()
-        done = eng.run_until_drained()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        launches = {k: fn.launches for k, fn in counters().items()}
-        peak = torch.cuda.max_memory_allocated() - base
-        st = sched.stats()
-        n = sum(c["steps"] for c in chunks)  # device steps: every chunk runs its C
-        outs = [done[r] for r in rids]
-        same = [np.array_equal(o, plain_done[r]) for o, r in zip(outs, plain_rids)]
-        bad = [f"layer {i} {name}" for i, (mine, want) in enumerate(zip(eng.kv.pools,
-                                                                        plain.kv.pools))
-               for name, t in mine.items() if not torch.equal(t[1:], want[name][1:])]
-        local, whole = compressed_bytes(eng.params), compressed_bytes(params)
-        log(f"{what}: {cfg.name} on a (1, 1) NCCL mesh, {len(rids)} requests x {new} new "
-            f"tokens (prompts of {[len(p) for p in batch]}), kv {SERVED_KV}: {wall:.2f} s; "
-            f"{st['prefill_calls']} prefill calls, {st['decode_steps']} decode steps in "
-            f"{st['decode_chunks']} chunks ({n} device steps); this rank's params "
-            f"{local / 1e9:.3f} GB of {whole / 1e9:.3f} GB; the mesh engine's peak "
-            f"{peak / 1e9:.3f} GB beyond what was allocated before it")
-        log(f"  tokens bitwise the plain engine's: {sum(same)}/{len(same)} requests; pool "
-            f"planes bitwise (null page left out): {not bad}")
-        per = {k: v / max(n, 1) for k, v in launches.items()}
-        log(f"  launches {launches} (the plain serve's {plain_launches}): a device step "
-            f"{per['deca_gemv']:.1f} GeMV, {per['deca_paged_attention']:.1f} attention, "
-            f"{per['deca_decompress']:.1f} decompression (the plain chunk step: "
-            f"{gemvs_per_step(cfg)} / {cfg.n_layers} / 0)")
-        if not all(same) or bad:
-            raise AssertionError(f"the mesh engine is not the plain engine bitwise: tokens "
-                                 f"{same}, planes {bad[:8]}")
-        if (launches != plain_launches
-                or launches["deca_gemv"] != gemvs_per_step(cfg) * n
-                or launches["deca_paged_attention"] != cfg.n_layers * n
-                or launches["deca_gemm"] != gemvs_per_step(cfg) * st["prefill_calls"]
-                or launches["deca_decompress"]):
-            raise AssertionError(f"the mesh serve launched other kernels than the plain "
-                                 f"serve's: {launches} over {n} device steps, plain "
-                                 f"{plain_launches}")
-        if not eng._chunk_graphs.graphs or any(not c["captured"] for c in chunks[:1]):
-            raise AssertionError("the mesh decode chunk was not captured")
-        costs = graph_costs(eng._chunk_graphs, chunks, f"{what} decode chunk")
-        check_replays(torch, eng, eng._chunk_graphs, f"{what} decode chunk", rec)
+        rec, eng = _serve_mesh_engine(torch, model, params, batch, new, what, mesh, kw, ref,
+                                      False)
         nccl = collective_kernels(torch, first_replay(eng._chunk_graphs))
         plain_nccl = collective_kernels(torch, first_replay(plain._chunk_graphs))
         mesh_ms, steps = replay_walls(torch, eng._chunk_graphs)
@@ -3492,19 +3534,55 @@ def serve_on_mesh(torch, model, params, batch, new, what):
             f"{steps}), plain {plain_ms:.3f} ms ({plain_ms / plain_steps:.3f} ms a step): "
             f"the one-rank collectives cost {(mesh_ms / steps - plain_ms / plain_steps):.3f} "
             f"ms a step")
-        rec.update(wall_s=wall, stats=st, launches=launches, plain_launches=plain_launches,
-                   per_step=per, tokens_bitwise=same, planes_bitwise=not bad, graphs=costs,
-                   nccl_kernels={"mesh": nccl, "plain": plain_nccl},
+        rec.update(nccl_kernels={"mesh": nccl, "plain": plain_nccl},
                    replay_ms={"mesh": mesh_ms, "plain": plain_ms},
-                   steps_a_replay={"mesh": steps, "plain": plain_steps},
-                   param_bytes={"rank": local, "whole": whole}, peak_beyond_bytes=peak)
-        del eng, sched
+                   steps_a_replay={"mesh": steps, "plain": plain_steps})
+        if fsdp:
+            rec["fsdp"] = fsdp_beside(torch, model, params, batch, new, what, mesh, kw, ref,
+                                      eng, nccl)
+        del eng
         gc.collect()
         torch.cuda.synchronize()
-    del plain
+    del plain, ref
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def fsdp_beside(torch, model, params, batch, new, what, mesh, kw, ref, mesh_eng, mesh_nccl):
+    """`serve_on_mesh`'s fsdp engine, on the group of the non-fsdp one
+    (`mesh_eng`, whose replay launched `mesh_nccl`): its serve held to the
+    plain engine's; a replay's NCCL kernels and copies beside the non-fsdp
+    mesh engine's; the three engines' replayed chunks timed in turns
+    (plain, mesh, fsdp, fsdp, mesh, plain; 2 replays a turn); the bytes its gathers copy a
+    step and their bound (read and write once at HBM_BYTES_PER_S). Returns
+    its record."""
+    frec, feng = _serve_mesh_engine(torch, model, params, batch, new, f"{what} (fsdp)", mesh,
+                                    kw, ref, True)
+    nccl = collective_kernels(torch, first_replay(feng._chunk_graphs))
+    engines = {"plain": ref[0], "mesh": mesh_eng, "fsdp": feng}
+    walls = {k: [] for k in engines}
+    steps = {}
+    for k in ("plain", "mesh", "fsdp", "fsdp", "mesh", "plain"):
+        ms, steps[k] = replay_walls(torch, engines[k]._chunk_graphs, n=2)
+        walls[k].append(ms)
+    step = {k: sum(v) / len(v) / steps[k] for k, v in walls.items()}
+    moved = gathered_bytes(feng)
+    bound = 2 * moved / HBM_BYTES_PER_S * 1e3
+    log(f"  {what} (fsdp): a replay's NCCL kernels and copies {nccl or 'none recorded'} "
+        f"(the non-fsdp mesh engine's {mesh_nccl or 'none recorded'})")
+    log(f"  replayed step in turns (plain, mesh, fsdp, fsdp, mesh, plain): fsdp "
+        f"{step['fsdp']:.3f} ms, non-fsdp mesh {step['mesh']:.3f} ms, plain "
+        f"{step['plain']:.3f} ms: the gathers cost {step['fsdp'] - step['mesh']:.3f} ms a "
+        f"step; they copy {moved / 1e9:.3f} GB a step, bound {bound:.3f} ms (read and write "
+        f"once at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    frec.update(nccl_kernels={"fsdp": nccl, "mesh": mesh_nccl},
+                replay_step_ms=step, replay_walls_ms=walls, gathered_bytes_a_step=moved,
+                gather_bound_ms=bound)
+    del feng, engines
+    gc.collect()
+    torch.cuda.synchronize()
+    return frec
 
 
 def mesh_serve(torch, model, params, prompts, report):

@@ -27,6 +27,7 @@ Entry points:
   serve_ctx / local_tree / leaf_spec         the serving step on local shards
   channel_axis / channels                    a recurrent block's channel block
   expert_range / adopt_specs                 a rank's experts; a re-encoded local tree
+  gathered(w, ctx) / planes / fsdp_dim       fsdp: a local leaf whole over `data`
   constrain_local(x, kind, have) / relayout  a local activation's layout
   all_reduce / all_gather over a named mesh axis
 
@@ -43,6 +44,10 @@ An expert-stacked MoE leaf (E, K, N) is cut along E over `model` where E
 divides (`expert_range`: rank r holds experts [r E/m, (r+1) E/m), each
 whole, as a view of the whole leaf); the MoE block runs only those and
 gathers their outputs over `model`, the reference's `egcd` transpose.
+Under fsdp (the ctx's `fsdp`) each FC leaf's other dim is cut over `data`
+as well; `gathered` all-gathers such a leaf whole at its point of use
+into the ctx's one gather buffer, so every product sees the layout of
+the non-fsdp step.
 
 A ctx's `batch_axes` name the mesh axes over which this process holds only
 its own rows of the batch (data-parallel training, `train/trainer.py`):
@@ -96,6 +101,9 @@ class ShardingCtx:
     batch_axes: Tuple[str, ...] = ()
     # id(local leaf) -> (the leaf, its spec): `local_tree` fills it
     leaf_specs: Dict[int, Tuple[Any, Any]] = dataclasses.field(default_factory=dict)
+    # fsdp: the bytes every `gathered` leaf is gathered into, sized by
+    # `local_tree` / `adopt_specs` for the largest leaf with a `data` entry
+    gather_buffer: Optional[torch.Tensor] = None
     _sizes: Optional[Dict[str, int]] = dataclasses.field(default=None, init=False,
                                                          repr=False, compare=False)
 
@@ -573,16 +581,21 @@ def all_reduce(t: torch.Tensor, axis: str, ctx: ShardingCtx) -> torch.Tensor:
     return t
 
 
-def all_gather(t: torch.Tensor, axis: str, ctx: ShardingCtx, dim: int) -> torch.Tensor:
+def all_gather(t: torch.Tensor, axis: str, ctx: ShardingCtx, dim: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The blocks of `t` of every rank along `axis`, concatenated along
-    `dim` in the axis's order."""
+    `dim` in the axis's order. `out` (n * t.shape[0], ...) receives the
+    collective's result where given (else it is allocated); a gather
+    along another dim than 0 over more than one rank is then copied out
+    of it into a new tensor."""
     import torch.distributed as dist
 
     n, shape = ctx.axis_sizes[axis], tuple(t.shape)
-    out = torch.empty((n * shape[0],) + shape[1:], dtype=t.dtype, device=t.device)
+    if out is None:
+        out = torch.empty((n * shape[0],) + shape[1:], dtype=t.dtype, device=t.device)
     gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
     gather(out, t.contiguous(), group=ctx.mesh.get_group(axis))
-    if dim == 0:
+    if dim == 0 or n == 1:
         return out
     return torch.cat(out.view((n,) + shape).unbind(0), dim=dim)
 
@@ -677,9 +690,11 @@ def channels(t: torch.Tensor, ctx: Optional[ShardingCtx], dim: int = -1) -> torc
 
 def _leaf_shard(leaf: Any, spec: Any, ctx: ShardingCtx) -> Any:
     """A leaf's local shard as contiguous plain tensors; a compressed one
-    with its local logical (K, N). A block that is contiguous in the whole
-    leaf (a cut of its first dim: an expert stack's experts, a K split of
-    the codes) stays a view of it; other cuts are copied."""
+    with its local logical (K, N). Every entry cuts, the fsdp role's
+    `data` entries included. A block that is contiguous in the whole leaf
+    (a cut of its first dim: an expert stack's experts, a K split of a 2-D
+    leaf's codes) stays a view of it; other cuts (an N split, the K split
+    inside each expert of a stack) are copied."""
     piece = lambda t, s: local_shard(t, s, ctx).contiguous()
     if isinstance(leaf, CompressedTensor):
         codes = piece(leaf.codes, spec.codes)
@@ -697,14 +712,23 @@ def local_tree(params: Any, ctx: ShardingCtx) -> Any:
     """This rank's shard of every leaf of a whole param tree under
     `param_spec_tree(params, ctx)` (serve mode), as plain tensors: the
     tree the serving step runs. Each local leaf's spec is registered in
-    `ctx` for `leaf_spec`."""
+    `ctx` for `leaf_spec`. Under fsdp a leaf with a `data` entry holds
+    only this rank's share of it between steps (`gathered` makes it whole
+    at its point of use), and the ctx's gather buffer is sized here."""
+    made = []
 
     def one(spec, leaf):
         out = _leaf_shard(leaf, spec, ctx)
         ctx.leaf_specs[id(out)] = (out, spec)
+        made.append((out, spec))
         return out
 
-    return _map_specs(one, param_spec_tree(params, ctx), params)
+    tree = _map_specs(one, param_spec_tree(params, ctx), params)
+    # the embedding's rows are gathered after their lookup: its table is
+    # gathered whole only as a tied head's (no lm_head)
+    lookup = tree.get("embed") if "lm_head" in tree else None
+    _reserve(ctx, [(leaf, spec) for leaf, spec in made if leaf is not lookup])
+    return tree
 
 
 def leaf_spec(w: Any, ctx: Optional[ShardingCtx]) -> Optional[Any]:
@@ -748,13 +772,16 @@ def adopt_specs(tree: Any, source: Any, ctx: ShardingCtx) -> Any:
     its K, so its groups stay whole). A leaf `tree` shares with `source`
     is registered already."""
     specs = _map_path(lambda path, leaf: leaf_spec(leaf, ctx), source)
+    made = []
 
     def one(spec, leaf):
         if leaf_spec(leaf, ctx) is None:
             ctx.leaf_specs[id(leaf)] = (leaf, _carried_spec(spec, leaf))
+            made.append(ctx.leaf_specs[id(leaf)])
         return leaf
 
     _map_specs(one, specs, tree)
+    _reserve(ctx, made)
 
 
 def matmul_axes(w: Any, ctx: Optional[ShardingCtx]) -> Tuple[Optional[str], Optional[str]]:
@@ -766,3 +793,108 @@ def matmul_axes(w: Any, ctx: Optional[ShardingCtx]) -> Tuple[Optional[str], Opti
     if isinstance(spec, CompressedSpec):
         return _entry(spec.codes[-3]), _entry(spec.codes[-1])
     return _entry(spec[-2]), _entry(spec[-1])
+
+
+# ---------------------------------------------------------------------------
+# fsdp: a leaf's `data` share gathered at its point of use
+# ---------------------------------------------------------------------------
+
+_FSDP_AXIS = _ROLE_AXES["fsdp"][0][0]
+_ALIGN = 256  # bytes: every plane of a gathered leaf starts on this boundary
+
+
+def planes(leaf: Any, spec: Any) -> list:
+    """[(plane, its spec)] of a leaf: a compressed leaf's present planes,
+    a dense leaf itself."""
+    if isinstance(leaf, CompressedTensor):
+        return [(t, p) for t, p in zip((leaf.codes, leaf.mask, leaf.scales), spec)
+                if t is not None]
+    return [(leaf, spec)]
+
+
+def fsdp_dim(spec: Spec) -> Optional[int]:
+    """The dim of a plane's spec split over the fsdp axis, or None (no
+    spec names an axis twice)."""
+    return next((d for d, e in enumerate(spec) if _FSDP_AXIS in entry_axes(e)), None)
+
+
+def _gather_bytes(leaf: Any, spec: Any, ctx: ShardingCtx) -> int:
+    """The bytes `gathered` takes of the buffer for `leaf` (each plane
+    whole, from an aligned start); 0 for a leaf with no `data` entry."""
+    n = ctx.axis_sizes.get(_FSDP_AXIS, 1)
+    return sum(-(-t.numel() * t.element_size() * n // _ALIGN) * _ALIGN
+               for t, p in planes(leaf, spec) if fsdp_dim(p) is not None)
+
+
+def _reserve(ctx: ShardingCtx, leaves: Sequence[Tuple[Any, Any]]) -> None:
+    """Grow the ctx's gather buffer to the largest of `leaves` (leaf,
+    spec) whole: one buffer, allocated before any step runs (and so
+    outside every captured graph), takes every gather in turn."""
+    need = max((_gather_bytes(leaf, spec, ctx) for leaf, spec in leaves), default=0)
+    have = 0 if ctx.gather_buffer is None else ctx.gather_buffer.numel()
+    if need > have:
+        device = next(leaf.device for leaf, spec in leaves if _gather_bytes(leaf, spec, ctx))
+        ctx.gather_buffer = None
+        ctx.gather_buffer = torch.empty(need, dtype=torch.uint8, device=device)
+
+
+def _without_fsdp(spec: Any) -> Any:
+    """`spec` with its `data` entries replicated: a gathered leaf's."""
+    drop = lambda p: None if p is None else tuple(
+        None if _FSDP_AXIS in entry_axes(e) else e for e in p)
+    if isinstance(spec, CompressedSpec):
+        return CompressedSpec(*(drop(p) for p in spec))
+    return drop(spec)
+
+
+def _gather_leaf(w: Any, spec: Any, ctx: ShardingCtx) -> Any:
+    """`w` all-gathered over `data` along each plane's `data` dim, into
+    the ctx's gather buffer. Each plane crosses as its bytes (any dtype,
+    on NCCL and gloo alike): a split of the last dim gathers whole
+    elements' bytes in the axis's order."""
+    buf, n = ctx.gather_buffer, ctx.axis_sizes[_FSDP_AXIS]
+    offset = 0
+
+    def whole(t, p):
+        nonlocal offset
+        d = None if t is None else fsdp_dim(p)
+        if d is None:
+            return t
+        b = t.contiguous().view(torch.uint8)
+        size = b.numel() * n
+        if buf is None or offset + size > buf.numel():
+            raise RuntimeError(f"the gather buffer holds {0 if buf is None else buf.numel()} "
+                               f"bytes, a leaf needs {offset + size}: it was not reserved")
+        out = buf[offset:offset + size].view((n * b.shape[0],) + tuple(b.shape[1:]))
+        offset += -(-size // _ALIGN) * _ALIGN
+        return all_gather(b, _FSDP_AXIS, ctx, d, out=out).view(t.dtype)
+
+    if not isinstance(w, CompressedTensor):
+        return whole(w, spec)
+    codes, mask, scales = (whole(t, p) for t, p in zip((w.codes, w.mask, w.scales), spec))
+    k, _ = w.shape
+    return CompressedTensor(codes, mask, scales, spec=w.spec,
+                            shape=(k // w.codes.shape[-3] * codes.shape[-3], codes.shape[-1]))
+
+
+@contextlib.contextmanager
+def gathered(w: Any, ctx: Optional[ShardingCtx]):
+    """`w`, a local leaf of `local_tree` (or of a tree `adopt_specs`
+    registered), whole along its `data` entries for the extent of the
+    `with`: under fsdp a rank holds its `data` share of each FC leaf
+    between steps, and the point of use all-gathers the rest. A
+    compressed leaf crosses as its codes / mask / scales planes, never
+    decompressed. The whole leaf lies in the ctx's one gather buffer,
+    valid until the next gather, and is registered under its spec less
+    the `data` entries, so `matmul_axes` and `expert_range` read what they
+    read without fsdp. A leaf with no such entry, or no ctx, is `w`."""
+    spec = leaf_spec(w, ctx)
+    if spec is None or not _gather_bytes(w, spec, ctx):
+        yield w
+        return
+    whole = _gather_leaf(w, spec, ctx)
+    ctx.leaf_specs[id(whole)] = (whole, _without_fsdp(spec))
+    try:
+        yield whole
+    finally:
+        del ctx.leaf_specs[id(whole)]

@@ -20,8 +20,11 @@ this rank's shards:
 the reference's `constrain` sites become `sharding.constrain_local` on
 local tensors, and `tp_mm` is the matmul of a column-parallel weight
 (local columns out), a row-parallel one (f32 partial products summed over
-the mesh axis and rounded once) or a replicated one. With no mesh every
-one of them is the plain computation.
+the mesh axis and rounded once) or a replicated one. Under fsdp every FC
+leaf holds its `data` share between steps and is gathered whole at its
+point of use (`sharding.gathered`: in `tp_mm`, once a call for an expert
+stack, for the tied head); the embedding gathers the rows it looked up.
+With no mesh every one of them is the plain computation.
 """
 from __future__ import annotations
 
@@ -391,7 +394,10 @@ def tp_mm(x: torch.Tensor, w, have: Optional[str] = None, axes=None):
     over). Under a serving mesh, `have` is the axis x's last dim is split
     over (None: whole); x is first gathered or cut to w's K layout, which
     `axes` (K axis, N axis) gives for a weight `local_tree` did not
-    register (an expert's `pick` of a stacked leaf). A K
+    register (an expert's `pick` of a stacked leaf, which the caller
+    gathered). A weight `local_tree` registered is gathered whole over
+    `data` first under fsdp (`sharding.gathered`) and released after the
+    product. A K
     split over an axis is a row-parallel weight whose partial products are
     summed over the axis as the reference's partitioned dot sums them: a
     compressed product's in f32 (its accumulator type), rounded once to
@@ -400,7 +406,14 @@ def tp_mm(x: torch.Tensor, w, have: Optional[str] = None, axes=None):
     ctx = sh.serve_ctx()
     if ctx is None:
         return mm(x, w), None
-    k_ax, n_ax = sh.matmul_axes(w, ctx) if axes is None else axes
+    if axes is None:
+        with sh.gathered(w, ctx) as whole:
+            return _tp_mm(x, whole, have, sh.matmul_axes(whole, ctx), ctx)
+    return _tp_mm(x, w, have, axes, ctx)
+
+
+def _tp_mm(x: torch.Tensor, w, have: Optional[str], axes, ctx):
+    k_ax, n_ax = axes
     if have != k_ax:
         last = (None,) * (x.dim() - 1)
         x = sh.relayout(x, last + (have,), last + (k_ax,), ctx)
@@ -703,21 +716,37 @@ def _expert(w, i: int):
     return w.pick(i) if isinstance(w, CompressedTensor) else w[i]
 
 
-def _expert_ffn(params: Params, x: torch.Tensor, i: int, cfg: ModelConfig,
-                axes: Dict[str, Tuple[Optional[str], Optional[str]]]) -> torch.Tensor:
-    """Local expert i's FFN on its capacity bin x (G, cap, D), every matmul
-    through `tp_mm` (the DECA GeMV at G cap <= 32 rows, else the GeMM) on
-    the (K, N) axes `axes` gives each stacked leaf: (None, None) with no
-    mesh or an expert dim split over `model`; where E does not divide
-    `model`, every rank holds every expert as column- and row-parallel
-    shards, whose hidden stays split as the MLP's does."""
+def _stack_mm(w, xs, serve, have: Optional[str] = None):
+    """Every local expert's product with one stacked leaf: xs[slot][j] @
+    expert j of `w` for each routing slot, through `tp_mm` (the DECA GeMV
+    at G cap <= 32 rows, else the GeMM) on the leaf's (K, N) axes:
+    (None, None) with no mesh or an expert dim split over `model`; where E
+    does not divide `model`, every rank holds every expert as column- and
+    row-parallel shards, whose hidden stays split as the MLP's does.
+    Under fsdp the stack is gathered whole over `data` once for all slots
+    and released before the next stack's gather. Returns (the products
+    per slot, the axis their last dim is split over)."""
+    with sh.gathered(w, serve) as whole:
+        axes = sh.matmul_axes(whole, serve)
+        ys = [[tp_mm(x, _expert(whole, j), have, axes=axes)[0] for j, x in enumerate(row)]
+              for row in xs]
+    return ys, axes[1]
+
+
+def _expert_ffns(params: Params, xs, cfg: ModelConfig, serve) -> list:
+    """The local experts' FFNs on their capacity bins, xs[slot][j] (G,
+    cap, D) for local expert j: one (E local, G, cap, D) output per slot.
+    Each stacked leaf's products run together (`_stack_mm`), so each
+    stack is read, and under fsdp gathered, once a call."""
     act = _ACTS[cfg.mlp_act]
-    up, ax = tp_mm(x, _expert(params["w_up"], i), axes=axes["w_up"])
+    up, ax = _stack_mm(params["w_up"], xs, serve)
     if "w_gate" in params:
-        h = act(tp_mm(x, _expert(params["w_gate"], i), axes=axes["w_gate"])[0]) * up
+        gate, _ = _stack_mm(params["w_gate"], xs, serve)
+        h = [[act(g) * u for g, u in zip(gs, us)] for gs, us in zip(gate, up)]
     else:
-        h = act(up)
-    return tp_mm(h, _expert(params["w_down"], i), ax, axes=axes["w_down"])[0]
+        h = [[act(u) for u in us] for us in up]
+    ys, _ = _stack_mm(params["w_down"], h, serve, ax)
+    return [torch.stack(row) for row in ys]
 
 
 def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -733,7 +762,9 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     that takes every token past its bin's capacity and is thrown away;
     each expert's FFN on its whole bin, empty rows and empty bins included,
     so every shape is fixed by (B, S) and nothing waits on the host (a
-    decode chunk captures whole); then each token's output times its gate
+    decode chunk captures whole; the slots' bins are made first, and each
+    stacked leaf's products run for every slot together); then each
+    token's output times its gate
     (zero when dropped), cast to x's dtype, and added to the running
     output in x's dtype. `cap = max(4, ceil(tokens / E * capacity_factor))`
     is host arithmetic on the static shape. The only scatter with repeated
@@ -747,8 +778,10 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     experts only (`sharding.expert_range`) and gathers the (E, G, cap, D)
     outputs over `model` before the combine. Each expert runs whole on
     one rank, so the output is the unsharded block's for the same groups:
-    no sum crosses ranks. The aux loss is not read there, and a serving
-    ctx has no batch axes: it sums nothing across ranks."""
+    no sum crosses ranks. Under fsdp each stack's K over `data` is
+    gathered whole once a call (`_stack_mm`). The aux loss is not read
+    there, and a serving ctx has no batch axes: it sums nothing across
+    ranks."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.experts_per_token
     t = b * s
@@ -791,11 +824,9 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
     pad = torch.zeros((g, 1, d), dtype=x.dtype, device=dev)
     out = torch.zeros((g, tl, d), dtype=x.dtype, device=dev)
     mine, e_ax = sh.expert_range(params["w_up"], serve)
-    axes = {n: sh.matmul_axes(params[n], serve) for n in ("w_up", "w_gate", "w_down")
-            if n in params}
+    bins = []
     for slot in range(k):
         eid = expert_idx[:, :, slot]  # (G, Tl)
-        gates = gate_vals[:, :, slot]
         order = torch.sort(eid, dim=1, stable=True).indices
         sorted_eid = torch.gather(eid, 1, order)
         seg_start = torch.searchsorted(sorted_eid, sorted_eid, side="left")
@@ -805,8 +836,10 @@ def moe_block(params: Params, x: torch.Tensor, cfg: ModelConfig,
         xg = torch.zeros((g, e * cap + 1, d), dtype=x.dtype, device=dev)
         xg[gi, dest] = xf[gi, order]
         xe = xg[:, :-1].reshape(g, e, cap, d).transpose(0, 1)  # (E, G, cap, D)
-        ye = torch.stack([_expert_ffn(params, xe[i], i - mine.start, cfg, axes)
-                          for i in mine])
+        bins.append((order, keep, dest, [xe[i] for i in mine]))
+    outs = _expert_ffns(params, [b[3] for b in bins], cfg, serve)
+    for slot, ((order, keep, dest, _), ye) in enumerate(zip(bins, outs)):
+        gates = gate_vals[:, :, slot]
         if e_ax is not None:  # every rank's experts: the reference's `egcd`
             ye = sh.all_gather(ye, e_ax, serve, 0)
         yflat = torch.cat([ye.transpose(0, 1).reshape(g, e * cap, d), pad], dim=1)
@@ -824,16 +857,21 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     table is row-parallel, split over the vocab: each rank looks up the
     tokens its block holds, zeros elsewhere, and the blocks are summed
     over the axis, one nonzero row each, so the sum is the row itself in
-    the table's dtype (the reference's bf16 result)."""
+    the table's dtype (the reference's bf16 result). Under fsdp D is split
+    over `data` too: the rows of the local D block are looked up and
+    gathered whole, the same bytes as a lookup in the gathered table.
+    `tokens` must be the same on every rank (the whole batch)."""
     ctx = sh.serve_ctx()
-    v_ax = sh.matmul_axes(table, ctx)[0]
+    v_ax, d_ax = sh.matmul_axes(table, ctx)
     if v_ax is None:
-        return table[tokens.long()]
-    n = table.shape[0]
-    idx = tokens.long() - sh.block_start(n, v_ax, ctx)
-    hit = (idx >= 0) & (idx < n)
-    rows = table[torch.clamp(idx, 0, n - 1)] * hit[..., None].to(table.dtype)
-    return sh.all_reduce(rows, v_ax, ctx)
+        rows = table[tokens.long()]
+    else:
+        n = table.shape[0]
+        idx = tokens.long() - sh.block_start(n, v_ax, ctx)
+        hit = (idx >= 0) & (idx < n)
+        rows = table[torch.clamp(idx, 0, n - 1)] * hit[..., None].to(table.dtype)
+        rows = sh.all_reduce(rows, v_ax, ctx)
+    return rows if d_ax is None else sh.all_gather(rows, d_ax, ctx, -1)
 
 
 def embed_scale(x: torch.Tensor, d_model: int) -> torch.Tensor:

@@ -349,9 +349,10 @@ class Model:
         if positions is None:
             positions = torch.arange(s, dtype=torch.int32, device=inp.device)[None].expand(b, s)
         row_ax = sh.batch_axis(b, ctx)
-        inp = sh.local_rows(inp, b, ctx)
         positions = sh.local_rows(positions, b, ctx, dim=positions.dim() - 2)
-        x = L.embed(params["embed"], inp) if embeds is None else inp
+        # every rank looks up every row (under fsdp each holds a D block of
+        # the table and gathers the rows whole over `data`), then keeps its own
+        x = sh.local_rows(L.embed(params["embed"], inp) if embeds is None else inp, b, ctx)
         if cfg.embed_scale:
             x = L.embed_scale(x, cfg.d_model)
         if cfg.pos_emb == "learned":
@@ -375,7 +376,8 @@ class Model:
             new_cache.append(cache_l)
         x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
         if cfg.tie_embeddings:
-            logits = L.tied_logits(x, params["embed"])
+            with sh.gathered(params["embed"], ctx) as table:  # D whole under fsdp
+                logits = L.tied_logits(x, table)
             v_ax = sh.matmul_axes(params["embed"], ctx)[0]  # the table's rows
         else:
             logits, v_ax = L.tp_mm(x.to(torch.float32), params["lm_head"])

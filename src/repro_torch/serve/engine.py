@@ -231,11 +231,9 @@ def make_paged_spec_decode_step(
 _ITEM_12 = "ROADMAP Queue A item 12"
 
 
-def _check_mesh(mesh, fsdp: bool, sla, injector, watchdog) -> None:
+def _check_mesh(mesh, sla, injector, watchdog) -> None:
     """What a mesh engine does not serve yet raises, naming its ROADMAP
     item; none of it runs unsharded instead."""
-    if fsdp:
-        raise ValueError(f"fsdp=True serving is not ported yet ({_ITEM_12})")
     if mesh.size() > 1 and (sla is not None or injector is not None or watchdog is not None):
         raise ValueError(
             f"sla / injector / watchdog on a mesh of more than one rank are not "
@@ -333,9 +331,18 @@ class GenerationEngine:
     its rows (all of them where `data` does not divide the batch) on its
     shards, its ring caches holding its KV heads and its recurrent states
     its channel block (`Model.init_cache`); `ring` holds them after
-    `generate`. `fsdp=True`, and `sla` / `injector` / `watchdog` on more
-    than one rank, are not served on a mesh yet (ROADMAP Queue A item 12):
-    they raise.
+    `generate`. `fsdp=True` (the reference's ZeRO weights) also splits
+    each FC leaf's other dim over `data`: the contraction dim of a
+    column-parallel leaf, the output dim of a row-parallel one, an expert
+    stack's K inside each expert. A rank then holds its `data` share of
+    those leaves between steps, and every point of use all-gathers the
+    leaf whole over `data` (a compressed leaf as its planes) into one
+    buffer and releases it after the product (`sharding.gathered`); the
+    products are then the non-fsdp mesh engine's. A spec engine's draft
+    re-encodes the local shares where the draft's group divides their K;
+    elsewhere it is the target's own local leaf, gathered as the target's.
+    `sla` / `injector` / `watchdog` on more than one rank are not served
+    on a mesh yet (ROADMAP Queue A item 12): they raise.
     """
 
     def __init__(
@@ -380,7 +387,7 @@ class GenerationEngine:
             if host_tier:
                 raise ValueError("host_tier requires the paged engine")
         if mesh is not None:
-            _check_mesh(mesh, fsdp, sla, injector, watchdog)
+            _check_mesh(mesh, sla, injector, watchdog)
         self.device = resolve(device)
         embed_dev = params["embed"].device
         if embed_dev.type != self.device.type:

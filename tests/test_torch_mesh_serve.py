@@ -342,12 +342,12 @@ def test_model_split_snapshot_restores_in_an_unsharded_engine(runs, port_params)
 
 
 def test_deferred_cases_raise_naming_their_roadmap_item(runs):
-    """fsdp, and sla / injector / watchdog on two ranks raise ValueError
-    naming ROADMAP Queue A item 12; none is served unsharded instead. (MoE
-    stacks are served: the tests below; the dense ring engine too:
-    tests/test_torch_ring_mesh.py.)"""
+    """sla / injector / watchdog on two ranks raise ValueError naming
+    ROADMAP Queue A item 12; none is served unsharded instead. (MoE stacks
+    are served: the tests below; the dense ring engine too:
+    tests/test_torch_ring_mesh.py; fsdp too: tests/test_torch_fsdp_serve.py.)"""
     for rank in runs.result()["ranks"]:
-        assert set(rank["refusals"]) == {"fsdp", "sla", "injector", "watchdog"}
+        assert set(rank["refusals"]) == {"sla", "injector", "watchdog"}
         for case, msg in rank["refusals"].items():
             assert ITEM in msg, (case, msg)
 

@@ -167,7 +167,6 @@ def refusals(model, params, mesh):
     from repro_torch.serve.slo import SLAPolicy
 
     cases = {
-        "fsdp": {"fsdp": True},
         "sla": {"sla": SLAPolicy(max_queue=4)},
         "injector": {"injector": FaultInjector({})},
         "watchdog": {"watchdog": StragglerWatchdog()},

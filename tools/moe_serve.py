@@ -13,8 +13,12 @@ attention at Dh 112), a 4-request greedy serve at capacity 1.25 through
 captured decode graphs (replays bitwise, 417 GeMVs a step, the replayed
 step beside its bytes bound, the token-slots each prefill drops), the
 same weights served on a one-rank NCCL mesh (`GenerationEngine(mesh=)`,
-its experts split over `model`) beside the plain engine, bitwise, with
-the kernels at grok-1's (1, 4) local shard shapes, the
+its experts split over `model`) beside the plain engine, bitwise, then
+again with `fsdp=True` on the same mesh (every FC leaf all-gathered over
+`data` at its point of use inside the captured chunk: tokens, pools,
+launches and replays bitwise; its replayed step timed in turns with the
+plain and the non-fsdp mesh engines'), with the kernels at grok-1's
+(1, 4) local shard shapes, the
 kernel path against the plain path over the first 4 layers at capacity
 1.25 and drop-free (the plain path on the kernel path's routes), a
 drop-free copy with the served routers held against teacher-forced logits
